@@ -1,0 +1,21 @@
+"""kat_tpu_torch — the K-mer Analysis Toolkit on PyTorch and CUDA.
+
+A port of `kat_tpu` (the JAX/Pallas package beside it) to PyTorch, with the
+counting hot path in CUDA kernels written for NVIDIA Hopper (sm_90a).  The
+layout mirrors `kat_tpu`, module for module:
+
+    kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting
+    kat_tpu_torch.ops    -- sort / merge / reduce-by-key kernels + plain versions
+    kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme headers
+    kat_tpu_torch.tools  -- the `kat hist` workload and input handling
+    kat_tpu_torch.cli    -- `kat`-compatible command line (hist only so far)
+
+Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel.
+Nothing here imports JAX or `kat_tpu`.
+"""
+
+__version__ = "0.1.0"
+
+DEFAULT_MER_LEN = 27  # reference: lib/include/kat/jellyfish_helper.hpp:75
+DEFAULT_HASH_SIZE = 100_000_000  # reference: jellyfish_helper.hpp:76
+DEFAULT_NB_BINS = 1001  # reference: lib/include/kat/comp_counters.hpp:32

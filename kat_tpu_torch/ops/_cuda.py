@@ -1,0 +1,139 @@
+"""Build and load the Hopper kernels of kat_tpu_torch/csrc.
+
+`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with
+a plain C interface, at first use, into kat_tpu_torch/_build/ (named by a
+hash of the sources and flags, so an edited source rebuilds).  The library
+is loaded with ctypes; each C entry point launches on the stream it is
+given and returns `cudaGetLastError()`, which `launch` turns into an
+exception.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+# C entry point -> argtypes (pointers and the stream as c_void_p, so ctypes
+# never cuts a 64-bit address to a C int).
+_SIGNATURES = {
+    "kat_radix_sort": [_P, _P, _P, _P, _I64, _INT, _P],
+    "kat_radix_sort_scratch": [_I64],
+    "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P],
+    "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "kat_reduce_by_key_scratch": [_I64, _I64],
+}
+
+
+class KernelLibrary:
+    """The compiled kernels: built once per process at first `get()`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self.build_seconds: float | None = None
+        self.build_log = ""
+
+    def _nvcc(self) -> str:
+        cands = [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+        for c in cands:
+            if c and os.path.exists(c):
+                return c
+        raise RuntimeError("nvcc not found (needs the CUDA toolkit)")
+
+    def _build(self) -> str:
+        srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+        hdrs = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        for p in srcs + hdrs:
+            with open(p, "rb") as f:
+                h.update(os.path.basename(p).encode() + f.read())
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"libkat_kernels-{h.hexdigest()[:12]}.so")
+        if os.path.exists(so):
+            self.build_seconds = 0.0
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [self._nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs],
+            capture_output=True, text=True, timeout=900)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{self.build_log}")
+        os.replace(tmp, so)
+        return so
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self._build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int64 if name.endswith(
+                        "_scratch") else ctypes.c_int
+                self._lib = lib
+            return self._lib
+
+
+LIBRARY = KernelLibrary()
+
+
+def scratch_len(name: str, *args) -> int:
+    """Scratch elements the C entry point `name` reports for its inputs."""
+    return int(getattr(LIBRARY.get(), name)(*args))
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point `name` on `device`, on PyTorch's current
+    stream there, and raise if it returns a CUDA error code."""
+    lib = LIBRARY.get()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} on "
+                           f"{torch.cuda.get_device_name(device)}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device | None = None) -> None:
+    """Check what every kernel wrapper takes: a contiguous 1-D tensor of
+    `dtype` (on `device` when given)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")

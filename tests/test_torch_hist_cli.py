@@ -1,0 +1,79 @@
+"""`kat hist` in kat_tpu_torch against kat_tpu: the hist artifacts written
+for the same synthetic FASTQ must be byte-identical.  Both sides run their
+Histogram tool (kat_tpu's CLI would also plot); the port's CLI runs once.
+Inputs cover the native reader (plain and gz FASTQ) and the Python reader
+(a gz stream through a `gen:` pipe)."""
+
+import gzip
+
+import numpy as np
+import pytest
+
+from kat_tpu.tools import hist as jhist
+from kat_tpu_torch import cli as tcli
+from kat_tpu_torch.tools import hist as thist
+
+
+def _write_fastq(path, seed, n_reads=300, read_len=150, gz=False):
+    rng = np.random.default_rng(seed)
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 2500)]
+    off = rng.integers(0, genome.size - read_len, n_reads)
+    seqs = genome[off[:, None] + np.arange(read_len)]
+    noisy = rng.random(n_reads) < 0.05
+    seqs[noisy, rng.integers(0, read_len, noisy.sum())] = ord("N")
+    text = b"".join(b"@r%d\n%s\n+\n%s\n" % (i, s.tobytes(), b"I" * read_len)
+                    for i, s in enumerate(seqs))
+    with (gzip.open if gz else open)(path, "wb") as f:
+        f.write(text)
+    return str(path)
+
+
+def _hist_text(mod, tmp_path, paths, k, low=1, high=10000, inc=1):
+    h = mod.Histogram(paths, low, high, inc)
+    h.output_prefix = str(tmp_path / f"{mod.__name__}.hist")
+    h.input.mer_len = k
+    h.input.hash_size = 1 << 11  # first table < distinct k-mers: it grows
+    h.quiet = True
+    h.execute()
+    h.save()
+    with open(h.output_prefix) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("k,low,high,inc", [(17, 1, 10000, 1),
+                                            (27, 1, 10000, 1),
+                                            (31, 1, 10000, 1),
+                                            (27, 3, 60, 4)])
+def test_hist_matches_jax(tmp_path, k, low, high, inc):
+    fq = _write_fastq(tmp_path / "reads.fq", seed=k)
+    want = _hist_text(jhist, tmp_path, [fq], k, low, high, inc)
+    got = _hist_text(thist, tmp_path, [fq], k, low, high, inc)
+    assert got == want
+    assert want.count("\n") > 6
+
+
+@pytest.mark.parametrize("reader", ["native_gz", "python_gz"])
+def test_hist_gz_inputs_match_jax(tmp_path, reader):
+    gz = _write_fastq(tmp_path / "reads.fq.gz", seed=5, gz=True)
+    path = gz if reader == "native_gz" else f"gen:cat {gz}"
+    want = _hist_text(jhist, tmp_path, [path], 27)
+    got = _hist_text(thist, tmp_path, [path], 27)
+    assert got == want
+
+
+def test_cli_hist_matches_jax(tmp_path, capsys):
+    fq = _write_fastq(tmp_path / "reads.fq", seed=9)
+    out = tmp_path / "cli.hist"
+    assert tcli.main(["hist", "-m", "27", "-o", str(out), fq]) == 0
+    assert "Plot and peak analysis skipped" in capsys.readouterr().out
+    assert out.read_text() == _hist_text(jhist, tmp_path, [fq], 27)
+
+
+def test_unported_modes_raise(tmp_path):
+    fq = _write_fastq(tmp_path / "reads.fq", seed=10, n_reads=20)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(["hist", "-d", "-o", str(tmp_path / "d.hist"), fq])
+    jf = tmp_path / "x.jf27"
+    jf.write_bytes(b"000001234{}")  # a jellyfish header length: LOAD mode
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(["hist", "-o", str(tmp_path / "l.hist"), str(jf)])
