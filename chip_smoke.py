@@ -5,16 +5,26 @@
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    kat_tpu_torch/csrc and prints the build time;
-2. checks each kernel of the counting path (K1 sort, K2 merge, K3 reduce)
-   against its plain PyTorch version on the card at the main path's
-   shapes, exactly (integer keys and counts: tolerance 0), with times;
-3. drives the device main path at bench.py's scale: k=27 canonical reads
+2. checks each kernel (K1 sort, K2 merge, K3 reduce of the counting path;
+   K4 compact, K1 with a value and K2 with payload planes of the lookup
+   path) against its plain PyTorch version on the card at its path's
+   shapes, exactly (integer keys and counts: tolerance 0), with its time,
+   the plain version's, its bandwidth bound and, where one PyTorch call
+   computes the same function, that call's time;
+3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
    slots; the table and histogram must equal torch.unique over the same
-   windows, and each kernel must have been launched by that run;
-4. runs `python -m kat_tpu_torch hist` on a synthetic FASTQ and holds the
-   hist file against one built with numpy alone.
+   windows, and each counting kernel must have been launched by that run;
+4. drives the lookup path at full width against that table: the k=27
+   windows of the same genome, 128 rows of 65,562 codes (2^23 windows,
+   1% of bases substituted, a few invalid), through
+   coverage.window_counts; the counts must come from the sort-merge join,
+   equal the binary-search route and a reference built from torch.unique's
+   table, and each lookup kernel must have been launched by that run;
+5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
+   against numpy), `hist` from the dumped .jf (same histogram), and `sect`
+   of 200 contigs against the reads (held against numpy).
 
 Any failure raises (exit code != 0).  Without a CUDA device it fails at
 once and prints no result.  The last two lines are the kernels' JSON and
@@ -35,6 +45,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 42
 TOLERANCE = 0  # exact: keys and counts are integers
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+ALU_OPS_PER_S = 67e12      # H100 SXM, published float32 rate outside the
+#                            tensor cores: the stand-in for integer
+#                            compares and adds, which have no published rate
 
 
 def _timed_ms(fn, reps: int) -> float:
@@ -64,8 +78,41 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
+def _bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the function's
+    compares and adds at the ALU rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _same(got, want) -> int:
+    """max_abs_err over matching tuples of tensors."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} outputs != {len(want)}")
+    return max(_max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def _report(entry: dict, what: str) -> dict:
+    lib = entry["library_ms"]
+    print(f"{what}: exact, kernel {entry['ms']:.3f} ms, plain "
+          f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms by "
+          f"{entry['bound_by']}, library "
+          + (f"{lib:.3f} ms" if lib is not None else "none"))
+    return entry
+
+
 def check_kernels(dev, gen):
-    """K1-K3 against their plain versions at the flush's shapes."""
+    """Every kernel against its plain version: K1-K3 at the flush's shapes
+    here, the lookup path's three in check_lookup_kernels."""
+    import math
+
     import torch
 
     from kat_tpu_torch.core.kmers import SENTINEL
@@ -80,13 +127,14 @@ def check_kernels(dev, gen):
     keys[torch.rand(n_fresh, device=dev, generator=gen) < 0.1] = SENTINEL
     got = sort_kernel.sort_keys(keys, 55)
     err = _max_abs_err(got, sort_kernel.sort_keys_plain(keys))
-    results.append(dict(
+    results.append(_report(dict(
         name="radix_sort", route="cuda", source="kat_tpu_torch/csrc/sort.cu",
         replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
         ms=_timed_ms(lambda: sort_kernel.sort_keys(keys, 55), 5),
-        plain_ms=_timed_ms(lambda: sort_kernel.sort_keys_plain(keys), 5)))
-    print(f"K1 sort 2^26 keys: exact, kernel {results[-1]['ms']:.3f} ms, "
-          f"plain {results[-1]['plain_ms']:.3f} ms")
+        plain_ms=_timed_ms(lambda: sort_kernel.sort_keys_plain(keys), 5),
+        **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
+        library_ms=_timed_ms(lambda: torch.sort(keys), 5)),
+        "K1 sort 2^26 keys"))
     del keys, got
 
     # K2: a 2^24-slot table (~2^23 real keys) with 2^26 sorted fresh keys
@@ -109,15 +157,15 @@ def check_kernels(dev, gen):
     pk, pw = merge_kernel.merge_sorted_plain(t_keys, t_counts, fresh)
     err = max(_max_abs_err(mk, pk), _max_abs_err(mw, pw))
     del pk, pw
-    results.append(dict(
+    results.append(_report(dict(
         name="merge_path", route="cuda", source="kat_tpu_torch/csrc/merge.cu",
         replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
         ms=_timed_ms(lambda: merge_kernel.merge_sorted(
             t_keys, t_counts, fresh), 5),
         plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_plain(
-            t_keys, t_counts, fresh), 3)))
-    print(f"K2 merge 2^24 table + 2^26 fresh: exact, kernel "
-          f"{results[-1]['ms']:.3f} ms, plain {results[-1]['plain_ms']:.3f} ms")
+            t_keys, t_counts, fresh), 3),
+        **_bound(_nbytes(t_keys, t_counts, fresh, mk, mw), mk.numel()),
+        library_ms=None), "K2 merge 2^24 table + 2^26 fresh"))
 
     # K3: that merged stream reduced to cap 2^24, and to 2^20 (overflow:
     # the true n_unique must come back)
@@ -129,15 +177,108 @@ def check_kernels(dev, gen):
             raise AssertionError(f"K3 n_unique {int(gn)} != {int(wn)}")
         errs += [_max_abs_err(gk, wk), _max_abs_err(gc, wc)]
         print(f"K3 reduce to {out_size}: n_unique {int(gn)} exact")
-    results.append(dict(
+    results.append(_report(dict(
         name="reduce_by_key", route="cuda",
         source="kat_tpu_torch/csrc/reduce.cu",
         replaces="kat_tpu/ops/reduce_kernel.py:147", max_abs_err=max(errs),
         ms=_timed_ms(lambda: reduce_kernel.reduce_by_key(mk, mw, cap), 5),
         plain_ms=_timed_ms(
-            lambda: reduce_kernel.reduce_by_key_plain(mk, mw, cap), 3)))
-    print(f"K3 reduce {mk.numel()} -> 2^24: kernel {results[-1]['ms']:.3f} "
-          f"ms, plain {results[-1]['plain_ms']:.3f} ms")
+            lambda: reduce_kernel.reduce_by_key_plain(mk, mw, cap), 3),
+        **_bound(_nbytes(mk, mw) + cap * 12, 2 * mk.numel()),
+        library_ms=None), f"K3 reduce {mk.numel()} -> 2^24"))
+    del mk, mw, fresh, universe, pick
+    return results + check_lookup_kernels(dev, gen, t_keys, t_counts)
+
+
+def check_lookup_kernels(dev, gen, t_keys, t_counts):
+    """K4 and the payload forms of K1 and K2 against their plain versions
+    at the shapes of a 2^23-query join against a 2^24-slot table."""
+    import math
+
+    import torch
+
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    cap, m = t_keys.numel(), 1 << 23
+    results = []
+
+    # K1 with a value: 2^23 random 54-bit keys, 10% sentinels, each
+    # carrying its position (what the join sorts)
+    q = torch.randint(0, 1 << 54, (m,), dtype=torch.int64, device=dev,
+                      generator=gen)
+    q[::3] = t_keys[torch.randint(0, cap // 2, (len(q[::3]),), device=dev,
+                                  generator=gen)]  # a third hit the table
+    q[torch.rand(m, device=dev, generator=gen) < 0.1] = SENTINEL
+    idx = torch.arange(m, dtype=torch.int32, device=dev)
+    got = sort_kernel.sort_pairs(q, idx, 55)
+    err = _same(got, sort_kernel.sort_pairs_plain(q, idx))
+    results.append(_report(dict(
+        name="radix_sort_pairs", route="cuda",
+        source="kat_tpu_torch/csrc/sort.cu",
+        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+        ms=_timed_ms(lambda: sort_kernel.sort_pairs(q, idx, 55), 5),
+        plain_ms=_timed_ms(lambda: sort_kernel.sort_pairs_plain(q, idx), 5),
+        **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
+        # the values are positions, so the stable sort's indices ARE them
+        library_ms=_timed_ms(lambda: torch.sort(q, stable=True), 5)),
+        "K1 sort 2^23 (key, value) pairs"))
+    sq, sidx = got
+    del q, got
+
+    # K2 with a payload: the table carrying -1 and the sorted queries
+    # their positions, as the join merges them
+    a_planes = (torch.full((cap,), -1, dtype=torch.int32, device=dev),)
+    b_planes = (sidx,)
+    mk, mp = merge_kernel.merge_sorted_payload(t_keys, a_planes, sq, b_planes)
+    pk, pp = merge_kernel.merge_sorted_payload_plain(t_keys, a_planes, sq,
+                                                     b_planes)
+    err = _same((mk, *mp), (pk, *pp))
+    del pk, pp
+    results.append(_report(dict(
+        name="merge_path_payload", route="cuda",
+        source="kat_tpu_torch/csrc/merge.cu",
+        replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_payload(
+            t_keys, a_planes, sq, b_planes), 5),
+        plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_payload_plain(
+            t_keys, a_planes, sq, b_planes), 3),
+        **_bound(_nbytes(t_keys, *a_planes, sq, *b_planes, mk, *mp),
+                 mk.numel()),
+        library_ms=None), "K2 merge 2^24 table + 2^23 queries, 1 plane"))
+
+    # K4: the query rows (a third of the merged stream) pulled out of the
+    # position plane and a count plane; then every row, no row, and an
+    # output too short
+    n = mk.numel()
+    flag = mp[0] >= 0
+    mp = (mp[0], torch.randint(0, 1000, (n,), dtype=torch.int32, device=dev,
+                               generator=gen))
+    errs = []
+    for what, fl, out_size in (("the queries", flag, m),
+                               ("all flagged", torch.ones_like(flag), n),
+                               ("none flagged", torch.zeros_like(flag), m),
+                               ("out_size below the count", flag, m // 2)):
+        got = reduce_kernel.compact_flagged(mp, fl, out_size)
+        want = reduce_kernel.compact_flagged_plain(mp, fl, out_size)
+        if int(got[-1]) != int(want[-1]):
+            raise AssertionError(f"K4 n_kept {int(got[-1])} != "
+                                 f"{int(want[-1])} ({what})")
+        errs.append(_same(got[:-1], want[:-1]))
+        print(f"K4 compact {n}, {what}: n_kept {int(got[-1])} into "
+              f"{out_size} exact")
+    results.append(_report(dict(
+        name="compact_flagged", route="cuda",
+        source="kat_tpu_torch/csrc/compact.cu",
+        replaces="kat_tpu/ops/reduce_kernel.py:285", max_abs_err=max(errs),
+        ms=_timed_ms(lambda: reduce_kernel.compact_flagged(mp, flag, m), 5),
+        plain_ms=_timed_ms(
+            lambda: reduce_kernel.compact_flagged_plain(mp, flag, m), 5),
+        **_bound(_nbytes(*mp, flag) + 2 * m * 4, n),
+        # one call per plane: masked_select takes one tensor
+        library_ms=_timed_ms(
+            lambda: [torch.masked_select(p, flag) for p in mp], 5)),
+        f"K4 compact {n} x 2 planes -> 2^23"))
     return results
 
 
@@ -210,23 +351,104 @@ def main_path(dev):
     if not torch.equal(hist, ref_hist):
         raise AssertionError("histogram differs from the reference")
     print("main path: table and histogram equal the reference")
-    return launches, n_windows / dt
+    return launches, table, genome, ref_keys, ref_counts
 
 
-def _numpy_hist_text(seqs: np.ndarray, k: int, path: str) -> tuple[str, int]:
-    """The hist artifact for [n, L] ASCII reads, built with numpy alone."""
+def lookup_path(dev, table, genome, ref_keys, ref_counts):
+    """The k=27 windows of the counted genome looked up in the table
+    main_path built, through coverage.window_counts."""
+    import torch
+
+    from kat_tpu_torch.core import coverage, tables
+    from kat_tpu_torch.core.kmers import canonicalize, extract_kmers
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    k, rows, row_w = 27, 128, 1 << 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    codes = genome.unfold(0, row_w + k - 1, row_w)[:rows].clone()
+    sub = torch.rand(codes.shape, device=dev, generator=gen) < 0.01
+    codes[sub] = (codes[sub] + 1 + (torch.rand(int(sub.sum()), device=dev,
+                  generator=gen) * 3).to(torch.uint8)) & 3
+    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
+    m = rows * row_w
+    table = tables.compact(table)
+    if not tables._join_policy(m, table.capacity, table.keys.device):
+        raise AssertionError("the join policy did not pick the join")
+
+    coverage.window_counts(table, codes[:2], k, True, method="join")  # warm
+    torch.cuda.synchronize()
+    kernels = (sort_kernel.sort_pairs, merge_kernel.merge_sorted_payload,
+               reduce_kernel.compact_flagged)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    counts, gc, valid = coverage.window_counts(table, codes, k, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    if min(launches) < 1:
+        raise AssertionError(f"a lookup kernel was not launched: {launches}")
+
+    # the same windows by the binary search, and by a search of
+    # torch.unique's table with GC from a running sum of the codes
+    s_counts, s_gc, s_valid = coverage.window_counts(table, codes, k, True,
+                                                     method="search")
+    if not (torch.equal(counts, s_counts) and torch.equal(gc, s_gc)
+            and torch.equal(valid, s_valid)):
+        raise AssertionError("join and search routes differ")
+    fwd, ok = extract_kmers(codes, k, canonical=False)
+    q = canonicalize(fwd, k)
+    pos = torch.searchsorted(ref_keys, q).clamp_max(ref_keys.numel() - 1)
+    want = torch.where(ok & (ref_keys[pos] == q), ref_counts[pos], 0)
+    is_gc = ((codes == 1) | (codes == 2)).to(torch.int32)
+    run = torch.nn.functional.pad(is_gc.cumsum(1), (1, 0))
+    want_gc = torch.where(ok, run[:, k:] - run[:, :-k], -1)
+    if not (torch.equal(counts.to(torch.int64), want)
+            and torch.equal(gc, want_gc.to(torch.int32))
+            and torch.equal(valid, ok)):
+        raise AssertionError("window_counts differs from the reference")
+    n_hit = int((counts > 0).sum())
+    n_bad = int((~valid).sum())
+    if not 0 < n_hit < m - n_bad or n_bad == 0:
+        raise AssertionError(f"degenerate queries: {n_hit} hits, {n_bad} "
+                             f"invalid of {m}")
+
+    wc_ms = _timed_ms(lambda: coverage.window_counts(table, codes, k, True),
+                      3)
+    join_ms = _timed_ms(lambda: tables.lookup(
+        table, q, method="join", key_bits=2 * k + 1), 5)
+    search_ms = _timed_ms(lambda: tables.lookup(table, q, method="search"),
+                          5)
+    print(f"lookup path: {m} windows k={k} against {table.n_unique} keys at "
+          f"capacity {table.capacity} in {dt:.4f} s; {n_hit} present, "
+          f"{n_bad} invalid; join, search and reference agree; launches "
+          f"sort_pairs/merge_payload/compact {launches}")
+    print(f"lookup path: window_counts {wc_ms:.3f} ms = "
+          f"{m / wc_ms * 1e3:.1f} windows/s; join {join_ms:.3f} ms = "
+          f"{join_ms * 1e6 / m:.4f} ns/query; search {search_ms:.3f} ms = "
+          f"{search_ms * 1e6 / m:.4f} ns/query")
+    return launches
+
+
+def _numpy_windows(seq: np.ndarray, k: int):
+    """(canonical keys u64, valid) per k-window of an ASCII array [.., L],
+    with numpy alone."""
     from kat_tpu_torch.core.kmers import canonical_np, encode_ascii
 
-    codes = encode_ascii(seqs).astype(np.uint64)
-    w = seqs.shape[1] - k + 1
-    fwd = np.zeros((seqs.shape[0], w), np.uint64)
-    bad = np.zeros((seqs.shape[0], w), bool)
+    codes = encode_ascii(seq).astype(np.uint64)
+    w = seq.shape[-1] - k + 1
+    fwd = np.zeros(seq.shape[:-1] + (w,), np.uint64)
+    bad = np.zeros(fwd.shape, bool)
     for j in range(k):
-        c = codes[:, j:j + w]
+        c = codes[..., j:j + w]
         bad |= c >= 4
         fwd |= (c & np.uint64(3)) << np.uint64(2 * (k - 1 - j))
-    keys = canonical_np(fwd[~bad], k)
-    _, counts = np.unique(keys, return_counts=True)
+    return canonical_np(fwd, k), ~bad
+
+
+def _numpy_hist_text(counts: np.ndarray, k: int, path: str) -> str:
+    """The hist artifact for the distinct k-mers' counts."""
     base, ceil = 1, 10001
     nb = ceil + 1 - base
     bucket = np.where(counts < base, 0,
@@ -236,11 +458,51 @@ def _numpy_hist_text(seqs: np.ndarray, k: int, path: str) -> tuple[str, int]:
              f"# XLabel:{k}-mer frequency", f"# YLabel:# distinct {k}-mers",
              f"# Kmer value:{k}", f"# Input 1:{path}", "###"]
     lines += [f"{base + i} {int(v)}" for i, v in enumerate(data)]
-    return "\n".join(lines) + "\n", int(len(keys))
+    return "\n".join(lines) + "\n"
+
+
+def _run_cli(args: list[str]) -> float:
+    """`python -m kat_tpu_torch <args>` on the card; returns its seconds."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "kat_tpu_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {args[0]} failed ({proc.returncode}):\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return dt
+
+
+def _read(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _write_contigs(path: str, genome: np.ndarray, rng) -> list:
+    """About 200 contigs cut from the genome: lengths from below k to above
+    the 65,536-base row of the window encoder (so some cross its seam),
+    a few with Ns; lines wrapped at 80 columns."""
+    lengths = [5, 26, 27, 28, 64, 65_536, 65_537, 70_000, 140_000]
+    lengths += [int(v) for v in rng.integers(100, 6000, 191)]
+    contigs = []
+    with open(path, "wb") as f:
+        for i, n in enumerate(lengths):
+            start = int(rng.integers(0, genome.size - n))
+            seq = genome[start:start + n].copy()
+            if i % 7 == 3:
+                seq[rng.integers(0, n, 1 + n // 2000)] = ord("N")
+            contigs.append((f"contig{i}", seq))
+            f.write(b">contig%d\n" % i)
+            for o in range(0, n, 80):
+                f.write(seq[o:o + 80].tobytes() + b"\n")
+    return contigs
 
 
 def cli_run():
-    """`python -m kat_tpu_torch hist` on a synthetic FASTQ."""
+    """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`,
+    `hist` from the dumped .jf, and `sect`."""
     from kat_tpu_torch.io import native
 
     if not native.available():  # build the reader outside the timed run
@@ -253,31 +515,66 @@ def cli_run():
     seqs = genome[off[:, None] + np.arange(read_len)]
     noisy = rng.random(n_reads) < 0.01
     seqs[noisy, rng.integers(0, read_len, noisy.sum())] = ord("N")
+    keys, valid = _numpy_windows(seqs, k)
+    n_kmers = int(valid.sum())
+    uniq, ucounts = np.unique(keys[valid], return_counts=True)
     with tempfile.TemporaryDirectory() as tmp:
         fq = os.path.join(tmp, "reads.fq")
         with open(fq, "wb") as f:
             qual = b"I" * read_len
             for i in range(n_reads):
                 f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
+
         out = os.path.join(tmp, "out.hist")
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "kat_tpu_torch", "hist", "-m", str(k),
-             "-o", out, fq], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=600)
-        dt = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI failed ({proc.returncode}):\n"
-                                 f"{proc.stdout}\n{proc.stderr}")
-        with open(out) as f:
-            got = f.read()
-        want, n_kmers = _numpy_hist_text(seqs, k, fq)
-    if got != want:
-        raise AssertionError("CLI hist differs from the numpy histogram")
-    print(f"CLI: hist of {n_reads} x {read_len} bp reads equals numpy's; "
-          f"{n_kmers} k-mers file-to-artifact in {dt:.4f} s = "
-          f"{n_kmers / dt:.1f} k-mers/s (process start included)")
+        dt = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
+        got = _read(out)
+        if got != _numpy_hist_text(ucounts, k, fq):
+            raise AssertionError("CLI hist differs from the numpy histogram")
+        print(f"CLI: hist -d of {n_reads} x {read_len} bp reads equals "
+              f"numpy's; {n_kmers} k-mers file-to-artifact in {dt:.4f} s = "
+              f"{n_kmers / dt:.1f} k-mers/s (process start included)")
+
+        jf = f"{out}-hash.jf{k}"
+        out2 = os.path.join(tmp, "from_jf.hist")
+        dt = _run_cli(["hist", "-o", out2, jf])
+        if _read(out2).split("###")[1] != got.split("###")[1]:
+            raise AssertionError("hist of the dumped .jf differs from the "
+                                 "hist of the reads")
+        print(f"CLI: hist of the dumped .jf ({os.path.getsize(jf)} bytes, "
+              f"{uniq.size} records) equals the first, in {dt:.4f} s")
+
+        fa = os.path.join(tmp, "asm.fa")
+        contigs = _write_contigs(fa, genome, rng)
+        prefix = os.path.join(tmp, "sect")
+        dt = _run_cli(["sect", "-m", str(k), "-o", prefix, fa, fq])
+        cvg, stats = [], {}
+        for name, seq in contigs:
+            cvg.append(f">{name}\n")
+            if seq.size < k:
+                cvg.append("0\n")
+                stats[name] = ("0", "0.00000")
+                continue
+            ck, cv = _numpy_windows(seq, k)
+            pos = np.minimum(np.searchsorted(uniq, ck), uniq.size - 1)
+            c = np.where(cv & (uniq[pos] == ck), ucounts[pos], 0)
+            cvg.append(" ".join(map(str, c.tolist())) + "\n")
+            stats[name] = (str(int(np.sort(c)[c.size // 2])),
+                           f"{c.sum() / c.size:.5f}")
+        if _read(f"{prefix}-counts.cvg") != "".join(cvg):
+            raise AssertionError("sect counts.cvg differs from numpy's")
+        rows = [ln.split("\t") for ln in
+                _read(f"{prefix}-stats.tsv").splitlines()[1:]]
+        if ({r[0]: (r[1], r[2]) for r in rows} != stats
+                or len(rows) != len(contigs)):
+            raise AssertionError("sect stats.tsv median/mean differ from "
+                                 "numpy's")
+        if not os.path.getsize(f"{prefix}-contamination.mx"):
+            raise AssertionError("sect wrote no contamination matrix")
+    n_bases = sum(seq.size for _, seq in contigs)
+    print(f"CLI: sect of {len(contigs)} contigs ({n_bases} bases, longest "
+          f"{max(s.size for _, s in contigs)}) against the reads equals "
+          f"numpy's counts, medians and means, in {dt:.4f} s = "
+          f"{n_bases / dt:.1f} bases/s (counting and process start included)")
 
 
 def main() -> int:
@@ -303,8 +600,10 @@ def main() -> int:
     gen.manual_seed(SEED)
 
     kernels = check_kernels(dev, gen)
-    launches, _rate = main_path(dev)
-    for entry, n in zip(kernels, launches):
+    launches, table, genome, ref_keys, ref_counts = main_path(dev)
+    launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
+    del table, genome, ref_keys, ref_counts
+    for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
     cli_run()
 

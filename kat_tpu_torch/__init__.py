@@ -1,14 +1,19 @@
 """kat_tpu_torch — the K-mer Analysis Toolkit on PyTorch and CUDA.
 
 A port of `kat_tpu` (the JAX/Pallas package beside it) to PyTorch, with the
-counting hot path in CUDA kernels written for NVIDIA Hopper (sm_90a).  The
+counting and lookup hot paths in CUDA kernels written for NVIDIA Hopper
+(sm_90a).  The
 layout mirrors `kat_tpu`, module for module:
 
-    kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting
-    kat_tpu_torch.ops    -- sort / merge / reduce-by-key kernels + plain versions
-    kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme headers
-    kat_tpu_torch.tools  -- the `kat hist` workload and input handling
-    kat_tpu_torch.cli    -- `kat`-compatible command line (hist only so far)
+    kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting,
+                            bulk lookups and window profiles
+    kat_tpu_torch.ops    -- sort / merge / reduce-by-key / compaction kernels
+                            + plain versions, and the sort-merge join
+    kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme
+                            headers, the .jf codec
+    kat_tpu_torch.tools  -- the `kat hist` and `kat sect` workloads and input
+                            handling
+    kat_tpu_torch.cli    -- `kat`-compatible command line (hist, sect)
 
 Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel.
 Nothing here imports JAX or `kat_tpu`.

@@ -1,2 +1,3 @@
 """Compute core: k-mer packing/extraction (kmers), sorted count tables and
-the streaming counter (counting), histogram binning (stats)."""
+the streaming counters (counting), bulk lookups over tables (tables), window
+profiles (coverage), histogram binning (stats), the text matrix (matrix)."""

@@ -9,9 +9,9 @@ reports more runs than slots, capacity doubles and the merge + reduce
 replay from the pre-flush table, which is the observable behaviour of
 jellyfish's cooperative resize (hash_counter.hpp:204-244).
 
-Left behind from kat_tpu: the LSM run mode (`lsm_runs`, measured a net
-loss on the TPU), `lookup`, and `StreamingCounter`; both readers feed
-CodeStreamingCounter.
+`lookup` is the binary-search route of the bulk lookups (the join of
+ops/join.py is the other, core/tables.py picks).  Left behind from kat_tpu:
+the LSM run mode (`lsm_runs`, measured a net loss on the TPU).
 """
 
 from __future__ import annotations
@@ -80,21 +80,95 @@ class TableFullError(RuntimeError):
     pass
 
 
-class CodeStreamingCounter:
+class StreamingCounter:
+    """Streaming accumulator over extracted int64 keys, with capacity
+    doubling.
+
+    Keys wait in a list on `device` until `flush_windows` of them are
+    pending.  A flush concatenates them, sorts them (K1), merges them with
+    the resident table (K2) and reduces into `capacity` slots (K3).  When
+    the reduce reports more runs than slots, capacity doubles and the merge
+    and reduce replay from the pre-flush table.
+
+    key_bits: every real key is < 2^(key_bits-1) (2k+1 for k-mers).
+
+    The overflow check is synchronous: each flush fetches n_unique from the
+    device (kat_tpu defers that fetch by one flush to keep the TPU busy).
+    """
+
+    def __init__(self, initial_capacity: int = 1 << 20,
+                 max_capacity: int = 1 << 30, disable_grow: bool = False,
+                 flush_windows: int = 1 << 25, key_bits: int = 63,
+                 device="cpu"):
+        self.capacity = int(initial_capacity)
+        self.max_capacity = int(max_capacity)
+        self.disable_grow = disable_grow
+        self.flush_windows = int(flush_windows)
+        self.key_bits = key_bits
+        self.device = torch.device(device)
+        self.table = empty_table(self.capacity, self.device)
+        self._fresh: list[torch.Tensor] = []
+        self._fresh_n = 0
+
+    def add(self, keys: torch.Tensor, valid: torch.Tensor | None = None):
+        """Queue keys of any shape; where `valid` is given and false the
+        key counts as SENTINEL."""
+        keys = keys.reshape(-1).to(self.device)
+        if valid is not None:
+            keys = torch.where(valid.reshape(-1).to(self.device), keys,
+                               SENTINEL)
+        if self._fresh_n + keys.numel() > self.flush_windows:
+            self._flush()
+        self._fresh.append(keys)
+        self._fresh_n += keys.numel()
+        if self._fresh_n >= self.flush_windows:
+            self._flush()
+
+    def _merge_reduce(self, prev: CountTable, fresh: torch.Tensor,
+                      cap: int) -> CountTable:
+        # only the table's real entries join: its padding is all sentinel
+        n = prev.n_unique
+        mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
+        keys, counts, n_unique = reduce_by_key(mkeys, mw, cap)
+        return CountTable(keys, counts, int(n_unique))
+
+    def _flush(self) -> None:
+        if not self._fresh:
+            return
+        fresh = (torch.cat(self._fresh) if len(self._fresh) > 1
+                 else self._fresh[0])
+        self._fresh = []
+        self._fresh_n = 0
+        fresh = sort_keys(fresh, self.key_bits)
+        prev = self.table
+        table = self._merge_reduce(prev, fresh, self.capacity)
+        while table.n_unique > self.capacity:
+            self._grow()
+            table = self._merge_reduce(prev, fresh, self.capacity)
+        self.table = table
+
+    def _grow(self) -> None:
+        if self.disable_grow or self.capacity * 2 > self.max_capacity:
+            raise TableFullError(
+                f"Count table full at capacity {self.capacity}")
+        self.capacity *= 2
+
+    def finish(self) -> CountTable:
+        self._flush()
+        return self.table
+
+
+class CodeStreamingCounter(StreamingCounter):
     """Streaming counter over raw 2-bit code batches.
 
     Each batch is moved to `device` and its windows extracted at once;
-    the int64 keys wait in a list until the flush budget is reached (the
-    JAX counter stacks the code batches instead and extracts inside its
-    fused flush).  A flush concatenates them, sorts them (K1), merges them
-    with the resident table (K2) and reduces into `capacity` slots (K3).
+    the int64 keys wait for the flush as in StreamingCounter (the JAX
+    counter stacks the code batches instead and extracts inside its fused
+    flush).  The flush budget counts batches.
 
     Batches are [rows, length] code arrays (numpy or torch).  A batch with
     another length, or more rows than the current shape, flushes first and
     adopts its shape; batches with fewer rows join the current flush.
-
-    The overflow check is synchronous: each flush fetches n_unique from the
-    device (kat_tpu defers that fetch by one flush to keep the TPU busy).
     """
 
     def __init__(self, k: int, canonical: bool = True,
@@ -102,20 +176,17 @@ class CodeStreamingCounter:
                  max_capacity: int = 1 << 30, disable_grow: bool = False,
                  flush_batches: int = 16, flush_windows: int | None = None,
                  device="cpu"):
+        super().__init__(initial_capacity, max_capacity, disable_grow,
+                         flush_windows or 1 << 25, 2 * k + 1, device)
         self.k = k
         self.canonical = canonical
-        self.capacity = int(initial_capacity)
-        self.max_capacity = int(max_capacity)
-        self.disable_grow = disable_grow
         self.flush_batches = int(flush_batches)
-        # Windows-based flush sizing: when set (e.g. 1<<26), the per-shape
-        # batch budget becomes flush_windows // windows_per_batch, so a
-        # flush holds about flush_windows keys whatever the batch shape.
-        self.flush_windows = int(flush_windows) if flush_windows else None
-        self.device = torch.device(device)
+        # Windows-based flush sizing: when flush_windows is given (e.g.
+        # 1<<26), the per-shape batch budget becomes flush_windows //
+        # windows_per_batch, so a flush holds about flush_windows keys
+        # whatever the batch shape.
+        self._sized_by_windows = bool(flush_windows)
         self._fb_eff = self.flush_batches
-        self.table = empty_table(self.capacity, self.device)
-        self._fresh: list[torch.Tensor] = []
         self._shape: tuple | None = None
 
     def add_codes(self, codes) -> None:
@@ -143,44 +214,30 @@ class CodeStreamingCounter:
         full-size batches would hold flush_windows x (new/old batch ratio)
         keys in one flush — a 25 GB OOM in kat_tpu's history."""
         self._shape = shape
-        if self.flush_windows:
+        if self._sized_by_windows:
             w = shape[0] * (shape[1] - self.k + 1)
             self._fb_eff = max(1, self.flush_windows // max(w, 1))
         else:
             self._fb_eff = self.flush_batches
 
-    def _merge_reduce(self, prev: CountTable, fresh: torch.Tensor,
-                      cap: int) -> CountTable:
-        # only the table's real entries join: its padding is all sentinel
-        n = prev.n_unique
-        mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
-        keys, counts, n_unique = reduce_by_key(mkeys, mw, cap)
-        return CountTable(keys, counts, int(n_unique))
-
     def _flush(self) -> None:
-        if not self._fresh:
-            return
-        fresh = (torch.cat(self._fresh) if len(self._fresh) > 1
-                 else self._fresh[0])
-        self._fresh = []
         self._shape = None
-        fresh = sort_keys(fresh, 2 * self.k + 1)
-        prev = self.table
-        table = self._merge_reduce(prev, fresh, self.capacity)
-        while table.n_unique > self.capacity:
-            self._grow()
-            table = self._merge_reduce(prev, fresh, self.capacity)
-        self.table = table
+        super()._flush()
 
-    def _grow(self) -> None:
-        if self.disable_grow or self.capacity * 2 > self.max_capacity:
-            raise TableFullError(
-                f"Count table full at capacity {self.capacity}")
-        self.capacity *= 2
 
-    def finish(self) -> CountTable:
-        self._flush()
-        return self.table
+def lookup(table: CountTable, qkeys: torch.Tensor) -> torch.Tensor:
+    """Counts for query keys by binary search (0 where absent or SENTINEL);
+    the queries' shape is preserved.  The analogue of jellyfish's
+    `get_key_id` random probing (large_hash_array.hpp:404-476) over the
+    sorted table: `torch.searchsorted`, compare, gather."""
+    cap = table.capacity
+    if cap == 0:
+        return torch.zeros(qkeys.shape, dtype=torch.int32,
+                           device=qkeys.device)
+    q = qkeys.reshape(-1)
+    pos = torch.searchsorted(table.keys, q).clamp_max(cap - 1)
+    found = table.keys[pos] == q
+    return torch.where(found, table.counts[pos], 0).reshape(qkeys.shape)
 
 
 def table_to_numpy(table: CountTable):

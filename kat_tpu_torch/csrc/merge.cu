@@ -17,6 +17,14 @@
 // Ties take the table element first, so the merge is stable; the fresh
 // keys' weight is (key != SENTINEL), as at counting.py:349-350.  The
 // output is exactly na + nb long.
+//
+// kat_merge_sorted_payload is the same kernel carrying 1-3 int32 planes
+// from BOTH sides: the table/query merge of the sort-merge join
+// (kat_tpu/ops/join.py:130, payload (count, idx); :199, payload
+// (count_a, count_b, source); the port's join carries one plane, the
+// query's position, and its dual join two).  What bounds it: device-memory
+// traffic, 8 + 4P bytes in and the same out per element.  The join relies
+// on the tie rule: a table row leads the queries that equal its key.
 
 #include "common.cuh"
 
@@ -25,6 +33,14 @@ namespace {
 constexpr int MG_THREADS = 256;
 constexpr int MG_ITEMS = 8;
 constexpr int MG_TILE = MG_THREADS * MG_ITEMS;  // outputs per block
+constexpr int MG_MAX_PLANES = 3;
+
+struct PlanesIn {
+  const int32_t* p[MG_MAX_PLANES];
+};
+struct PlanesOut {
+  int32_t* p[MG_MAX_PLANES];
+};
 
 // Number of a-elements among the first `diag` outputs (a first on ties).
 __device__ int64_t merge_path(const int64_t* __restrict__ a, int64_t na,
@@ -40,12 +56,15 @@ __device__ int64_t merge_path(const int64_t* __restrict__ a, int64_t na,
   return lo;
 }
 
+// P payload planes ride with the keys.  With B_WEIGHT (P == 1) the b side
+// has no plane in memory: its value is (key != SENTINEL).
+template <int P, bool B_WEIGHT>
 __global__ void __launch_bounds__(MG_THREADS)
-merge_kernel(const int64_t* __restrict__ a, const int32_t* __restrict__ aw,
-             int64_t na, const int64_t* __restrict__ b, int64_t nb,
-             int64_t* __restrict__ out_keys, int32_t* __restrict__ out_w) {
+merge_kernel(const int64_t* __restrict__ a, PlanesIn ap, int64_t na,
+             const int64_t* __restrict__ b, PlanesIn bp, int64_t nb,
+             int64_t* __restrict__ out_keys, PlanesOut op) {
   __shared__ int64_t sk[MG_TILE];
-  __shared__ int32_t sw[MG_TILE];
+  __shared__ int32_t sw[P][MG_TILE];
   __shared__ int64_t s_split[2];
 
   const int64_t n = na + nb;
@@ -63,12 +82,18 @@ merge_kernel(const int64_t* __restrict__ a, const int32_t* __restrict__ aw,
 
   for (int t = threadIdx.x; t < la; t += MG_THREADS) {
     sk[t] = a[i0 + t];
-    sw[t] = aw[i0 + t];
+#pragma unroll
+    for (int q = 0; q < P; q++) sw[q][t] = ap.p[q][i0 + t];
   }
   for (int t = threadIdx.x; t < lb; t += MG_THREADS) {
     const int64_t k = b[j0 + t];
     sk[la + t] = k;
-    sw[la + t] = k != KAT_SENTINEL;
+    if constexpr (B_WEIGHT) {
+      sw[0][la + t] = k != KAT_SENTINEL;
+    } else {
+#pragma unroll
+      for (int q = 0; q < P; q++) sw[q][la + t] = bp.p[q][j0 + t];
+    }
   }
   __syncthreads();
 
@@ -83,14 +108,15 @@ merge_kernel(const int64_t* __restrict__ a, const int32_t* __restrict__ aw,
   }
   int ia = lo, ib = dt - lo;
   int64_t rk[MG_ITEMS];
-  int32_t rw[MG_ITEMS];
+  int32_t rw[P][MG_ITEMS];
 #pragma unroll
   for (int e = 0; e < MG_ITEMS; e++) {
     if (ia + ib < len) {
       const bool take_a = ia < la && (ib >= lb || sk[ia] <= sk[la + ib]);
       const int src = take_a ? ia : la + ib;
       rk[e] = sk[src];
-      rw[e] = sw[src];
+#pragma unroll
+      for (int q = 0; q < P; q++) rw[q][e] = sw[q][src];
       if (take_a) ia++;
       else ib++;
     }
@@ -101,14 +127,29 @@ merge_kernel(const int64_t* __restrict__ a, const int32_t* __restrict__ aw,
     const int p = dt + e;
     if (p < len) {
       sk[p] = rk[e];
-      sw[p] = rw[e];
+#pragma unroll
+      for (int q = 0; q < P; q++) sw[q][p] = rw[q][e];
     }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < len; t += MG_THREADS) {
     out_keys[d0 + t] = sk[t];
-    out_w[d0 + t] = sw[t];
+#pragma unroll
+    for (int q = 0; q < P; q++) op.p[q][d0 + t] = sw[q][t];
   }
+}
+
+template <int P, bool B_WEIGHT>
+int launch_merge(const int64_t* a, PlanesIn ap, int64_t na, const int64_t* b,
+                 PlanesIn bp, int64_t nb, int64_t* out_keys, PlanesOut op,
+                 cudaStream_t stream) {
+  const int64_t n = na + nb;
+  if (n <= 0) return 0;
+  const int64_t blocks = (n + MG_TILE - 1) / MG_TILE;
+  merge_kernel<P, B_WEIGHT><<<(unsigned)blocks, MG_THREADS, 0, stream>>>(
+      a, ap, na, b, bp, nb, out_keys, op);
+  KAT_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace
@@ -118,12 +159,35 @@ extern "C" int kat_merge_sorted(const int64_t* a, const int32_t* aw,
                                 int64_t na, const int64_t* b, int64_t nb,
                                 int64_t* out_keys, int32_t* out_w,
                                 void* stream_ptr) {
+  const PlanesIn ap = {{aw, nullptr, nullptr}};
+  const PlanesIn bp = {{nullptr, nullptr, nullptr}};
+  const PlanesOut op = {{out_w, nullptr, nullptr}};
+  return launch_merge<1, true>(a, ap, na, b, bp, nb, out_keys, op,
+                               (cudaStream_t)stream_ptr);
+}
+
+// out[0:na+nb) = stable merge of (a, a0..a2) with (b, b0..b2), n_planes
+// (1-3) int32 planes on each side; unused plane pointers may be null.
+extern "C" int kat_merge_sorted_payload(
+    const int64_t* a, const int32_t* a0, const int32_t* a1, const int32_t* a2,
+    int64_t na, const int64_t* b, const int32_t* b0, const int32_t* b1,
+    const int32_t* b2, int64_t nb, int n_planes, int64_t* out_keys,
+    int32_t* o0, int32_t* o1, int32_t* o2, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int64_t n = na + nb;
-  if (n <= 0) return 0;
-  const int64_t blocks = (n + MG_TILE - 1) / MG_TILE;
-  merge_kernel<<<(unsigned)blocks, MG_THREADS, 0, stream>>>(
-      a, aw, na, b, nb, out_keys, out_w);
-  KAT_CHECK_LAUNCH();
-  return 0;
+  const PlanesIn ap = {{a0, a1, a2}};
+  const PlanesIn bp = {{b0, b1, b2}};
+  const PlanesOut op = {{o0, o1, o2}};
+  switch (n_planes) {
+    case 1:
+      return launch_merge<1, false>(a, ap, na, b, bp, nb, out_keys, op,
+                                    stream);
+    case 2:
+      return launch_merge<2, false>(a, ap, na, b, bp, nb, out_keys, op,
+                                    stream);
+    case 3:
+      return launch_merge<3, false>(a, ap, na, b, bp, nb, out_keys, op,
+                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

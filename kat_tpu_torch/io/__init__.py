@@ -1,2 +1,2 @@
 """Host I/O: FASTA/FASTQ readers (Python + native C++), mme text headers,
-prefetch pipeline."""
+the jellyfish .jf codec, prefetch pipeline."""

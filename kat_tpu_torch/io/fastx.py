@@ -11,8 +11,7 @@ Device batches are `[rows, row_len]` uint8 2-bit-code arrays, padded with an
 invalid code so windows that touch padding are masked out by
 `extract_kmers`.  Row lengths are bucketed so batches share few shapes.
 
-Port of kat_tpu/io/fastx.py (host numpy code, unchanged apart from leaving
-out the per-record indexed encoder that only sect/cold use).
+Port of kat_tpu/io/fastx.py (host numpy code, unchanged).
 """
 
 from __future__ import annotations
@@ -299,6 +298,42 @@ def read_records_multi(paths: Sequence[str],
 
 def _bucket_len(n: int, quantum: int = 64) -> int:
     return max(quantum, ((n + quantum - 1) // quantum) * quantum)
+
+
+def encode_batch_indexed(records: Sequence[Record], k: int,
+                         max_row: int = 1 << 16):
+    """Encode a fixed batch of records into bucketed code arrays with
+    provenance, for tools needing per-sequence window results (sect/cold).
+
+    Long sequences are split into `max_row` chunks overlapping by (k-1)
+    bases (the seam of mer_overlap_sequence_parser.hpp:44-52) so window
+    streams stitch seamlessly.
+
+    Yields (codes [rows, blen] uint8, meta) pairs where meta is a list of
+    (record_index, window_offset, n_windows) per row.
+    """
+    buckets: dict[int, list[tuple[bytes, int, int, int]]] = {}
+    for ri, rec in enumerate(records):
+        seq = rec.seq
+        if len(seq) < k:
+            continue
+        if len(seq) <= max_row:
+            pieces = [(seq, 0)]
+        else:
+            step = max_row - (k - 1)
+            pieces = [(seq[s:s + max_row], s)
+                      for s in range(0, len(seq) - (k - 1), step)]
+        for piece, start in pieces:
+            blen = _bucket_len(len(piece))
+            nw = len(piece) - k + 1
+            buckets.setdefault(blen, []).append((piece, ri, start, nw))
+    for blen, rows in buckets.items():
+        arr = np.full((len(rows), blen), 255, np.uint8)
+        meta = []
+        for i, (piece, ri, start, nw) in enumerate(rows):
+            arr[i, :len(piece)] = np.frombuffer(piece, np.uint8)
+            meta.append((ri, start, nw))
+        yield encode_ascii(arr), meta
 
 
 def encode_batches(records: Iterable[Record], k: int,

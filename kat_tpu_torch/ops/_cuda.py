@@ -1,6 +1,7 @@
 """Build and load the Hopper kernels of kat_tpu_torch/csrc.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with
+`nvcc` compiles every `csrc/*.cu` for sm_90a (one compiler process per
+source, all started together) and links them into one shared library with
 a plain C interface, at first use, into kat_tpu_torch/_build/ (named by a
 hash of the sources and flags, so an edited source rebuilds).  The library
 is loaded with ctypes; each C entry point launches on the stream it is
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -35,7 +36,14 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "kat_radix_sort": [_P, _P, _P, _P, _I64, _INT, _P],
     "kat_radix_sort_scratch": [_I64],
+    "kat_radix_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P],
+    "kat_radix_sort_pairs_scratch": [_I64],
     "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P],
+    "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
+                                 _INT, _P, _P, _P, _P, _P],
+    "kat_compact_flagged": [_P, _P, _P, _INT, _P, _I64, _P, _P, _P, _I64, _P,
+                            _P, _P],
+    "kat_compact_flagged_scratch": [_I64],
     "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "kat_reduce_by_key_scratch": [_I64, _I64],
 }
@@ -69,15 +77,35 @@ class KernelLibrary:
         if os.path.exists(so):
             self.build_seconds = 0.0
             return so
+        nvcc = self._nvcc()
+        tag = f"{h.hexdigest()[:12]}.{os.getpid()}"
+        objs = [os.path.join(
+            BUILD_DIR, f"{os.path.splitext(os.path.basename(p))[0]}-{tag}.o")
+            for p in srcs]
         tmp = f"{so}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [self._nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs],
-            capture_output=True, text=True, timeout=900)
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(srcs, objs)]
+            logs = [proc.communicate(timeout=900)[0] for proc in procs]
+            self.build_log = "".join(logs)
+            failed = [p for p in procs if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                    text=True, timeout=900)
+                self.build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = [link]
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n"
                                f"{self.build_log}")
         os.replace(tmp, so)
         return so

@@ -1,10 +1,13 @@
-"""K2: merge of the sorted count table with the sorted fresh keys.
+"""K2: merge of two sorted key streams: the count table with the sorted
+fresh keys (`merge_sorted`, the counting flush), or two streams that each
+carry 1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join).
 
 Counterpart of kat_tpu/ops/merge_kernel.py::merge_sorted_kernel (the
 final-phase mode of kat_tpu's bitonic `_window_kernel`).  On a CUDA tensor
-`merge_sorted` launches the merge-path merge of csrc/merge.cu; on a CPU
-tensor it takes the plain version, `merge_sorted_plain`.  The output is
-exactly len(a) + len(b) long, with no block padding.
+both launch the merge-path merge of csrc/merge.cu; on a CPU tensor they
+take the plain versions, `merge_sorted_plain` and
+`merge_sorted_payload_plain`.  The output is exactly len(a) + len(b) long,
+with no block padding, and ties take the `a` element first.
 """
 
 from __future__ import annotations
@@ -51,3 +54,51 @@ def merge_sorted(a_keys: torch.Tensor, a_counts: torch.Tensor,
 
 
 merge_sorted.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def merge_sorted_payload_plain(a_keys, a_planes, b_keys, b_planes):
+    """Plain PyTorch version: concatenate, then a stable sort whose
+    permutation gathers every plane (ties keep `a` first)."""
+    keys, perm = torch.sort(torch.cat([a_keys, b_keys]), stable=True)
+    return keys, tuple(torch.cat([pa, pb])[perm]
+                       for pa, pb in zip(a_planes, b_planes))
+
+
+def merge_sorted_payload(a_keys, a_planes, b_keys, b_planes):
+    """Stable merge of two sorted int64 key streams, each carrying the same
+    number (1-3) of int32 payload planes; ties take `a` first.
+
+    Returns (keys int64, planes tuple of int32), all len(a) + len(b) long."""
+    n_planes = len(a_planes)
+    if not 1 <= n_planes <= 3 or len(b_planes) != n_planes:
+        raise ValueError("expected 1-3 payload planes on each side, got "
+                         f"{n_planes} and {len(b_planes)}")
+    dev = a_keys.device
+    _cuda.require(a_keys, "a_keys", torch.int64)
+    _cuda.require(b_keys, "b_keys", torch.int64, dev)
+    for keys, planes, side in ((a_keys, a_planes, "a"), (b_keys, b_planes, "b")):
+        for i, p in enumerate(planes):
+            _cuda.require(p, f"{side}_planes[{i}]", torch.int32, dev)
+            if p.numel() != keys.numel():
+                raise ValueError(f"{side}_planes[{i}] and {side}_keys differ "
+                                 "in length")
+    if not _cuda.on_cuda(a_keys, "merge_sorted_payload"):
+        return merge_sorted_payload_plain(a_keys, a_planes, b_keys, b_planes)
+    na, nb = a_keys.numel(), b_keys.numel()
+    out_keys = torch.empty(na + nb, dtype=torch.int64, device=dev)
+    out = tuple(torch.empty(na + nb, dtype=torch.int32, device=dev)
+                for _ in range(n_planes))
+    if na + nb == 0:
+        return out_keys, out
+
+    def ptrs(planes):
+        return [p.data_ptr() for p in planes] + [None] * (3 - n_planes)
+
+    _cuda.launch("kat_merge_sorted_payload", dev, a_keys.data_ptr(),
+                 *ptrs(a_planes), na, b_keys.data_ptr(), *ptrs(b_planes), nb,
+                 n_planes, out_keys.data_ptr(), *ptrs(out))
+    merge_sorted_payload.launches += 1
+    return out_keys, out
+
+
+merge_sorted_payload.launches = 0  # kernel launches, read by chip_smoke.py

@@ -1,10 +1,11 @@
-"""K3: reduce-by-key of a sorted (key, weight) stream, compacted to the front.
+"""K3: reduce-by-key of a sorted (key, weight) stream, compacted to the
+front, and K4: stable compaction of the flagged elements of int32 planes.
 
-Counterpart of kat_tpu/ops/reduce_kernel.py::reduce_compact_sorted.  On a
-CUDA tensor `reduce_by_key` launches the scan-based kernels of
-csrc/reduce.cu; on a CPU tensor it takes the plain version,
-`reduce_by_key_plain`.  kat_tpu's compaction kernel (`compact_flagged`) is
-not ported yet.
+Counterparts of kat_tpu/ops/reduce_kernel.py::reduce_compact_sorted and
+::compact_flagged.  On a CUDA tensor `reduce_by_key` launches the
+scan-based kernels of csrc/reduce.cu and `compact_flagged` those of
+csrc/compact.cu; on a CPU tensor they take the plain versions,
+`reduce_by_key_plain` and `compact_flagged_plain`.
 """
 
 from __future__ import annotations
@@ -66,3 +67,57 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
 
 
 reduce_by_key.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def compact_flagged_plain(planes, flag: torch.Tensor, out_size: int):
+    """Plain PyTorch version: boolean indexing per plane, zero padding."""
+    keep = flag.to(torch.bool)
+    outs = []
+    for p in planes:
+        kept = p[keep][:out_size]
+        out = torch.zeros(out_size, dtype=torch.int32, device=p.device)
+        out[:kept.numel()] = kept
+        outs.append(out)
+    return (*outs, keep.sum())
+
+
+def compact_flagged(planes, flag: torch.Tensor, out_size: int):
+    """Stable stream compaction: the elements of 1-3 int32 planes [n] whose
+    flag (bool or uint8 [n]) is set move to the front of out_size slots,
+    order preserved, every plane alike.
+
+    Returns (*compacted int32 [out_size], n_kept): slots after n_kept are
+    zero; n_kept (a 0-d int64 tensor on the planes' device) is the true
+    number of flagged elements even when it exceeds out_size, and writes
+    past out_size are dropped."""
+    planes = tuple(planes)
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"expected 1-3 planes, got {len(planes)}")
+    if out_size < 0:
+        raise ValueError(f"out_size={out_size} < 0")
+    dev = planes[0].device
+    for i, p in enumerate(planes):
+        _cuda.require(p, f"planes[{i}]", torch.int32, dev)
+    if flag.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"flag: expected bool or uint8, got {flag.dtype}")
+    _cuda.require(flag, "flag", flag.dtype, dev)
+    n = flag.numel()
+    if any(p.numel() != n for p in planes):
+        raise ValueError("planes and flag differ in length")
+    if not _cuda.on_cuda(flag, "compact_flagged"):
+        return compact_flagged_plain(planes, flag, out_size)
+    outs = tuple(torch.empty(out_size, dtype=torch.int32, device=dev)
+                 for _ in planes)
+    n_kept = torch.empty(1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(_cuda.scratch_len("kat_compact_flagged_scratch", n),
+                          dtype=torch.int64, device=dev)
+    pad = [None] * (3 - len(planes))
+    _cuda.launch("kat_compact_flagged", dev,
+                 *[p.data_ptr() for p in planes], *pad, len(planes),
+                 flag.data_ptr(), n, *[o.data_ptr() for o in outs], *pad,
+                 out_size, scratch.data_ptr(), n_kept.data_ptr())
+    compact_flagged.launches += 1
+    return (*outs, n_kept[0])
+
+
+compact_flagged.launches = 0  # kernel launches, read by chip_smoke.py

@@ -1,1 +1,1 @@
-"""KAT workloads: hist, plus shared input handling (common.py)."""
+"""KAT workloads: hist, sect, plus shared input handling (common.py)."""

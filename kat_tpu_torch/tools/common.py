@@ -1,17 +1,18 @@
 """Shared tool plumbing: the analogue of KAT's `InputHandler`
 (reference lib/src/input_handler.cc) — glob expansion, file-type sniffing,
-COUNT-vs-LOAD dispatch and 5' trim lists.
+COUNT-vs-LOAD dispatch, 5' trim lists, hash dumping, and the window
+lookups of the sequence tools.
 
-Port of kat_tpu/tools/common.py, COUNT path only: k <= 31 on one device
-through CodeStreamingCounter.  LOAD mode (.jf inputs) and hash dumping
-need the .jf codec, which is not ported yet (ROADMAP §1 item 6); kat_tpu's
-mesh, minimizer-bucketed and wide-key branches are not ported either.
+Port of kat_tpu/tools/common.py for k <= 31 on one device: COUNT through
+CodeStreamingCounter, LOAD from a .jf.  kat_tpu's mesh, minimizer-bucketed
+and wide-key branches are not ported.
 """
 
 from __future__ import annotations
 
 import glob as _glob
 import os
+import sys
 from dataclasses import dataclass, field
 from enum import Enum
 
@@ -20,11 +21,10 @@ import torch
 
 from .. import DEFAULT_HASH_SIZE, DEFAULT_MER_LEN
 from ..core import counting, kmers
-from ..io import fastx
+from ..io import fastx, jellyfish
 from ..utils.timer import stage
 
-_JF_TODO = ("not ported yet: needs the .jf codec, ROADMAP.md §1 item 6 "
-            "(io/jellyfish.py)")
+_WIDE_TODO = "(wide keys) not ported yet: ROADMAP.md §1 item 12"
 
 
 class InputMode(Enum):
@@ -33,8 +33,15 @@ class InputMode(Enum):
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first card.  Without one this raises: counting on the CPU is
+    never chosen silently, the caller has to ask for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: torch.cuda.is_available() is false.  "
+            "kat_tpu_torch runs on an NVIDIA card by default; to run on "
+            "the CPU ask for it: `--device cpu` on the command line, or "
+            "Input(device=torch.device('cpu')).")
+    return torch.device("cuda", 0)
 
 
 def brace_expand(pattern: str) -> list[str]:
@@ -102,8 +109,10 @@ def glob_files(spec: str | list[str]) -> list[str]:
 
 @dataclass
 class Input:
-    """One input group: sequence files to count (a .jf to load is
-    recognised but not supported yet)."""
+    """One input group: either sequence files to count or a .jf to load.
+
+    device: where the table lives and the kernels run; None means the
+    card (`default_device()`, which raises when there is none)."""
     paths: list[str]
     index: int = 1
     canonical: bool = True
@@ -114,7 +123,13 @@ class Input:
     disable_grow: bool = False
     mode: InputMode = InputMode.COUNT
     table: counting.CountTable | None = None
-    device: torch.device = field(default_factory=default_device)
+    header: jellyfish.JfHeader | None = None
+    device: torch.device | None = None
+
+    def _device(self) -> torch.device:
+        if self.device is None:
+            self.device = default_device()
+        return self.device
 
     def validate(self) -> None:
         if self.trim5 and len(self.trim5) not in (1, len(self.paths)):
@@ -147,8 +162,7 @@ class Input:
     def count(self, quiet: bool = False) -> None:
         if self.mer_len > kmers.MAX_K:
             raise NotImplementedError(
-                f"k={self.mer_len} > {kmers.MAX_K} (wide keys) not ported "
-                "yet: ROADMAP.md §1 item 12")
+                f"k={self.mer_len} > {kmers.MAX_K} {_WIDE_TODO}")
         kmers.spec_valid(self.mer_len)
         # Start small and let the streaming counter double as needed; the
         # user's hash_size is an upper bound like jellyfish's initial size.
@@ -163,10 +177,57 @@ class Input:
                 initial_capacity=min(cap0, _next_pow2(self.hash_size)),
                 max_capacity=max(_next_pow2(self.hash_size), cap0),
                 disable_grow=self.disable_grow,
-                flush_windows=1 << 26, device=self.device)
+                flush_windows=1 << 26, device=self._device())
             for batch in self._code_batches():
                 sc.add_codes(batch)
             self.table = sc.finish()
+        self.header = jellyfish.JfHeader(
+            key_len=2 * self.mer_len, counter_len=4,
+            canonical=self.canonical,
+            size=_next_pow2(2 * self.table.n_unique))
+
+    def window_counts(self, codes):
+        """(counts u32, gc i32, valid bool) per window of a [rows, L] code
+        batch, as host arrays: each plane crosses to the host once per
+        batch, so callers slice rows without touching the device."""
+        from ..core import coverage
+
+        c, g, v = coverage.window_counts(
+            self._compacted_table(), self._codes(codes), self.mer_len,
+            self.canonical)
+        return (c.cpu().numpy().astype(np.uint32), g.cpu().numpy(),
+                v.cpu().numpy())
+
+    def window_hit_counts(self, codes):
+        """Per-row (hits, valid windows) with the reduction done on the
+        device: two [rows] vectors come back instead of [rows, W] planes
+        (the profile loop of filter seq only needs ratios)."""
+        from ..core import coverage
+
+        hits, nwin = coverage.window_hit_counts(
+            self._compacted_table(), self._codes(codes), self.mer_len,
+            self.canonical)
+        return hits.cpu().numpy(), nwin.cpu().numpy()
+
+    def _codes(self, codes) -> torch.Tensor:
+        return torch.as_tensor(codes, dtype=torch.uint8).to(self._device())
+
+    def _compacted_table(self):
+        """The finished table compacted for the lookup phase (cached per
+        table identity): bulk lookups pay streaming passes over the
+        table's capacity, so probing at the growth policy's final
+        (possibly 2x-oversized) capacity wastes bandwidth."""
+        from ..core import tables
+
+        if getattr(self, "_lookup_table_src", None) is not self.table:
+            self._lookup_table = tables.compact(self.table)
+            self._lookup_table_src = self.table
+        return self._lookup_table
+
+    def host_table(self):
+        """The finished table (the hook where kat_tpu gathers its mesh
+        shards; one device here)."""
+        return self.table
 
     def _code_batches(self):
         """2-bit code batches for counting: the native densely packed
@@ -191,7 +252,26 @@ class Input:
         return prefetch(it)
 
     def load(self, quiet: bool = False) -> None:
-        raise NotImplementedError(f"LOAD mode (.jf input) {_JF_TODO}")
+        with stage("Loading hashes into memory", quiet=quiet):
+            hdr, keys, counts = jellyfish.read_jf(self.paths[0])
+            self.header = hdr
+            self.canonical = hdr.canonical
+            self.mer_len = hdr.mer_len
+            if hdr.mer_len > kmers.MAX_K:
+                raise NotImplementedError(
+                    f"{self.paths[0]}: k={hdr.mer_len} > {kmers.MAX_K} "
+                    f"{_WIDE_TODO}")
+            self.table = counting.table_from_numpy(
+                keys, counts, capacity=_next_pow2(max(len(keys), 1)),
+                device=self._device())
+
+    def validate_mer_len(self, mer_len: int) -> None:
+        if self.mode == InputMode.LOAD and self.header is not None:
+            if self.header.key_len != mer_len * 2:
+                raise ValueError(
+                    "Cannot process hashes that were created with different "
+                    f"K-mer lengths.  Expected: {mer_len}.  Key length was "
+                    f"{self.header.key_len // 2} for : {self.paths[0]}")
 
     def count_or_load(self, quiet: bool = False) -> None:
         if self.mode == InputMode.COUNT:
@@ -200,7 +280,17 @@ class Input:
             self.load(quiet=quiet)
 
     def dump(self, out_path: str, quiet: bool = False) -> None:
-        raise NotImplementedError(f"--dump_hash {_JF_TODO}")
+        if self.mode == InputMode.COUNT:
+            with stage(f"Dumping hash to {out_path}", quiet=quiet):
+                if os.path.lexists(out_path):
+                    os.remove(out_path)
+                keys, counts = counting.table_to_numpy(self.host_table())
+                jellyfish.write_jf(out_path, keys, counts, self.mer_len,
+                                   self.canonical, cmdline=list(sys.argv))
+        else:
+            if os.path.lexists(out_path):
+                os.remove(out_path)
+            os.symlink(self.paths[0], out_path)
 
 
 def _next_pow2(n: int) -> int:

@@ -38,10 +38,6 @@ class Histogram:
                 "High count value must be >= to low count value.  "
                 f"High: {self.high}; Low: {self.low}")
         self.input.validate()
-        if self.input.dump_hash:  # checked before counting: dump raises
-            self.input.dump(
-                f"{self.output_prefix}-hash.jf{self.input.mer_len}",
-                quiet=self.quiet)
         ensure_parent_dir(self.output_prefix)
         self.input.count_or_load(quiet=self.quiet)
 
@@ -50,6 +46,11 @@ class Histogram:
                 self.input.table.counts, self.base, self.ceil, self.inc,
                 self.nb_buckets)
             self.data = hist.cpu().numpy().astype(np.uint64)
+
+        if self.input.dump_hash:
+            self.input.dump(
+                f"{self.output_prefix}-hash.jf{self.input.mer_len}",
+                quiet=self.quiet)
 
         with stage("Merging counts", quiet=self.quiet):
             pass  # merge is a no-op: the bincount is already global

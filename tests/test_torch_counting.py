@@ -128,3 +128,30 @@ def test_table_from_numpy_matches_jax():
     assert empty.n_unique == 0 and empty.capacity == 8
     assert tc.table_to_numpy(empty)[0].size == 0
     assert jnp.asarray(jc.empty_table(8).counts).sum() == 0
+
+
+@pytest.mark.parametrize("flush_windows", [1 << 25, 700])
+def test_streaming_counter_matches_jax(flush_windows):
+    """The reader-agnostic counter over extracted keys: one flush at the
+    end, or several with the table growing from 2^9 slots."""
+    from kat_tpu.core import kmers as jk
+    from kat_tpu_torch.core import kmers as tk
+
+    batches = _batches(6, [8] * 4)
+    j = jc.StreamingCounter(initial_capacity=1 << 9,
+                            flush_windows=flush_windows)
+    t = tc.StreamingCounter(initial_capacity=1 << 9,
+                            flush_windows=flush_windows, key_bits=2 * K + 1)
+    for b in batches:
+        j.add(*jk.extract_kmers(jnp.asarray(b), K, True))
+        keys, valid = tk.extract_kmers(torch.from_numpy(b), K, True)
+        t.add(keys, valid)
+    jt, tt = j.finish(), t.finish()
+    _assert_same(jt, tt)
+    assert t.capacity == j.capacity > 1 << 9
+    # the code counter is the same engine behind a batch-counting budget
+    c = tc.CodeStreamingCounter(K, initial_capacity=1 << 9)
+    for b in batches:
+        c.add_codes(b)
+    ct = c.finish()
+    assert torch.equal(ct.keys[:ct.n_unique], tt.keys[:tt.n_unique])

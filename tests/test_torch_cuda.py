@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce) against their plain
-PyTorch versions on the card, exactly (integer keys and counts: tolerance 0).
+"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, and the
+payload forms of K1 and K2) against their plain PyTorch versions on the
+card, exactly (integer keys and counts: tolerance 0).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -11,11 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from kat_tpu_torch.core import counting
+from kat_tpu_torch.core import counting, coverage, tables
 from kat_tpu_torch.core.kmers import SENTINEL
-from kat_tpu_torch.ops.merge_kernel import merge_sorted, merge_sorted_plain
-from kat_tpu_torch.ops.reduce_kernel import reduce_by_key, reduce_by_key_plain
-from kat_tpu_torch.ops.sort_kernel import sort_keys, sort_keys_plain
+from kat_tpu_torch.ops.join import counts_join, counts_join_dual
+from kat_tpu_torch.ops.merge_kernel import (merge_sorted, merge_sorted_payload,
+                                            merge_sorted_payload_plain,
+                                            merge_sorted_plain)
+from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
+                                             compact_flagged_plain,
+                                             reduce_by_key,
+                                             reduce_by_key_plain)
+from kat_tpu_torch.ops.sort_kernel import (sort_keys, sort_keys_plain,
+                                           sort_pairs, sort_pairs_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +184,188 @@ def test_counter_matches_cpu_run(dev):
         assert sc.capacity >= 1 << 16
     np.testing.assert_array_equal(tables[0][0], tables[1][0])
     np.testing.assert_array_equal(tables[0][1], tables[1][1])
+
+
+@pytest.mark.parametrize("name", ["random", "all_equal", "all_sentinel",
+                                  "sorted", "reversed", "low_digit_ties",
+                                  "one_pass", "tiny", "k31", "large"])
+def test_sort_pairs_matches_plain(dev, name):
+    """Keys AND values equal the stable plain sort: with all-equal or
+    tied keys that holds only if every pass is stable."""
+    keys, bits = _sort_case(name, np.random.default_rng(4))
+    t = torch.from_numpy(keys).to(dev)
+    v = torch.arange(t.numel(), dtype=torch.int32, device=dev)
+    before = sort_pairs.launches
+    gk, gv = sort_pairs(t, v, bits)
+    torch.cuda.synchronize()
+    assert sort_pairs.launches == before + 1
+    wk, wv = sort_pairs_plain(t, v)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    assert torch.equal(t.cpu(), torch.from_numpy(keys))  # input untouched
+
+
+def test_sort_pairs_empty(dev):
+    k = torch.zeros(0, dtype=torch.int64, device=dev)
+    v = torch.zeros(0, dtype=torch.int32, device=dev)
+    gk, gv = sort_pairs(k, v, 55)
+    assert gk.numel() == 0 and gv.numel() == 0
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("na,nb", [(0, 100), (100, 0), (3000, 5000),
+                                   (1 << 18, (1 << 19) + 5)])
+def test_merge_payload_matches_plain(dev, na, nb, n_planes):
+    rng = np.random.default_rng(na + nb + n_planes)
+    universe = _keys(rng, max(na, nb, 1), sent_frac=0.0)  # many ties
+    a = np.sort(np.where(rng.random(na) < 0.2, SENTINEL,
+                         rng.choice(universe, na)))
+    b = np.sort(np.where(rng.random(nb) < 0.1, SENTINEL,
+                         rng.choice(universe, nb)))
+    ak, bk = (torch.from_numpy(x).to(dev) for x in (a, b))
+    ap = tuple(torch.from_numpy(rng.integers(-5, 1 << 30, na).astype(
+        np.int32)).to(dev) for _ in range(n_planes))
+    bp = tuple(torch.from_numpy(rng.integers(-5, 1 << 30, nb).astype(
+        np.int32)).to(dev) for _ in range(n_planes))
+    before = merge_sorted_payload.launches
+    gk, gp = merge_sorted_payload(ak, ap, bk, bp)
+    torch.cuda.synchronize()
+    assert merge_sorted_payload.launches == before + 1
+    wk, wp = merge_sorted_payload_plain(ak, ap, bk, bp)
+    assert torch.equal(gk, wk) and len(gp) == n_planes
+    for g, w in zip(gp, wp):
+        assert torch.equal(g, w)
+
+
+def test_merge_payload_all_equal_keys(dev):
+    a = torch.full((5000,), 7, dtype=torch.int64, device=dev)
+    b = torch.full((7000,), 7, dtype=torch.int64, device=dev)
+    ap = (torch.arange(5000, dtype=torch.int32, device=dev),)
+    bp = (torch.arange(5000, 12000, dtype=torch.int32, device=dev),)
+    gk, (gp,) = merge_sorted_payload(a, ap, b, bp)
+    # ties take `a` first, both sides in their own order
+    assert torch.equal(gp, torch.arange(12000, dtype=torch.int32,
+                                        device=dev))
+    assert bool((gk == 7).all())
+
+
+def test_merge_payload_empty(dev):
+    e = torch.zeros(0, dtype=torch.int64, device=dev)
+    p = (torch.zeros(0, dtype=torch.int32, device=dev),)
+    gk, (gp,) = merge_sorted_payload(e, p, e, p)
+    assert gk.numel() == 0 and gp.numel() == 0
+
+
+def _compact_case(name, rng):
+    """(n, flag density, out_size as a function of the kept count)."""
+    n = 5 * 2048 + 77
+    if name == "third":
+        return n, 0.33, lambda kept: kept
+    if name == "all":
+        return n, 1.1, lambda kept: kept
+    if name == "none":
+        return n, -1.0, lambda kept: 300
+    if name == "roomy":
+        return n, 0.5, lambda kept: kept + 1000
+    if name == "short":
+        return n, 0.5, lambda kept: kept // 3
+    if name == "no_output":
+        return n, 0.5, lambda kept: 0
+    if name == "empty":
+        return 0, 0.5, lambda kept: 64
+    if name == "tiny":
+        return 3, 0.5, lambda kept: 3
+    if name == "large":
+        return (1 << 22) + 3, 0.4, lambda kept: kept
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("flag_dtype", [torch.bool, torch.uint8])
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("name", ["third", "all", "none", "roomy", "short",
+                                  "no_output", "empty", "tiny", "large"])
+def test_compact_matches_plain(dev, name, n_planes, flag_dtype):
+    rng = np.random.default_rng(n_planes)
+    n, density, out_of = _compact_case(name, rng)
+    flag_np = rng.random(n) < density
+    planes = tuple(torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, n).astype(np.int32)).to(dev)
+        for _ in range(n_planes))
+    flag = torch.from_numpy(flag_np).to(dev).to(flag_dtype)
+    out_size = out_of(int(flag_np.sum()))
+    before = compact_flagged.launches
+    got = compact_flagged(planes, flag, out_size)
+    torch.cuda.synchronize()
+    assert compact_flagged.launches == before + 1
+    want = compact_flagged_plain(planes, flag, out_size)
+    assert len(got) == n_planes + 1
+    assert int(got[-1]) == int(want[-1]) == int(flag_np.sum())
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.shape == (out_size,) and torch.equal(g, w)
+
+
+def _lookup_table(rng, n_keys, cap, dev):
+    keys = rng.choice(np.arange(1, 10 * n_keys, dtype=np.uint64), n_keys,
+                      replace=False)
+    t = counting.table_from_numpy(keys, rng.integers(1, 1000, n_keys),
+                                  capacity=cap)
+    return counting.CountTable(t.keys.to(dev), t.counts.to(dev), t.n_unique)
+
+
+@pytest.mark.parametrize("m,cap", [(5, 4096), (70000, 4096), (3000, 1 << 17),
+                                   (100000, 30000)])
+def test_join_matches_search(dev, m, cap):
+    """counts_join through the kernels equals the binary search: present,
+    absent and SENTINEL queries, a table with and without padding."""
+    rng = np.random.default_rng(m)
+    n_keys = min(cap, 30000)
+    table = _lookup_table(rng, n_keys, cap, dev)
+    q = rng.integers(0, 10 * n_keys + 50, (m,)).astype(np.int64)
+    present = table.keys[:n_keys].cpu().numpy()
+    q[::2] = rng.choice(present, len(q[::2]))
+    q[rng.random(m) < 0.1] = SENTINEL
+    q = torch.from_numpy(q).to(dev)
+    counters = (sort_pairs, merge_sorted_payload, compact_flagged)
+    before = [f.launches for f in counters]
+    got = counts_join(table.keys, table.counts, q, key_bits=40)
+    assert [f.launches for f in counters] == [b + 1 for b in before]
+    want = counting.lookup(table, q)
+    assert torch.equal(got, want) and int((got > 0).sum()) > 0
+    qs = torch.sort(q).values
+    assert torch.equal(
+        counts_join(table.keys, table.counts, qs, queries_sorted=True),
+        counting.lookup(table, qs))
+
+
+def test_join_dual_matches_two_lookups(dev):
+    rng = np.random.default_rng(31)
+    t_a = _lookup_table(rng, 22000, 1 << 15, dev)
+    t_b = _lookup_table(rng, 9000, 9000, dev)
+    got_a, got_b = counts_join_dual(t_a.keys, t_a.counts, t_b.keys,
+                                    t_b.counts)
+    assert torch.equal(got_a, counting.lookup(t_b, t_a.keys))
+    assert torch.equal(got_b, counting.lookup(t_a, t_b.keys))
+    assert int(got_a.sum()) > 0
+
+
+def test_window_counts_join_equals_search(dev):
+    """coverage.window_counts picks the join on the card for a large batch
+    and gives what the search route gives."""
+    rng = np.random.default_rng(8)
+    k = 27
+    genome = rng.integers(0, 4, 1 << 17, dtype=np.uint8)
+    sc = counting.CodeStreamingCounter(k, device=dev)
+    sc.add_codes(genome.reshape(128, 1024))
+    table = sc.finish()
+    codes = genome.reshape(64, 2048).copy()
+    codes[rng.random(codes.shape) < 0.002] = 4
+    codes[rng.random(codes.shape) < 0.01] ^= 1
+    codes = torch.from_numpy(codes).to(dev)
+    assert tables._join_policy(64 * (2048 - k + 1), table.capacity,
+                               table.keys.device)
+    before = compact_flagged.launches
+    got = coverage.window_counts(table, codes, k, True)
+    assert compact_flagged.launches == before + 1
+    want = coverage.window_counts(table, codes, k, True, method="search")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] > 0).sum()) > 0 and int((~got[2]).sum()) > 0

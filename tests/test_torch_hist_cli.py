@@ -8,7 +8,9 @@ import gzip
 
 import numpy as np
 import pytest
+import torch
 
+from kat_tpu.io import jellyfish
 from kat_tpu.tools import hist as jhist
 from kat_tpu_torch import cli as tcli
 from kat_tpu_torch.tools import hist as thist
@@ -33,6 +35,8 @@ def _hist_text(mod, tmp_path, paths, k, low=1, high=10000, inc=1):
     h.output_prefix = str(tmp_path / f"{mod.__name__}.hist")
     h.input.mer_len = k
     h.input.hash_size = 1 << 11  # first table < distinct k-mers: it grows
+    if mod is thist:
+        h.input.device = torch.device("cpu")
     h.quiet = True
     h.execute()
     h.save()
@@ -64,16 +68,21 @@ def test_hist_gz_inputs_match_jax(tmp_path, reader):
 def test_cli_hist_matches_jax(tmp_path, capsys):
     fq = _write_fastq(tmp_path / "reads.fq", seed=9)
     out = tmp_path / "cli.hist"
-    assert tcli.main(["hist", "-m", "27", "-o", str(out), fq]) == 0
+    assert tcli.main(["--device", "cpu", "hist", "-m", "27", "-o", str(out),
+                      fq]) == 0
     assert "Plot and peak analysis skipped" in capsys.readouterr().out
     assert out.read_text() == _hist_text(jhist, tmp_path, [fq], 27)
 
 
 def test_unported_modes_raise(tmp_path):
+    """Wide keys (k > 31) are what `hist` still refuses, counted or
+    loaded."""
     fq = _write_fastq(tmp_path / "reads.fq", seed=10, n_reads=20)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["hist", "-d", "-o", str(tmp_path / "d.hist"), fq])
-    jf = tmp_path / "x.jf27"
-    jf.write_bytes(b"000001234{}")  # a jellyfish header length: LOAD mode
+        tcli.main(["--device", "cpu", "hist", "-m", "33", "-o",
+                   str(tmp_path / "w.hist"), fq])
+    jf = tmp_path / "x.jf33"
+    jellyfish.write_jf(str(jf), [1 << 65, 7], np.array([2, 1]), 33, True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["hist", "-o", str(tmp_path / "l.hist"), str(jf)])
+        tcli.main(["--device", "cpu", "hist", "-o", str(tmp_path / "l.hist"),
+                   str(jf)])
