@@ -23,8 +23,14 @@
    equal the binary-search route and a reference built from torch.unique's
    table, and each lookup kernel must have been launched by that run;
 5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
-   against numpy), `hist` from the dumped .jf (same histogram), and `sect`
-   of 200 contigs against the reads (held against numpy).
+   against numpy) and `hist` from the dumped .jf (same histogram);
+6. runs `sect` of 200 contigs against those reads through the command
+   line's entry point (kat_tpu_torch.cli.main) inside this process, so
+   that the tool's own launches can be read: the six counts are set to 0
+   just before and read just after, every kernel must have been launched,
+   the lookup kernels once per length bucket that the join policy takes,
+   and those buckets must hold most of the windows; the artifacts are held
+   against numpy.
 
 Any failure raises (exit code != 0).  Without a CUDA device it fails at
 once and prints no result.  The last two lines are the kernels' JSON and
@@ -481,11 +487,16 @@ def _read(path: str) -> str:
 
 
 def _write_contigs(path: str, genome: np.ndarray, rng) -> list:
-    """About 200 contigs cut from the genome: lengths from below k to above
-    the 65,536-base row of the window encoder (so some cross its seam),
-    a few with Ns; lines wrapped at 80 columns."""
+    """200 contigs cut from the genome: lengths from below k to above the
+    65,536-base row of the window encoder (so some cross its seam), a few
+    with Ns; lines wrapped at 80 columns.  sect looks a batch up one
+    64-base length bucket at a time, so most contigs share two lengths'
+    buckets (as the scaffolds of one size class do) and those lookups are
+    large enough for the join; the scattered rest are small lookups."""
     lengths = [5, 26, 27, 28, 64, 65_536, 65_537, 70_000, 140_000]
-    lengths += [int(v) for v in rng.integers(100, 6000, 191)]
+    lengths += [int(v) for v in rng.integers(4033, 4097, 120)]
+    lengths += [int(v) for v in rng.integers(19_969, 20_033, 40)]
+    lengths += [int(v) for v in rng.integers(100, 6000, 31)]
     contigs = []
     with open(path, "wb") as f:
         for i, n in enumerate(lengths):
@@ -500,9 +511,39 @@ def _write_contigs(path: str, genome: np.ndarray, rng) -> list:
     return contigs
 
 
-def cli_run():
-    """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`,
-    `hist` from the dumped .jf, and `sect`."""
+def _join_share(contigs, k: int, n_keys: int, dev):
+    """(buckets, windows in them, all windows) of sect's lookups that the
+    join policy takes, for one batch of contigs against a table of n_keys
+    distinct keys."""
+    from kat_tpu_torch.core import tables
+    from kat_tpu_torch.io import fastx
+
+    # the capacity tables.compact leaves: the power of two that holds the
+    # keys, at least 2^17
+    cap = max(1 << 17, 1 << (n_keys - 1).bit_length())
+    records = [fastx.Record(name, seq.tobytes(), None)
+               for name, seq in contigs]
+    n_join = w_join = w_all = 0
+    for codes, _meta in fastx.encode_batch_indexed(records, k):
+        m = codes.shape[0] * (codes.shape[1] - k + 1)
+        w_all += m
+        if tables._join_policy(m, cap, dev):
+            n_join += 1
+            w_join += m
+    return n_join, w_join, w_all
+
+
+def cli_run(dev):
+    """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`
+    and `hist` from the dumped .jf in processes of their own, then `sect`
+    through the same entry point inside this process, between a reset and a
+    reading of every kernel's launch count.  Returns those six counts."""
+    import contextlib
+    import io
+
+    from kat_tpu_torch import cli
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
     from kat_tpu_torch.io import native
 
     if not native.available():  # build the reader outside the timed run
@@ -546,7 +587,27 @@ def cli_run():
         fa = os.path.join(tmp, "asm.fa")
         contigs = _write_contigs(fa, genome, rng)
         prefix = os.path.join(tmp, "sect")
-        dt = _run_cli(["sect", "-m", str(k), "-o", prefix, fa, fq])
+        kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
+                   reduce_kernel.reduce_by_key, sort_kernel.sort_pairs,
+                   merge_kernel.merge_sorted_payload,
+                   reduce_kernel.compact_flagged)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as banner:
+            rc = cli.main(["sect", "-m", str(k), "-o", prefix, fa, fq])
+        dt = time.perf_counter() - t0
+        launches = [fn.launches for fn in kernels]
+        if rc != 0 or "Running KAT in SECT mode" not in banner.getvalue():
+            raise AssertionError(f"sect returned {rc}:\n{banner.getvalue()}")
+        n_join, w_join, w_all = _join_share(contigs, k, uniq.size, dev)
+        if min(launches) < 1 or launches[3:] != [n_join] * 3:
+            raise AssertionError(
+                f"sect launched sort/merge/reduce/sort_pairs/merge_payload/"
+                f"compact {launches}; {n_join} buckets take the join")
+        if w_join < 0.9 * w_all:
+            raise AssertionError(f"only {w_join} of {w_all} windows are in "
+                                 "buckets that take the join")
         cvg, stats = [], {}
         for name, seq in contigs:
             cvg.append(f">{name}\n")
@@ -574,7 +635,10 @@ def cli_run():
     print(f"CLI: sect of {len(contigs)} contigs ({n_bases} bases, longest "
           f"{max(s.size for _, s in contigs)}) against the reads equals "
           f"numpy's counts, medians and means, in {dt:.4f} s = "
-          f"{n_bases / dt:.1f} bases/s (counting and process start included)")
+          f"{n_bases / dt:.1f} bases/s (counting included); launches "
+          f"sort/merge/reduce/sort_pairs/merge_payload/compact {launches}; "
+          f"{n_join} buckets with {w_join} of {w_all} windows took the join")
+    return launches
 
 
 def main() -> int:
@@ -605,7 +669,9 @@ def main() -> int:
     del table, genome, ref_keys, ref_counts
     for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
-    cli_run()
+    sect_launches = cli_run(dev)
+    for entry, n in zip(kernels, sect_launches, strict=True):
+        entry["launches_sect"] = n
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,15 @@ class CountTable(NamedTuple):
         return self.keys.shape[0]
 
 
-def empty_table(capacity: int, device="cpu") -> CountTable:
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """`cuda` without an index names the same card as any `cuda:<i>`."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def empty_table(capacity: int, *, device) -> CountTable:
+    """An all-padding table on `device`, which the caller names: nothing
+    here picks the CPU for a caller that said nothing."""
     return CountTable(
         keys=torch.full((capacity,), SENTINEL, dtype=torch.int64,
                         device=device),
@@ -91,6 +99,9 @@ class StreamingCounter:
     and reduce replay from the pre-flush table.
 
     key_bits: every real key is < 2^(key_bits-1) (2k+1 for k-mers).
+    device: where the table lives and the kernels run.  The caller names
+      it (tools/common.default_device() is the card); keys handed to `add`
+      must already lie there, they are never moved off their device.
 
     The overflow check is synchronous: each flush fetches n_unique from the
     device (kat_tpu defers that fetch by one flush to keep the TPU busy).
@@ -99,24 +110,28 @@ class StreamingCounter:
     def __init__(self, initial_capacity: int = 1 << 20,
                  max_capacity: int = 1 << 30, disable_grow: bool = False,
                  flush_windows: int = 1 << 25, key_bits: int = 63,
-                 device="cpu"):
+                 *, device):
         self.capacity = int(initial_capacity)
         self.max_capacity = int(max_capacity)
         self.disable_grow = disable_grow
         self.flush_windows = int(flush_windows)
         self.key_bits = key_bits
         self.device = torch.device(device)
-        self.table = empty_table(self.capacity, self.device)
+        self.table = empty_table(self.capacity, device=self.device)
         self._fresh: list[torch.Tensor] = []
         self._fresh_n = 0
 
     def add(self, keys: torch.Tensor, valid: torch.Tensor | None = None):
         """Queue keys of any shape; where `valid` is given and false the
-        key counts as SENTINEL."""
-        keys = keys.reshape(-1).to(self.device)
+        key counts as SENTINEL.  Keys (and `valid`) on another device
+        than the counter's raise."""
+        for name, t in (("keys", keys), ("valid", valid)):
+            if t is not None and not _same_device(t.device, self.device):
+                raise ValueError(f"{name}: on {t.device}, but the counter "
+                                 f"is on {self.device}")
+        keys = keys.reshape(-1)
         if valid is not None:
-            keys = torch.where(valid.reshape(-1).to(self.device), keys,
-                               SENTINEL)
+            keys = torch.where(valid.reshape(-1), keys, SENTINEL)
         if self._fresh_n + keys.numel() > self.flush_windows:
             self._flush()
         self._fresh.append(keys)
@@ -161,7 +176,8 @@ class StreamingCounter:
 class CodeStreamingCounter(StreamingCounter):
     """Streaming counter over raw 2-bit code batches.
 
-    Each batch is moved to `device` and its windows extracted at once;
+    Each host batch is uploaded to `device` (a tensor that already lies
+    on another card raises) and its windows extracted at once;
     the int64 keys wait for the flush as in StreamingCounter (the JAX
     counter stacks the code batches instead and extracts inside its fused
     flush).  The flush budget counts batches.
@@ -175,9 +191,9 @@ class CodeStreamingCounter(StreamingCounter):
                  initial_capacity: int = 1 << 20,
                  max_capacity: int = 1 << 30, disable_grow: bool = False,
                  flush_batches: int = 16, flush_windows: int | None = None,
-                 device="cpu"):
+                 *, device):
         super().__init__(initial_capacity, max_capacity, disable_grow,
-                         flush_windows or 1 << 25, 2 * k + 1, device)
+                         flush_windows or 1 << 25, 2 * k + 1, device=device)
         self.k = k
         self.canonical = canonical
         self.flush_batches = int(flush_batches)
@@ -193,6 +209,10 @@ class CodeStreamingCounter(StreamingCounter):
         codes = torch.as_tensor(codes, dtype=torch.uint8)
         if codes.dim() != 2:
             raise ValueError("expected [rows, length] code batch")
+        if codes.device.type != "cpu" and not _same_device(codes.device,
+                                                           self.device):
+            raise ValueError(f"codes: on {codes.device}, but the counter "
+                             f"is on {self.device}")
         if self._shape is not None and codes.shape[1] != self._shape[1]:
             self._flush()
         if self._shape is None:
@@ -251,7 +271,7 @@ def table_to_numpy(table: CountTable):
 
 def table_from_numpy(keys: np.ndarray, counts: np.ndarray,
                      capacity: int | None = None,
-                     device="cpu") -> CountTable:
+                     *, device) -> CountTable:
     """Build a table from host (u64 keys, counts); keys need not be sorted
     or unique (duplicates are summed)."""
     keys = np.asarray(keys, np.uint64).astype(np.int64)
@@ -262,7 +282,7 @@ def table_from_numpy(keys: np.ndarray, counts: np.ndarray,
 
 
 def table_from_jax_numpy(keys_hi, keys_lo, counts, n_unique,
-                         device="cpu") -> CountTable:
+                         *, device) -> CountTable:
     """A kat_tpu CountTable's planes, fetched as numpy, as a port table of
     the same capacity; the all-ones (hi, lo) sentinel becomes SENTINEL."""
     keys = torch.from_numpy(from_planes(keys_hi, keys_lo)).to(device)

@@ -32,7 +32,7 @@ def _batches(seed, rows_seq, genome_len=3000):
 
 def _run_both(batches, **kw):
     j = jc.CodeStreamingCounter(K, **kw)
-    t = tc.CodeStreamingCounter(K, **kw)
+    t = tc.CodeStreamingCounter(K, device="cpu", **kw)
     for b in batches:
         j.add_codes(b)
         t.add_codes(b)
@@ -79,7 +79,7 @@ def test_row_shape_change_resets_budget():
     j, t, jt, tt = _run_both(batches, initial_capacity=1 << 13,
                              flush_windows=fw)
     _assert_same(jt, tt)
-    t2 = tc.CodeStreamingCounter(K, flush_windows=fw)
+    t2 = tc.CodeStreamingCounter(K, flush_windows=fw, device="cpu")
     t2.add_codes(batches[0])
     assert t2._fb_eff == fw // (8 * (LENGTH - K + 1))
     t2.add_codes(batches[1])
@@ -88,9 +88,10 @@ def test_row_shape_change_resets_budget():
 
 def test_table_full_raises_like_jax():
     batches = _batches(4, [32] * 2)
-    for mod in (jc, tc):
+    for mod, kw in ((jc, {}), (tc, {"device": "cpu"})):
         sc = mod.CodeStreamingCounter(K, initial_capacity=256,
-                                      disable_grow=True, flush_batches=2)
+                                      disable_grow=True, flush_batches=2,
+                                      **kw)
         with pytest.raises(mod.TableFullError):
             for b in batches:
                 sc.add_codes(b)
@@ -108,7 +109,8 @@ def test_tables_carried_across_and_merged():
     jb = jc.table_from_numpy(keys_b, rng.integers(1, 9, 500), capacity=512)
     pa, pb = (tc.table_from_jax_numpy(np.asarray(t.keys_hi),
                                       np.asarray(t.keys_lo),
-                                      np.asarray(t.counts), t.n_unique)
+                                      np.asarray(t.counts), t.n_unique,
+                                      device="cpu")
               for t in (ja, jb))
     hi, lo = to_planes(pa.keys)
     np.testing.assert_array_equal(hi, np.asarray(ja.keys_hi))
@@ -123,8 +125,9 @@ def test_table_from_numpy_matches_jax():
     keys = rng.integers(0, 50, 300).astype(np.uint64)
     counts = rng.integers(1, 5, 300)
     _assert_same(jc.table_from_numpy(keys, counts, capacity=64),
-                 tc.table_from_numpy(keys, counts, capacity=64))
-    empty = tc.empty_table(8)
+                 tc.table_from_numpy(keys, counts, capacity=64,
+                                     device="cpu"))
+    empty = tc.empty_table(8, device="cpu")
     assert empty.n_unique == 0 and empty.capacity == 8
     assert tc.table_to_numpy(empty)[0].size == 0
     assert jnp.asarray(jc.empty_table(8).counts).sum() == 0
@@ -141,7 +144,8 @@ def test_streaming_counter_matches_jax(flush_windows):
     j = jc.StreamingCounter(initial_capacity=1 << 9,
                             flush_windows=flush_windows)
     t = tc.StreamingCounter(initial_capacity=1 << 9,
-                            flush_windows=flush_windows, key_bits=2 * K + 1)
+                            flush_windows=flush_windows, key_bits=2 * K + 1,
+                            device="cpu")
     for b in batches:
         j.add(*jk.extract_kmers(jnp.asarray(b), K, True))
         keys, valid = tk.extract_kmers(torch.from_numpy(b), K, True)
@@ -150,8 +154,39 @@ def test_streaming_counter_matches_jax(flush_windows):
     _assert_same(jt, tt)
     assert t.capacity == j.capacity > 1 << 9
     # the code counter is the same engine behind a batch-counting budget
-    c = tc.CodeStreamingCounter(K, initial_capacity=1 << 9)
+    c = tc.CodeStreamingCounter(K, initial_capacity=1 << 9, device="cpu")
     for b in batches:
         c.add_codes(b)
     ct = c.finish()
     assert torch.equal(ct.keys[:ct.n_unique], tt.keys[:tt.n_unique])
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tc.StreamingCounter(),
+    lambda: tc.CodeStreamingCounter(K),
+    lambda: tc.empty_table(8),
+    lambda: tc.table_from_numpy(np.arange(4, dtype=np.uint64), np.ones(4)),
+], ids=["StreamingCounter", "CodeStreamingCounter", "empty_table",
+        "table_from_numpy"])
+def test_device_must_be_named(make):
+    """Nothing in the counting module picks the CPU for a caller that named
+    no device."""
+    with pytest.raises(TypeError, match="device"):
+        make()
+
+
+def test_counter_never_moves_keys_off_their_device():
+    """Keys that lie on another device than the counter's raise instead of
+    being moved (the `meta` device stands in for a card here)."""
+    sc = tc.StreamingCounter(initial_capacity=16, device="cpu")
+    elsewhere = torch.empty(8, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="keys: on meta"):
+        sc.add(elsewhere)
+    with pytest.raises(ValueError, match="valid: on meta"):
+        sc.add(torch.arange(8), torch.empty(8, dtype=torch.bool,
+                                            device="meta"))
+    csc = tc.CodeStreamingCounter(K, initial_capacity=16, device="cpu")
+    with pytest.raises(ValueError, match="codes: on meta"):
+        csc.add_codes(torch.empty((2, 64), dtype=torch.uint8, device="meta"))
+    sc.add(torch.arange(8))
+    assert sc.finish().n_unique == 8

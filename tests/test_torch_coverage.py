@@ -25,7 +25,8 @@ def _case(k, canonical):
     rng = np.random.default_rng(k + canonical)
     genome = rng.integers(0, 4, 4000, dtype=np.uint8)
     j = jc.CodeStreamingCounter(k, canonical, initial_capacity=1 << 12)
-    t = tc.CodeStreamingCounter(k, canonical, initial_capacity=1 << 12)
+    t = tc.CodeStreamingCounter(k, canonical, initial_capacity=1 << 12,
+                                device="cpu")
     reads = genome[:2000].reshape(10, 200)
     j.add_codes(reads)
     t.add_codes(reads)

@@ -307,7 +307,7 @@ def _lookup_table(rng, n_keys, cap, dev):
     keys = rng.choice(np.arange(1, 10 * n_keys, dtype=np.uint64), n_keys,
                       replace=False)
     t = counting.table_from_numpy(keys, rng.integers(1, 1000, n_keys),
-                                  capacity=cap)
+                                  capacity=cap, device="cpu")
     return counting.CountTable(t.keys.to(dev), t.counts.to(dev), t.n_unique)
 
 
@@ -369,3 +369,57 @@ def test_window_counts_join_equals_search(dev):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] > 0).sum()) > 0 and int((~got[2]).sum()) > 0
+
+
+def test_counter_keeps_card_keys_on_the_card(dev):
+    """A counter on the CPU refuses keys that lie on the card (it never
+    moves work off it); a counter on the card counts them through K1-K3."""
+    keys = torch.arange(5000, dtype=torch.int64, device=dev) % 777
+    cpu = counting.StreamingCounter(initial_capacity=1 << 10, device="cpu")
+    with pytest.raises(ValueError, match="keys: on cuda"):
+        cpu.add(keys)
+    counters = (sort_keys, merge_sorted, reduce_by_key)
+    before = [f.launches for f in counters]
+    sc = counting.StreamingCounter(initial_capacity=1 << 10, key_bits=11,
+                                   device=dev)
+    sc.add(keys)
+    table = sc.finish()
+    assert [f.launches for f in counters] == [b + 1 for b in before]
+    assert table.keys.device.type == "cuda" and table.n_unique == 777
+    assert int(table.counts.sum()) == 5000
+
+
+def test_sect_tool_launches_the_lookup_kernels(dev, tmp_path):
+    """`sect` through the command line's entry point, on the card: contigs
+    that fill one length bucket past the join threshold send their lookups
+    through K1 with a value, K2 with payload planes and K4, and the
+    coverage file equals the CPU run's."""
+    from kat_tpu_torch import cli
+
+    rng = np.random.default_rng(17)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = acgt[rng.integers(0, 4, 1 << 16)]
+    fq, fa = tmp_path / "reads.fq", tmp_path / "asm.fa"
+    with open(fq, "wb") as f:
+        for i, o in enumerate(rng.integers(0, genome.size - 150, 3000)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, genome[o:o + 150].tobytes(),
+                                            b"I" * 150))
+    with open(fa, "wb") as f:
+        for i in range(40):  # 40 rows x 4070 windows > JOIN_MIN_QUERIES
+            o = int(rng.integers(0, genome.size - 4096))
+            f.write(b">c%d\n%s\n" % (i, genome[o:o + 4096].tobytes()))
+        f.write(b">short\n%s\n" % genome[:300].tobytes())
+    counters = (sort_keys, merge_sorted, reduce_by_key, sort_pairs,
+                merge_sorted_payload, compact_flagged)
+    before = [f.launches for f in counters]
+    assert cli.main(["sect", "-m", "27", "-o", str(tmp_path / "gpu"),
+                     str(fa), str(fq)]) == 0
+    after = [f.launches for f in counters]
+    assert all(a > b for a, b in zip(after, before))
+    # one bucket above the threshold: exactly one join
+    assert [a - b for a, b in zip(after[3:], before[3:])] == [1, 1, 1]
+    assert cli.main(["--device", "cpu", "sect", "-m", "27", "-o",
+                     str(tmp_path / "cpu"), str(fa), str(fq)]) == 0
+    for suffix in ("-counts.cvg", "-stats.tsv"):
+        assert (tmp_path / f"gpu{suffix}").read_bytes() \
+            == (tmp_path / f"cpu{suffix}").read_bytes()

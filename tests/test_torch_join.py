@@ -23,7 +23,8 @@ def _tables(rng, n_keys, capacity):
                       size=n_keys, replace=False)
     cnts = rng.integers(1, 1000, size=n_keys).astype(np.uint32)
     return (jc.table_from_numpy(keys, cnts, capacity=capacity),
-            tc.table_from_numpy(keys, cnts, capacity=capacity), np.sort(keys))
+            tc.table_from_numpy(keys, cnts, capacity=capacity, device="cpu"),
+            np.sort(keys))
 
 
 def _queries(rng, keys, m):
@@ -83,7 +84,7 @@ def test_counts_join_edge_cases():
     got = tjoin.counts_join(full.keys, full.counts, q)
     assert got.tolist() == [0, int(tt.counts[0]), 0, int(tt.counts[9]), 0]
     # an empty table
-    none = tc.empty_table(0)
+    none = tc.empty_table(0, device="cpu")
     assert tjoin.counts_join(none.keys, none.counts, q).tolist() == [0] * 5
 
 
@@ -114,7 +115,7 @@ def test_counting_lookup_matches_jax():
     assert got.shape == (9, 37) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().astype(np.uint32),
                                   np.asarray(want))
-    assert tc.lookup(tc.empty_table(0), torch.from_numpy(q)).sum() == 0
+    assert tc.lookup(tc.empty_table(0, device="cpu"), torch.from_numpy(q)).sum() == 0
 
 
 @pytest.mark.parametrize("assume_sorted", [False, True])
