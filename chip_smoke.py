@@ -7,10 +7,11 @@
    kat_tpu_torch/csrc and prints the build time;
 2. checks each kernel (K1 sort, K2 merge, K3 reduce of the counting path;
    K4 compact, K1 with a value and K2 with payload planes of the lookup
-   path) against its plain PyTorch version on the card at its path's
+   path; K5 chunk sort and K6 run merge of the bucketed flush; K7's round
+   classes) against its plain PyTorch version on the card at its path's
    shapes, exactly (integer keys and counts: tolerance 0), with its time,
-   the plain version's, its bandwidth bound and, where one PyTorch call
-   computes the same function, that call's time;
+   the plain version's, its bound and, where one PyTorch call computes the
+   same function, that call's time;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -31,6 +32,19 @@
    the lookup kernels once per length bucket that the join policy takes,
    and those buckets must hold most of the windows; the artifacts are held
    against numpy.
+
+7. drives the minimizer-bucketed flush at full width: the main path's read
+   model (k=27 canonical, 196,608 reads of 1024 bases from the 2^23-base
+   genome) plus 2% low-complexity reads, written as FASTA and counted twice
+   through tools.common.Input, flush="classic" and flush="bucketed".  The
+   two tables must be equal; K5, K6, K3, K2 with counts and sort_pairs must
+   each have been launched by the bucketed run, K6 once per hot group the
+   router reported.  Prints both file-to-table times, the router's host
+   windows/s, the device k-mers/s of both flushes over staged input, the
+   record fill and the groups per flush; then checks and times K5 at one
+   flush's shape and K6 at the largest hot group that run saw, and runs
+   K7's microbenchmark, whose costliest class is also held against its
+   plain version at the full round count.
 
 Any failure raises (exit code != 0).  Without a CUDA device it fails at
 once and prints no result.  The last two lines are the kernels' JSON and
@@ -288,6 +302,95 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
     return results
 
 
+def check_bucketed_kernels(dev, gen, group_chunks: int):
+    """K5 and K6 against their plain versions at the bucketed flush's
+    shapes: one flush of MAX_CHUNKS chunks of 2^SLOTS_LOG key' slots, and
+    one hot group of `group_chunks` chunk runs, the largest group the
+    router reported to the bucketed path."""
+    import math
+
+    import torch
+
+    from kat_tpu_torch.core import bucketed
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.ops import sort_kernel
+
+    chunk = 1 << bucketed.SLOTS_LOG
+    n = bucketed.MAX_CHUNKS * chunk
+    results = []
+
+    # K5: 60-bit key' (k=27), 30% empty slots, as a flush's record fill
+    keys = torch.randint(0, 1 << 60, (n,), dtype=torch.int64, device=dev,
+                         generator=gen)
+    keys[torch.rand(n, device=dev, generator=gen) < 0.3] = SENTINEL
+    got = sort_kernel.sort_chunks(keys, chunk)
+    err = _max_abs_err(got, sort_kernel.sort_chunks_plain(keys, chunk))
+    plain_ms = _timed_ms(lambda: sort_kernel.sort_chunks_plain(keys, chunk), 3)
+    results.append(_report(dict(
+        name="chunk_sort", route="cuda",
+        source="kat_tpu_torch/csrc/chunk_sort.cu",
+        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+        ms=_timed_ms(lambda: sort_kernel.sort_chunks(keys, chunk), 5),
+        plain_ms=plain_ms,
+        **_bound(_nbytes(keys, got), n * int(math.log2(chunk))),
+        # the plain version IS the one library call (a row-wise sort)
+        library_ms=plain_ms),
+        f"K5 chunk sort {bucketed.MAX_CHUNKS} x 2^{bucketed.SLOTS_LOG} keys"))
+
+    # K6: the path's largest hot group of chunk runs out of that stream
+    # (compared and timed), and a pair of runs (compared)
+    errs = []
+    for g in (2, group_chunks):
+        runs = got[:g * chunk].clone()
+        merged = sort_kernel.merge_runs(runs, chunk)
+        errs.append(_max_abs_err(merged,
+                                 sort_kernel.merge_runs_plain(runs, chunk)))
+    plain_ms = _timed_ms(lambda: sort_kernel.merge_runs_plain(runs, chunk), 5)
+    results.append(_report(dict(
+        name="merge_runs", route="cuda",
+        source="kat_tpu_torch/csrc/merge_runs.cu",
+        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=max(errs),
+        ms=_timed_ms(lambda: sort_kernel.merge_runs(runs, chunk), 5),
+        plain_ms=plain_ms,
+        # one compare per key and level of the merge tree
+        **_bound(_nbytes(runs, merged),
+                 runs.numel() * max(1, math.ceil(math.log2(group_chunks)))),
+        library_ms=plain_ms),  # torch.sort: no library call merges runs
+        f"K6 merge {group_chunks} runs of 2^{bucketed.SLOTS_LOG} keys"))
+    return results
+
+
+def check_rounds_kernel(dev):
+    """K7: every round class against its plain version at a few rounds
+    (inside profile_rounds.run), then the costliest class against its plain
+    version at the full round count, both timed there."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import profile_rounds as pr
+
+    pr.profile_rounds.launches = 0
+    res = pr.run()
+    launches = pr.profile_rounds.launches
+    print("K7 rounds: " + json.dumps(res))
+    n, rounds, mode = res["n"], res["rounds"], "smem-1024"
+    keys = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64,
+                         device=dev)
+    got = pr.profile_rounds(keys, mode, rounds)
+    err = _max_abs_err(got, pr.profile_rounds_plain(keys, mode, rounds))
+    entry = _report(dict(
+        name="profile_rounds", route="cuda",
+        source="kat_tpu_torch/csrc/rounds.cu",
+        replaces="benchmarks/profile_roll.py:41", max_abs_err=err,
+        ms=_timed_ms(lambda: pr.profile_rounds(keys, mode, rounds), 3),
+        plain_ms=_timed_ms(
+            lambda: pr.profile_rounds_plain(keys, mode, rounds), 1),
+        # a round is one compare and one select per key
+        **_bound(_nbytes(keys, got), 2 * n * rounds),
+        library_ms=None, launches=launches),
+        f"K7 {rounds} {mode} rounds on 2^24 keys")
+    return entry
+
+
 def main_path(dev):
     """Counting at bench.py's scale through CodeStreamingCounter."""
     import torch
@@ -437,6 +540,130 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
     return launches
 
 
+def bucketed_path(dev, n_reads: int = 196_608, genome_len: int = 1 << 23):
+    """The bucketed flush against the classic one on the same FASTA file,
+    through tools.common.Input; then both over staged input."""
+    import torch
+
+    from kat_tpu_torch.benchmarks.sweep_bucketed import write_reads
+    from kat_tpu_torch.core import bucketed, counting, minimizer
+    from kat_tpu_torch.io import native
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.tools.common import Input
+
+    k, length = 27, 1024
+    rng = np.random.default_rng(SEED + 3)
+    genome = rng.integers(0, 4, genome_len + length, dtype=np.uint8)
+    kernels = (sort_kernel.sort_chunks, sort_kernel.merge_runs,
+               reduce_kernel.reduce_by_key, merge_kernel.merge_sorted_payload,
+               sort_kernel.sort_pairs)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "reads.fa")
+        n_all = write_reads(fa, genome, n_reads, length, rng)
+        n_windows = n_all * (length - k + 1)
+        print(f"bucketed path: {n_all} reads of {length} bases, "
+              f"{os.path.getsize(fa)} bytes of FASTA, {n_windows} windows")
+
+        def count(flush):
+            inp = Input([fa], mer_len=k, device=dev,
+                        flush=flush)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inp.count(quiet=True)
+            torch.cuda.synchronize()
+            return inp, time.perf_counter() - t0
+
+        classic, dt_classic = count("classic")
+        for fn in kernels:
+            fn.launches = 0
+        buck, dt_buck = count("bucketed")
+        launches = [fn.launches for fn in kernels]
+        st = buck.flush_stats
+        n = classic.table.n_unique
+        if not (buck.table.n_unique == n
+                and torch.equal(buck.table.keys[:n], classic.table.keys[:n])
+                and torch.equal(buck.table.counts[:n],
+                                classic.table.counts[:n])):
+            raise AssertionError("the bucketed table differs from the "
+                                 "classic one")
+        if int(classic.table.counts[:n].sum()) != n_windows \
+                or st["windows"] != n_windows:
+            raise AssertionError(f"window totals: table "
+                                 f"{int(classic.table.counts[:n].sum())}, "
+                                 f"router {st['windows']}, file {n_windows}")
+        if min(launches) < 1 or st["groups"] < 1 \
+                or launches[1] != st["groups"]:
+            raise AssertionError(
+                f"bucketed run launched chunk_sort/merge_runs/reduce/"
+                f"merge_payload/sort_pairs {launches}; the router reported "
+                f"{st['groups']} hot groups")
+        fill = st["windows"] / st["slots"]
+        print(f"bucketed path: tables equal ({n} distinct); file to table "
+              f"classic {dt_classic:.4f} s = {n_windows / dt_classic:.1f} "
+              f"k-mers/s, bucketed {dt_buck:.4f} s = "
+              f"{n_windows / dt_buck:.1f} k-mers/s; launches chunk_sort/"
+              f"merge_runs/reduce/merge_payload/sort_pairs {launches}; "
+              f"{st['flushes']} flushes, {st['chunks']} chunks, "
+              f"{st['groups'] / st['flushes']:.2f} groups per flush, record "
+              f"fill {fill:.4f} of the slots")
+        del classic, buck
+
+        # device rates over staged input (the recipe of bench.py:194-292):
+        # route with ONE router (timed: the host rate), stage every flush
+        rpc, bits = bucketed.geometry(k)
+        t0 = time.perf_counter()
+        staged = []
+        for chunks, groups, _nw in native.route_flushes(
+                [fa], k, minimizer.M_DEFAULT, bits, bucketed.MAX_CHUNKS, rpc,
+                threads=1):
+            staged.append((bucketed.pad_flush(chunks, bucketed.MAX_CHUNKS),
+                           groups))
+        route_dt = time.perf_counter() - t0
+        group_chunks = max(1 << int(lg) for _c, g in staged for _s, lg in g)
+        staged = [(torch.from_numpy(c.view(np.int64)).to(dev), g)
+                  for c, g in staged]
+        batches = [torch.from_numpy(b).to(dev)
+                   for b in native.stream_code_batches([fa], k)]
+
+    def run_bucketed():
+        sc = bucketed.BucketedCodeCounter(k, initial_capacity=1 << 24,
+                                          device=dev)
+        for rec, groups in staged:
+            sc.add_flush(rec, groups)
+        return sc.finish()
+
+    def run_classic():
+        sc = counting.CodeStreamingCounter(
+            k, initial_capacity=1 << 24, flush_windows=1 << 26, device=dev)
+        for b in batches:
+            sc.add_codes(b)
+        return sc.finish()
+
+    rates = {}
+    for name, fn in (("bucketed", run_bucketed), ("classic", run_classic),
+                     ("classic again", run_classic),
+                     ("bucketed again", run_bucketed)):
+        if "again" not in name:
+            fn()  # warm
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        if table.n_unique != n:
+            raise AssertionError(f"staged {name}: {table.n_unique} distinct")
+        rates[name] = n_windows / best
+    print(f"bucketed path, staged input: bucketed "
+          f"{rates['bucketed']:.1f} and {rates['bucketed again']:.1f} "
+          f"k-mers/s, classic {rates['classic']:.1f} and "
+          f"{rates['classic again']:.1f} k-mers/s; router (one thread) "
+          f"{n_windows / route_dt:.1f} host windows/s; the largest hot group "
+          f"holds {group_chunks} chunks")
+    return launches, group_chunks
+
+
 def _numpy_windows(seq: np.ndarray, k: int):
     """(canonical keys u64, valid) per k-window of an ASCII array [.., L],
     with numpy alone."""
@@ -584,6 +811,15 @@ def cli_run(dev):
         print(f"CLI: hist of the dumped .jf ({os.path.getsize(jf)} bytes, "
               f"{uniq.size} records) equals the first, in {dt:.4f} s")
 
+        out3 = os.path.join(tmp, "bucketed.hist")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--flush", "bucketed", "hist", "-m", str(k), "-o",
+                           out3, fq])
+        if rc != 0 or _read(out3) != got:
+            raise AssertionError("CLI hist --flush bucketed differs from "
+                                 "the numpy histogram")
+        print("CLI: hist --flush bucketed (in-process) equals numpy's too")
+
         fa = os.path.join(tmp, "asm.fa")
         contigs = _write_contigs(fa, genome, rng)
         prefix = os.path.join(tmp, "sect")
@@ -672,6 +908,14 @@ def main() -> int:
     sect_launches = cli_run(dev)
     for entry, n in zip(kernels, sect_launches, strict=True):
         entry["launches_sect"] = n
+
+    b_launches, group_chunks = bucketed_path(dev)
+    k5, k6 = check_bucketed_kernels(dev, gen, group_chunks)
+    k5["launches"], k6["launches"] = b_launches[:2]
+    # K3, K2 with payload planes and K1 with a value also carry this path
+    for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
+        kernels[i]["launches_bucketed"] = n
+    kernels += [k5, k6, check_rounds_kernel(dev)]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

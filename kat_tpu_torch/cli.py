@@ -1,8 +1,11 @@
 """`kat`-compatible command line (reference src/kat.cc mode dispatch).
 
 Port of kat_tpu/cli.py with the `hist` and `sect` modes, same flags and
-defaults, plus a top-level `--device` (the card unless the CPU is asked for).
-Usage: python -m kat_tpu_torch [--device {cuda,cpu}] <mode> [options] ...
+defaults, plus a top-level `--device` (the card unless the CPU is asked for)
+and `--flush` (the classic counting flush unless the minimizer-bucketed one
+is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
+Usage: python -m kat_tpu_torch [--device {cuda,cpu}]
+       [--flush {classic,bucketed}] <mode> [options] ...
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ def _run_hist(args) -> int:
         h = Histogram(glob_files(args.inputs), args.low, args.high, args.inc)
         h.output_prefix = args.output_prefix
         h.input.device = _device(args)
+        h.input.flush = args.flush
         h.input.trim5 = parse_trim_list(args.trim5)
         h.input.canonical = not args.non_canonical
         h.input.mer_len = args.mer_len
@@ -129,6 +133,7 @@ def _run_sect(args) -> int:
         s = Sect(glob_files(args.counts_files), args.seq_file)
         s.output_prefix = args.output_prefix
         s.input.device = _device(args)
+        s.input.flush = args.flush
         s.gc_bins = args.gc_bins
         s.cvg_bins = args.cvg_bins
         s.cvg_logscale = args.cvg_logscale
@@ -170,6 +175,13 @@ def main(argv: list[str] | None = None) -> int:
                         help="Where tables live and kernels run: the first "
                              "NVIDIA card (default; an error without one) "
                              "or the CPU.")
+    parser.add_argument("--flush", choices=("classic", "bucketed"),
+                        default="classic",
+                        help="How sequence files are counted: sort, merge "
+                             "and reduce of the extracted windows (default) "
+                             "or the minimizer-bucketed chunk flush "
+                             "(canonical, 13 < k <= 29, files only; an "
+                             "error otherwise).")
     sub = parser.add_subparsers(dest="mode")
     _add_hist(sub)
     _add_sect(sub)

@@ -1,5 +1,6 @@
 // Shared pieces of the kat_tpu_torch kernels: the key sentinel, the error
-// convention of the C entry points, and warp/block/array scans.
+// convention of the C entry points, warp/block/array scans, and the merge
+// path search.
 #pragma once
 
 #include <cstdint>
@@ -53,6 +54,22 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* total) {
   *total = warp_sums[nw - 1];
   __syncthreads();  // warp_sums may be reused by the next call
   return off + inc - v;
+}
+
+// Merge path: the number of a-elements among the first `diag` outputs of
+// the stable merge of sorted a[0:na) and b[0:nb) (a first on ties).
+__device__ __forceinline__ int64_t merge_path(const int64_t* __restrict__ a,
+                                              int64_t na,
+                                              const int64_t* __restrict__ b,
+                                              int64_t nb, int64_t diag) {
+  int64_t lo = diag > nb ? diag - nb : 0;
+  int64_t hi = diag < na ? diag : na;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (a[mid] <= b[diag - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
 }
 
 constexpr int SCAN_THREADS = 256;

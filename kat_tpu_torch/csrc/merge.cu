@@ -42,20 +42,6 @@ struct PlanesOut {
   int32_t* p[MG_MAX_PLANES];
 };
 
-// Number of a-elements among the first `diag` outputs (a first on ties).
-__device__ int64_t merge_path(const int64_t* __restrict__ a, int64_t na,
-                              const int64_t* __restrict__ b, int64_t nb,
-                              int64_t diag) {
-  int64_t lo = diag > nb ? diag - nb : 0;
-  int64_t hi = diag < na ? diag : na;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] <= b[diag - 1 - mid]) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 // P payload planes ride with the keys.  With B_WEIGHT (P == 1) the b side
 // has no plane in memory: its value is (key != SENTINEL).
 template <int P, bool B_WEIGHT>
@@ -71,8 +57,8 @@ merge_kernel(const int64_t* __restrict__ a, PlanesIn ap, int64_t na,
   const int64_t d0 = (int64_t)blockIdx.x * MG_TILE;
   const int64_t d1 = min(d0 + MG_TILE, n);
   // two warps search the two ends concurrently
-  if (threadIdx.x == 0) s_split[0] = merge_path(a, na, b, nb, d0);
-  if (threadIdx.x == 32) s_split[1] = merge_path(a, na, b, nb, d1);
+  if (threadIdx.x == 0) s_split[0] = kat::merge_path(a, na, b, nb, d0);
+  if (threadIdx.x == 32) s_split[1] = kat::merge_path(a, na, b, nb, d1);
   __syncthreads();
   const int64_t i0 = s_split[0], i1 = s_split[1];
   const int64_t j0 = d0 - i0;

@@ -46,6 +46,9 @@ _SIGNATURES = {
     "kat_compact_flagged_scratch": [_I64],
     "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "kat_reduce_by_key_scratch": [_I64, _I64],
+    "kat_sort_chunks": [_P, _P, _I64, _INT, _P],
+    "kat_merge_runs": [_P, _P, _P, _I64, _I64, _P],
+    "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],
 }
 
 

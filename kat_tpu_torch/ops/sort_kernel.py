@@ -1,11 +1,16 @@
 """K1: sort of int64 k-mer keys, alone (the fresh windows of the counting
 flush) or carrying one int32 value each (the queries of the sort-merge join).
+K5: independent sort of every aligned chunk, and K6: merge of sorted runs
+(both of the minimizer-bucketed flush, core/bucketed.py).
 
-Counterpart of kat_tpu/ops/sort_kernel.py (`sort_planes_padded`, full-sort
-mode of `_window_kernel`).  On a CUDA tensor `sort_keys` and `sort_pairs`
-launch the LSD radix sort of csrc/sort.cu; on a CPU tensor they take the
-plain versions, `sort_keys_plain` and `sort_pairs_plain`.  No padding to a
-power of two: the radix sort takes any length.
+Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
+mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
+`bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys` and
+`sort_pairs` launch the LSD radix sort of csrc/sort.cu, `sort_chunks` the
+shared-memory bitonic sort of csrc/chunk_sort.cu and `merge_runs` the
+merge-path tree of csrc/merge_runs.cu; on a CPU tensor they take the plain
+versions (`*_plain`).  No padding to a power of two: the radix sort and the
+run merge take any length.
 """
 
 from __future__ import annotations
@@ -91,3 +96,75 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor, key_bits: int):
 
 
 sort_pairs.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+MIN_CHUNK, MAX_CHUNK = 1 << 5, 1 << 14  # what csrc/chunk_sort.cu takes
+
+
+def sort_chunks_plain(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """Plain PyTorch version: a row-wise sort of the [chunks, chunk_elems]
+    view."""
+    return keys.view(-1, chunk_elems).sort(dim=1).values.reshape(-1)
+
+
+def sort_chunks(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """Sort every aligned span of `chunk_elems` int64 keys ascending, each
+    on its own, into a new tensor: sentinels (INT64_MAX) end up at each
+    chunk's tail.  Keys compare as signed int64, all 64 bits (so there is
+    no key_bits to pass).
+
+    chunk_elems: a power of two in [32, 16384] (one thread block holds a
+    chunk in shared memory) that divides len(keys)."""
+    _cuda.require(keys, "keys", torch.int64)
+    if not (MIN_CHUNK <= chunk_elems <= MAX_CHUNK) or \
+            chunk_elems & (chunk_elems - 1):
+        raise ValueError(f"chunk_elems={chunk_elems} must be a power of two "
+                         f"in [{MIN_CHUNK}, {MAX_CHUNK}]")
+    if keys.numel() % chunk_elems:
+        raise ValueError(f"n={keys.numel()} must be a multiple of "
+                         f"chunk_elems={chunk_elems}")
+    if not _cuda.on_cuda(keys, "sort_chunks"):
+        return sort_chunks_plain(keys, chunk_elems)
+    out = torch.empty_like(keys)
+    if keys.numel() == 0:
+        return out
+    _cuda.launch("kat_sort_chunks", keys.device, keys.data_ptr(),
+                 out.data_ptr(), keys.numel() // chunk_elems,
+                 chunk_elems.bit_length() - 1)
+    sort_chunks.launches += 1
+    return out
+
+
+sort_chunks.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def merge_runs_plain(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """Plain PyTorch version: a full sort (the runs' order is no help to
+    it)."""
+    return torch.sort(keys).values
+
+
+def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """Merge the ascending runs keys[r*run_len : (r+1)*run_len] into one
+    ascending stream, returned as a new tensor.  Any length and any
+    run_len >= 1: the last run may be short."""
+    _cuda.require(keys, "keys", torch.int64)
+    if run_len < 1:
+        raise ValueError(f"run_len={run_len} < 1")
+    if keys.numel() >= 1 << 40:
+        raise ValueError(f"merge_runs: n={keys.numel()} must be < 2^40")
+    if not _cuda.on_cuda(keys, "merge_runs"):
+        return merge_runs_plain(keys, run_len)
+    n = keys.numel()
+    out = torch.empty_like(keys)
+    if n == 0:
+        return out
+    tmp = torch.empty_like(keys) if n > 2 * run_len else None
+    _cuda.launch("kat_merge_runs", keys.device, keys.data_ptr(),
+                 out.data_ptr(), tmp.data_ptr() if tmp is not None else None,
+                 n, run_len)
+    merge_runs.launches += 1
+    return out
+
+
+merge_runs.launches = 0  # kernel launches, read by chip_smoke.py

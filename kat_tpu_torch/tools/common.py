@@ -4,8 +4,11 @@ COUNT-vs-LOAD dispatch, 5' trim lists, hash dumping, and the window
 lookups of the sequence tools.
 
 Port of kat_tpu/tools/common.py for k <= 31 on one device: COUNT through
-CodeStreamingCounter, LOAD from a .jf.  kat_tpu's mesh, minimizer-bucketed
-and wide-key branches are not ported.
+CodeStreamingCounter (`flush="classic"`, the default) or through the
+minimizer-bucketed flush of core/bucketed.py (`flush="bucketed"`, the
+counterpart of kat_tpu's KAT_TPU_MINIMIZER switch; it raises where its
+conditions fail and never turns into the classic flush by itself), LOAD
+from a .jf.  kat_tpu's mesh and wide-key branches are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..io import fastx, jellyfish
 from ..utils.timer import stage
 
 _WIDE_TODO = "(wide keys) not ported yet: ROADMAP.md §1 item 12"
+FLUSHES = ("classic", "bucketed")
 
 
 class InputMode(Enum):
@@ -112,7 +116,9 @@ class Input:
     """One input group: either sequence files to count or a .jf to load.
 
     device: where the table lives and the kernels run; None means the
-    card (`default_device()`, which raises when there is none)."""
+    card (`default_device()`, which raises when there is none).
+    flush: "classic" (sort, merge and reduce of extracted windows) or
+    "bucketed" (the minimizer-bucketed chunk flush)."""
     paths: list[str]
     index: int = 1
     canonical: bool = True
@@ -125,6 +131,10 @@ class Input:
     table: counting.CountTable | None = None
     header: jellyfish.JfHeader | None = None
     device: torch.device | None = None
+    flush: str = "classic"
+    # what the bucketed flush tallied (flushes, chunks, windows, record
+    # slots, hot groups); empty after a classic count
+    flush_stats: dict = field(default_factory=dict)
 
     def _device(self) -> torch.device:
         if self.device is None:
@@ -164,27 +174,59 @@ class Input:
             raise NotImplementedError(
                 f"k={self.mer_len} > {kmers.MAX_K} {_WIDE_TODO}")
         kmers.spec_valid(self.mer_len)
+        if self.flush not in FLUSHES:
+            raise ValueError(f"flush={self.flush!r}: expected one of "
+                             f"{FLUSHES}")
         # Start small and let the streaming counter double as needed; the
         # user's hash_size is an upper bound like jellyfish's initial size.
         cap0 = 1 << 20
         with stage(f"Input {self.index} is a sequence file.  Counting kmers "
                    f"for input {self.index} ({self.path_string()})",
                    quiet=quiet):
-            # Flushes are sized by window count (1<<26, as kat_tpu's
-            # kernel path), whatever batch geometry the reader emits.
-            sc = counting.CodeStreamingCounter(
-                self.mer_len, self.canonical,
+            caps = dict(
                 initial_capacity=min(cap0, _next_pow2(self.hash_size)),
                 max_capacity=max(_next_pow2(self.hash_size), cap0),
-                disable_grow=self.disable_grow,
-                flush_windows=1 << 26, device=self._device())
-            for batch in self._code_batches():
-                sc.add_codes(batch)
-            self.table = sc.finish()
+                disable_grow=self.disable_grow, device=self._device())
+            if self.flush == "bucketed":
+                from ..core import bucketed
+
+                self._require_bucketed()
+                self.table = bucketed.count_paths_bucketed(
+                    self.paths, self.mer_len, trim5=self.trim5 or None,
+                    stats=self.flush_stats, **caps)
+            else:
+                # Flushes are sized by window count (1<<26, as kat_tpu's
+                # kernel path), whatever batch geometry the reader emits.
+                sc = counting.CodeStreamingCounter(
+                    self.mer_len, self.canonical, flush_windows=1 << 26,
+                    **caps)
+                for batch in self._code_batches():
+                    sc.add_codes(batch)
+                self.table = sc.finish()
         self.header = jellyfish.JfHeader(
             key_len=2 * self.mer_len, counter_len=4,
             canonical=self.canonical,
             size=_next_pow2(2 * self.table.n_unique))
+
+    def _require_bucketed(self) -> None:
+        """kat_tpu's conditions for the bucketed flush
+        (kat_tpu/tools/common.py:173-186).  Where one fails this raises: a
+        bucketed request never counts through the classic flush."""
+        from ..core import minimizer
+        from ..io import native
+
+        why = None
+        if not self.canonical:
+            why = "it counts canonical k-mers only (drop --non_canonical)"
+        elif not minimizer.supports(self.mer_len):
+            why = (f"k={self.mer_len} is outside ({minimizer.M_DEFAULT}, "
+                   f"{minimizer.M_DEFAULT + 16}]")
+        elif any(fastx.is_stream_path(p) for p in self.paths):
+            why = "the supermer router reads files, not pipes or stdin"
+        if why:
+            raise ValueError(f"flush='bucketed' cannot take this input: "
+                             f"{why}")
+        native.require_lib()  # raises with the compiler's output
 
     def window_counts(self, codes):
         """(counts u32, gc i32, valid bool) per window of a [rows, L] code

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, and the
-payload forms of K1 and K2) against their plain PyTorch versions on the
-card, exactly (integer keys and counts: tolerance 0).
+"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
+payload forms of K1 and K2, K5 chunk sort, K6 run merge and K7's round
+classes) against their plain PyTorch versions on the card, exactly (integer
+keys and counts: tolerance 0).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from kat_tpu_torch.core import counting, coverage, tables
+from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
+                                                     profile_rounds_plain)
+from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
 from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
 from kat_tpu_torch.ops.merge_kernel import (merge_sorted, merge_sorted_payload,
@@ -22,7 +25,9 @@ from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              compact_flagged_plain,
                                              reduce_by_key,
                                              reduce_by_key_plain)
-from kat_tpu_torch.ops.sort_kernel import (sort_keys, sort_keys_plain,
+from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
+                                           sort_chunks, sort_chunks_plain,
+                                           sort_keys, sort_keys_plain,
                                            sort_pairs, sort_pairs_plain)
 
 pytestmark = pytest.mark.cuda
@@ -133,6 +138,13 @@ def _reduce_case(name, rng):
         k = np.concatenate(parts)
         w = np.where(k == SENTINEL, 0, rng.integers(1, 9, len(k)))
         return k, w, len(k)
+    if name == "chunk_stream":
+        # the bucketed flush's stream: sorted chunks, each with a sentinel
+        # tail of its own, some chunks all sentinel
+        k = _keys(rng, 64 * 1024, bits=10, sent_frac=0.3).reshape(64, 1024)
+        k[::9] = SENTINEL
+        k = np.sort(k, axis=1).reshape(-1)
+        return k, (k != SENTINEL).astype(np.int64), len(k)
     if name == "all_sentinel":
         return np.full(9000, SENTINEL, np.int64), np.zeros(9000), 256
     if name == "empty":
@@ -148,8 +160,8 @@ def _reduce_case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["random", "overflow", "interior_sentinels",
-                                  "all_sentinel", "empty", "one_run",
-                                  "no_output", "large"])
+                                  "chunk_stream", "all_sentinel", "empty",
+                                  "one_run", "no_output", "large"])
 def test_reduce_matches_plain(dev, name):
     keys, w, out_size = _reduce_case(name, np.random.default_rng(2))
     k = torch.from_numpy(np.asarray(keys, np.int64)).to(dev)
@@ -423,3 +435,131 @@ def test_sect_tool_launches_the_lookup_kernels(dev, tmp_path):
     for suffix in ("-counts.cvg", "-stats.tsv"):
         assert (tmp_path / f"gpu{suffix}").read_bytes() \
             == (tmp_path / f"cpu{suffix}").read_bytes()
+
+
+def _chunk_case(name, rng, chunk, n_chunks):
+    n = chunk * n_chunks
+    if name == "random":
+        return _keys(rng, n, bits=60, sent_frac=0.3)
+    if name == "all_sentinel_chunks":
+        k = _keys(rng, n, bits=60, sent_frac=0.2).reshape(n_chunks, chunk)
+        k[::2] = SENTINEL
+        return k.reshape(-1)
+    if name == "duplicates":
+        return _keys(rng, n, bits=3, sent_frac=0.1)
+    if name == "sorted":
+        return np.sort(_keys(rng, n, bits=60))
+    if name == "reversed":
+        return np.sort(_keys(rng, n, bits=60))[::-1].copy()
+    if name == "flipped_keyp":  # k = 29: key' with bit 63 flipped
+        k = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        k[rng.random(n) < 0.2] = SENTINEL
+        return k
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("chunk,n_chunks", [(32, 5), (64, 3), (1024, 7),
+                                            (4096, 3), (8192, 9),
+                                            (16384, 133)])
+@pytest.mark.parametrize("name", ["random", "all_sentinel_chunks",
+                                  "duplicates", "sorted", "reversed",
+                                  "flipped_keyp"])
+def test_sort_chunks_matches_plain(dev, name, chunk, n_chunks):
+    keys = _chunk_case(name, np.random.default_rng(chunk), chunk, n_chunks)
+    t = torch.from_numpy(keys).to(dev)
+    before = sort_chunks.launches
+    got = sort_chunks(t, chunk)
+    torch.cuda.synchronize()
+    assert sort_chunks.launches == before + 1
+    assert torch.equal(got, sort_chunks_plain(t, chunk))
+    assert torch.equal(t.cpu(), torch.from_numpy(keys))  # input untouched
+
+
+def _runs(rng, n, run_len, bits=40):
+    """n keys in ascending runs of run_len (the last may be short), each
+    with a sentinel tail of its own length."""
+    keys = _keys(rng, n, bits=bits, sent_frac=0.0)
+    for r, start in enumerate(range(0, n, run_len)):
+        run = keys[start:start + run_len]
+        run[rng.random(run.size) < 0.15 * (r % 5)] = SENTINEL
+        run.sort()
+    return keys
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16, 64])
+@pytest.mark.parametrize("run_len", [8192, 3000, 1])
+def test_merge_runs_matches_plain(dev, g, run_len):
+    rng = np.random.default_rng(g * run_len)
+    n = g * run_len - (run_len // 3 if g % 2 else 0)  # a short last run
+    keys = _runs(rng, max(n, 1), run_len)
+    t = torch.from_numpy(keys).to(dev)
+    before = merge_runs.launches
+    got = merge_runs(t, run_len)
+    torch.cuda.synchronize()
+    assert merge_runs.launches == before + 1
+    assert torch.equal(got, merge_runs_plain(t, run_len))
+    assert torch.equal(t.cpu(), torch.from_numpy(keys))  # input untouched
+
+
+def test_merge_runs_duplicates_and_negative_keys(dev):
+    rng = np.random.default_rng(6)
+    keys = _runs(rng, 5 * 4096, 4096, bits=4)
+    keys[keys != SENTINEL] -= 8
+    t = torch.from_numpy(keys).to(dev)
+    assert torch.equal(merge_runs(t, 4096), merge_runs_plain(t, 4096))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_profile_rounds_matches_plain(dev, mode):
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(
+        rng.integers(-(1 << 62), 1 << 62, 2048 * 37)).to(dev)
+    for rounds in (0, 1, 7):
+        before = profile_rounds.launches
+        got = profile_rounds(keys, mode, rounds)
+        torch.cuda.synchronize()
+        assert profile_rounds.launches == before + 1
+        assert torch.equal(got, profile_rounds_plain(keys, mode, rounds))
+
+
+def test_bucketed_counter_on_the_card(dev, tmp_path):
+    """count_paths_bucketed on the card launches K5, K6 (poly-A reads make a
+    hot group), K3, K2 with counts and sort_pairs, and gives the table of
+    the classic flush."""
+    from kat_tpu_torch.tools.common import Input
+
+    rng = np.random.default_rng(23)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genome = acgt[rng.integers(0, 4, 1 << 16)]
+    fq = tmp_path / "reads.fq"
+    with open(fq, "wb") as f:
+        for i, o in enumerate(rng.integers(0, genome.size - 150, 4000)):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, genome[o:o + 150].tobytes(),
+                                            b"I" * 150))
+        for i in range(200):
+            f.write(b"@a%d\n%s\n+\n%s\n" % (i, b"A" * 300, b"I" * 300))
+    for k in (27, 29):
+        counters = (sort_chunks, merge_runs, reduce_by_key,
+                    merge_sorted_payload, sort_pairs)
+        before = [f.launches for f in counters]
+        stats = {}
+        got = bucketed.count_paths_bucketed(
+            [str(fq)], k, max_chunks=64,
+            slots_log=10, bucket_bits=8,
+            initial_capacity=1 << 12, device=dev, stats=stats)
+        after = [f.launches for f in counters]
+        assert all(a > b for a, b in zip(after, before)), (before, after)
+        assert stats["groups"] >= 1
+        assert after[1] - before[1] == stats["groups"]
+        inp = Input([str(fq)], mer_len=k, device=dev)
+        inp.count(quiet=True)
+        n = got.n_unique
+        assert n == inp.table.n_unique
+        assert torch.equal(got.keys[:n], inp.table.keys[:n])
+        assert torch.equal(got.counts[:n], inp.table.counts[:n])
+        cpu = bucketed.count_paths_bucketed(
+            [str(fq)], k, max_chunks=64,
+            slots_log=10, bucket_bits=8,
+            initial_capacity=1 << 12, device="cpu")
+        assert torch.equal(got.keys.cpu(), cpu.keys)
+        assert torch.equal(got.counts.cpu(), cpu.counts)

@@ -41,3 +41,9 @@ def test_the_walk_finds_imports():
                                  "counting.py"))
     assert {"torch", "numpy"} <= mods
     assert len(SOURCES) > 25
+
+
+def test_the_bucketed_slice_is_walked():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"kat_tpu_torch/core/minimizer.py", "kat_tpu_torch/core/bucketed.py",
+            "kat_tpu_torch/benchmarks/profile_rounds.py"} <= rel

@@ -12,11 +12,15 @@ import torch
 from kat_tpu.ops.merge_kernel import merge_sorted_kernel
 from kat_tpu.ops.reduce_kernel import compact_flagged as jax_compact_flagged
 from kat_tpu.ops.reduce_kernel import reduce_compact_sorted
-from kat_tpu.ops.sort_kernel import sort_planes_padded
+from kat_tpu.ops.sort_kernel import (bitonic_merge_runs, bitonic_sort_chunks,
+                                     sort_planes_padded)
 from kat_tpu_torch.core.kmers import SENTINEL, from_planes, to_planes
 from kat_tpu_torch.ops.merge_kernel import merge_sorted, merge_sorted_payload
 from kat_tpu_torch.ops.reduce_kernel import compact_flagged, reduce_by_key
-from kat_tpu_torch.ops.sort_kernel import sort_keys, sort_pairs
+from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
+                                                     profile_rounds_plain)
+from kat_tpu_torch.ops.sort_kernel import (merge_runs, sort_chunks, sort_keys,
+                                           sort_pairs)
 
 
 def _keys(rng, n, bits=54, sent_frac=0.1):
@@ -239,3 +243,116 @@ def test_lookup_wrappers_reject_bad_input():
         compact_flagged((v,), (v > 0)[:7], 4)
     with pytest.raises(ValueError):
         compact_flagged((v,), v > 0, -1)
+
+
+@pytest.mark.parametrize("n,chunk", [(4096, 1024), (6144, 2048)])
+def test_sort_chunks_matches_jax(n, chunk):
+    """K5's plain version against kat_tpu's chunk-mode kernel in interpret
+    mode: every chunk sorted on its own, sentinels at each chunk's tail."""
+    rng = np.random.default_rng(n)
+    keys = _keys(rng, n, sent_frac=0.3)
+    keys[:chunk] = SENTINEL                       # an all-sentinel chunk
+    keys[chunk:chunk + 600] = keys[chunk + 600]   # duplicates
+    hi, lo = bitonic_sort_chunks(_planes(keys), 2, chunk, block_rows=8,
+                                 interpret=True)
+    got = sort_chunks(torch.from_numpy(keys), chunk)
+    np.testing.assert_array_equal(
+        got.numpy(), from_planes(np.asarray(hi), np.asarray(lo)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.sort(keys.reshape(-1, chunk), axis=1).reshape(-1))
+
+
+def test_sort_chunks_orders_the_flipped_keyp_form():
+    """Negative int64 keys (the bit-63-flipped key' of k = 29) sort below
+    the positive ones, as kat_tpu's unsigned planes order key'."""
+    rng = np.random.default_rng(3)
+    u = rng.integers(0, 1 << 64, 2048, dtype=np.uint64)
+    keys = (u ^ np.uint64(1 << 63)).astype(np.int64)
+    got = sort_chunks(torch.from_numpy(keys), 1024).numpy()
+    want = np.sort(u.reshape(2, 1024), axis=1).reshape(-1)
+    np.testing.assert_array_equal(got.astype(np.uint64) ^ np.uint64(1 << 63),
+                                  want)
+
+
+@pytest.mark.parametrize("g,run_len", [(2, 1024), (4, 1024)])
+def test_merge_runs_matches_jax(g, run_len):
+    """K6's plain version against kat_tpu's runs-mode kernel in interpret
+    mode: g ascending runs with unequal sentinel tails become one stream."""
+    rng = np.random.default_rng(g)
+    runs = [np.sort(_keys(rng, run_len, bits=20, sent_frac=0.1 * (r + 1)))
+            for r in range(g)]
+    keys = np.concatenate(runs)
+    hi, lo = bitonic_merge_runs(_planes(keys), 2, run_len, block_rows=8,
+                                interpret=True)
+    got = merge_runs(torch.from_numpy(keys), run_len)
+    np.testing.assert_array_equal(
+        got.numpy(), from_planes(np.asarray(hi), np.asarray(lo)))
+    np.testing.assert_array_equal(got.numpy(), np.sort(keys))
+
+
+def test_chunk_and_run_wrappers_reject_bad_input():
+    k = torch.zeros(4096, dtype=torch.int64)
+    for chunk in (16, 1000, 1 << 15):
+        with pytest.raises(ValueError):
+            sort_chunks(k, chunk)
+    with pytest.raises(ValueError):
+        sort_chunks(k[:3000], 1024)
+    with pytest.raises(TypeError):
+        sort_chunks(k.to(torch.int32), 1024)
+    with pytest.raises(ValueError):
+        merge_runs(k, 0)
+    with pytest.raises(ValueError):
+        merge_runs(k.reshape(2, -1), 1024)
+    assert merge_runs(k[:0], 8).numel() == 0
+    assert sort_chunks(k[:0], 1024).numel() == 0
+
+
+def test_interior_sentinel_gaps_are_never_emitted():
+    """The bucketed flush reduces a stream of sorted chunks, each with its
+    own sentinel tail: reduce_by_key drops sentinel runs wherever they lie,
+    and keys equal across a gap stay separate runs."""
+    chunk = np.array([3, 3, 5, SENTINEL, SENTINEL, SENTINEL], np.int64)
+    keys = np.concatenate([chunk, np.full(6, SENTINEL),
+                           [7, 7, 9, SENTINEL, SENTINEL, SENTINEL],
+                           [9, 9, 9, 9, 9, SENTINEL]]).astype(np.int64)
+    w = (keys != SENTINEL).astype(np.int32)
+    gk, gc, gn = reduce_by_key(torch.from_numpy(keys), torch.from_numpy(w), 8)
+    assert int(gn) == 5
+    np.testing.assert_array_equal(
+        gk.numpy(), [3, 5, 7, 9, 9, SENTINEL, SENTINEL, SENTINEL])
+    np.testing.assert_array_equal(gc.numpy(), [2, 1, 2, 1, 5, 0, 0, 0])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_profile_rounds_plain(mode):
+    """K7's plain version: `copy` adds one per round; every other class is a
+    bitonic round, so the multiset of keys is kept, partners end up ordered
+    by the last round's direction, and alu equals smem-1024."""
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, 4096))
+    out = profile_rounds(keys, mode, 3)
+    assert torch.equal(out, profile_rounds_plain(keys, mode, 3))
+    if mode == "copy":
+        assert torch.equal(out, keys + 3)
+        return
+    assert torch.equal(out.sort().values, keys.sort().values)
+    assert torch.equal(profile_rounds(keys, mode, 0), keys)
+    s = 1024 if mode == "alu" else int(mode.split("-")[1])
+    g = np.arange(4096)
+    i = g[(g & s) == 0]
+    asc = ((i >> s.bit_length()) & 1) == 0  # the last round's index is even
+    o = out.numpy()
+    assert np.where(asc, o[i] <= o[i ^ s], o[i] >= o[i ^ s]).all()
+    if mode == "alu":
+        assert torch.equal(out, profile_rounds(keys, "smem-1024", 3))
+
+
+def test_profile_rounds_rejects_bad_input():
+    k = torch.zeros(2048, dtype=torch.int64)
+    for mode in ("roll", "shfl", "shfl-32", "smem-3", "copy-1", "smem-2048"):
+        with pytest.raises(ValueError):
+            profile_rounds(k, mode, 1)
+    with pytest.raises(ValueError):
+        profile_rounds(k[:100], "copy", 1)
+    with pytest.raises(ValueError):
+        profile_rounds(k, "copy", -1)
