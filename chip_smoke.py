@@ -11,7 +11,11 @@
    classes) against its plain PyTorch version on the card at its path's
    shapes, exactly (integer keys and counts: tolerance 0), with its time,
    the plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time;
+   same function, that call's time.  K1, alone and with a value, is also
+   held against its plain version on the inputs that strain its look-back
+   (all keys equal, all SENTINEL, 90% one key, sorted, and lengths around
+   its tile), its full-size sort is run five times with equal outputs, and
+   it is timed at 2^16, 2^20 and 2^23 pairs beside torch.sort;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -124,8 +128,105 @@ def _report(entry: dict, what: str) -> dict:
     print(f"{what}: exact, kernel {entry['ms']:.3f} ms, plain "
           f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms by "
           f"{entry['bound_by']}, library "
-          + (f"{lib:.3f} ms" if lib is not None else "none"))
+          + (f"{lib:.3f} ms" if lib is not None else "none")
+          + (f"; {entry['passes']} passes of tile {entry['tile']}, "
+             f"{entry['launches_inside']} launches inside, their floor "
+             f"{entry['floor_ms']:.3f} ms" if "floor_ms" in entry else ""))
     return entry
+
+
+KEY_BITS = 55  # k = 27: what counting and the join pass to K1
+
+
+def _k1_extras(with_values: bool, n: int) -> dict:
+    """What the K1 entries say beside the common keys: the pass structure
+    and its own floor (one read for the histograms, one read and one write
+    per digit), which the one-read-one-write bound cannot reach."""
+    from kat_tpu_torch.benchmarks.sweep_sort import floor_bytes
+    from kat_tpu_torch.ops import sort_kernel
+
+    passes = (KEY_BITS + 7) // 8
+    return dict(
+        passes=passes,
+        launches_inside=passes + 2,  # a memset, the histogram, each digit
+        tile=sort_kernel.tile_len(with_values),
+        floor_ms=floor_bytes(n, with_values, passes) / HBM_BYTES_PER_S * 1e3)
+
+
+def _k1_sort(keys, with_values: bool):
+    """(kernel outputs, plain outputs) of K1 on `keys`; with a value every
+    key carries its position, so a pass that is not stable shows."""
+    import torch
+
+    from kat_tpu_torch.ops import sort_kernel
+
+    if not with_values:
+        return ((sort_kernel.sort_keys(keys, KEY_BITS),),
+                (sort_kernel.sort_keys_plain(keys),))
+    pos = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
+    return (sort_kernel.sort_pairs(keys, pos, KEY_BITS),
+            sort_kernel.sort_pairs_plain(keys, pos))
+
+
+def check_sort_shapes(dev, gen, with_values: bool, n: int, keys) -> None:
+    """K1 exact against its plain version where a look-back can go wrong:
+    one digit chain carrying everything or nearly everything, input that is
+    already sorted, and lengths around the tile; then the sort of `keys`
+    (the full-size random case) five times over with equal outputs, since a
+    race between tiles shows as a difference between runs."""
+    import torch
+
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.ops import sort_kernel
+
+    def random_keys(m):
+        k = torch.randint(0, 1 << 54, (m,), dtype=torch.int64, device=dev,
+                          generator=gen)
+        k[torch.rand(m, device=dev, generator=gen) < 0.1] = SENTINEL
+        return k
+
+    tile = sort_kernel.tile_len(with_values)
+    hot = random_keys(n)
+    hot[torch.rand(n, device=dev, generator=gen) < 0.9] = 0x2AAAAAAAAAAAAA
+    cases = [("all equal", torch.full((n,), 12345, dtype=torch.int64,
+                                      device=dev)),
+             ("all SENTINEL", torch.full((n,), SENTINEL, dtype=torch.int64,
+                                         device=dev)),
+             ("90% one key", hot),
+             ("sorted", torch.sort(random_keys(n)).values)]
+    cases += [(f"n = {m}", random_keys(m))
+              for m in (1, tile - 1, tile, tile + 1, 3 * tile + 17)]
+    for _name, k in cases:
+        _same(*_k1_sort(k, with_values))
+    first, _ = _k1_sort(keys, with_values)
+    for _ in range(4):
+        again, _ = _k1_sort(keys, with_values)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError("two runs of K1 on the same input differ")
+    print(f"K1{' with a value' if with_values else ''}: exact on "
+          + ", ".join(name for name, _ in cases[:4]) + f" (2^"
+          f"{n.bit_length() - 1} each) and at "
+          + ", ".join(name for name, _ in cases[4:])
+          + f" (tile {tile}); five sorts of 2^{keys.numel().bit_length() - 1}"
+          " agree")
+
+
+def time_small_sorts(dev, gen) -> None:
+    """K1 with a value at the sizes sect's length buckets give the join."""
+    import torch
+
+    from kat_tpu_torch.ops import sort_kernel
+
+    parts = []
+    for lg in (16, 20, 23):
+        k = torch.randint(0, 1 << 54, (1 << lg,), dtype=torch.int64,
+                          device=dev, generator=gen)
+        pos = torch.arange(1 << lg, dtype=torch.int32, device=dev)
+        ms = _timed_ms(lambda: sort_kernel.sort_pairs(k, pos, KEY_BITS), 20)
+        lib = _timed_ms(lambda: torch.sort(k, stable=True), 20)
+        parts.append(f"2^{lg} pairs {ms:.4f} ms (torch.sort(stable=True) "
+                     f"{lib:.4f} ms)")
+    print("K1 with a value: " + "; ".join(parts))
 
 
 def check_kernels(dev, gen):
@@ -145,17 +246,19 @@ def check_kernels(dev, gen):
     keys = torch.randint(0, 1 << 54, (n_fresh,), dtype=torch.int64,
                          device=dev, generator=gen)
     keys[torch.rand(n_fresh, device=dev, generator=gen) < 0.1] = SENTINEL
-    got = sort_kernel.sort_keys(keys, 55)
+    got = sort_kernel.sort_keys(keys, KEY_BITS)
     err = _max_abs_err(got, sort_kernel.sort_keys_plain(keys))
     results.append(_report(dict(
         name="radix_sort", route="cuda", source="kat_tpu_torch/csrc/sort.cu",
         replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
-        ms=_timed_ms(lambda: sort_kernel.sort_keys(keys, 55), 5),
+        ms=_timed_ms(lambda: sort_kernel.sort_keys(keys, KEY_BITS), 5),
         plain_ms=_timed_ms(lambda: sort_kernel.sort_keys_plain(keys), 5),
         **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
-        library_ms=_timed_ms(lambda: torch.sort(keys), 5)),
-        "K1 sort 2^26 keys"))
-    del keys, got
+        library_ms=_timed_ms(lambda: torch.sort(keys), 5),
+        **_k1_extras(False, n_fresh)), "K1 sort 2^26 keys"))
+    del got
+    check_sort_shapes(dev, gen, False, 1 << 24, keys)
+    del keys
 
     # K2: a 2^24-slot table (~2^23 real keys) with 2^26 sorted fresh keys
     # drawn from a 1.5 x 2^23 key universe (10% sentinels)
@@ -231,20 +334,23 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
                                   generator=gen)]  # a third hit the table
     q[torch.rand(m, device=dev, generator=gen) < 0.1] = SENTINEL
     idx = torch.arange(m, dtype=torch.int32, device=dev)
-    got = sort_kernel.sort_pairs(q, idx, 55)
+    got = sort_kernel.sort_pairs(q, idx, KEY_BITS)
     err = _same(got, sort_kernel.sort_pairs_plain(q, idx))
     results.append(_report(dict(
         name="radix_sort_pairs", route="cuda",
         source="kat_tpu_torch/csrc/sort.cu",
         replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
-        ms=_timed_ms(lambda: sort_kernel.sort_pairs(q, idx, 55), 5),
+        ms=_timed_ms(lambda: sort_kernel.sort_pairs(q, idx, KEY_BITS), 5),
         plain_ms=_timed_ms(lambda: sort_kernel.sort_pairs_plain(q, idx), 5),
         **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
         # the values are positions, so the stable sort's indices ARE them
-        library_ms=_timed_ms(lambda: torch.sort(q, stable=True), 5)),
-        "K1 sort 2^23 (key, value) pairs"))
+        library_ms=_timed_ms(lambda: torch.sort(q, stable=True), 5),
+        **_k1_extras(True, m)), "K1 sort 2^23 (key, value) pairs"))
     sq, sidx = got
-    del q, got
+    del got
+    check_sort_shapes(dev, gen, True, 1 << 22, q)
+    time_small_sorts(dev, gen)
+    del q
 
     # K2 with a payload: the table carrying -1 and the sorted queries
     # their positions, as the join merges them

@@ -1,4 +1,5 @@
-// K1: LSD radix sort of int64 k-mer keys.
+// K1: one-sweep LSD radix sort of int64 k-mer keys, alone or carrying one
+// int32 value each.
 //
 // Replaces kat_tpu/ops/sort_kernel.py::_window_kernel in full-sort mode
 // (reached through bitonic_sort_planes / sort_planes_padded), the sort of
@@ -6,222 +7,475 @@
 // The TPU sorted (hi, lo) uint32 planes with a bitonic network because it
 // has no fast scatter; Hopper has one, so this is a radix sort.
 //
-// What bounds it on the H100: device-memory traffic.  Each 8-bit pass
-// reads the keys twice (digit histogram, then scatter) and writes them
-// once: 24 bytes per key per pass.  The design keeps the passes few and
-// the writes coalesced:
-//   - only the significant bits are sorted: the caller passes key_bits =
-//     2k+1, so k=27 takes 7 passes, not 8.  Real keys are < 2^(2k) and the
-//     INT64_MAX sentinel has bit 2k set, so sentinels still sort last
-//     without a separate compaction;
-//   - each block ranks its 4096-key tile in shared memory and writes it
-//     back digit by digit, so a warp's stores land in a few contiguous
-//     runs instead of 32 scattered words.
+// What bounds it on the H100: device-memory traffic.  The design (Adinets
+// and Merrill, "Onesweep", 2022, written here from the paper) reads every
+// key once for the histograms of ALL digits and then once per 8-bit digit,
+// and writes it once per digit: 8 + 16 * passes bytes per key (12 + 24 *
+// passes per pair).  Only the significant bits are sorted: the caller
+// passes key_bits = 2k+1, so k = 27 takes 7 passes; real keys are < 2^(2k)
+// and the INT64_MAX sentinel has bit 2k set, so sentinels sort last.
 //
-// Stability (what LSD needs) comes from the within-tile ranking, not from
-// the block order, which is arbitrary: warp w owns the contiguous slice
-// [w*512, (w+1)*512) of the tile and walks it 32 keys at a time, in
-// address order; __match_any_sync finds the lanes that share a digit,
-// a lane's rank is the number of lower peer lanes plus the warp's running
-// count for that digit, and the warps' counts are then scanned in warp
-// order.  Tiles are ordered by the digit-major exclusive scan of the
-// per-tile histograms.
+// One sort is one memset of its scratch and passes + 1 launches:
+//   radix_histogram  counts the digits of every pass in one read of the
+//     keys; the block that finishes last turns each pass's 256 counts into
+//     their exclusive scan (the digit's base in the output) and writes the
+//     pass plan: a pass whose digit is the same for every key (one bin
+//     holds all n) is the identity of a stable sort and is skipped, and the
+//     ping-pong between `out` and `alt` is laid over the passes that run, so
+//     that the last of them lands in `out`.  The plan lives on the device:
+//     the host never reads it, so a sort stays free of synchronisation; a
+//     skipped pass is a launch whose blocks return at once.  When no pass
+//     runs, the last one copies the input.
+//   radix_onesweep, once per digit.  A block takes its tile number from an
+//     atomic counter, not from blockIdx: a block then only ever waits for
+//     tiles that have already started, whatever order the hardware
+//     schedules blocks in.  It ranks its tile, publishes its 256 digit
+//     counts, and finds where its keys of each digit go by decoupled
+//     look-back over the lower tiles' status words (below).
 //
-// kat_radix_sort_pairs is the same sort carrying one int32 value with every
-// key: the query sort of the sort-merge join (kat_tpu/ops/join.py:122),
-// where the TPU rode the query's position as one more key word because its
-// bitonic network is unstable and pads to a power of two.  This sort is
-// stable and takes any length, so the position is a plain payload: equal
-// keys keep their input order.  A pass then moves 12 bytes per pair where
-// the keys-only pass moves 8, read twice and written once as before.  The
-// pair kernel stages values beside the keys in shared memory, so it takes
-// 2048-pair tiles to stay inside the 48 KB a block gets without asking.
+// Stability (what LSD needs): inside a tile, warp w owns the contiguous
+// slice [w*ITEMS*32, (w+1)*ITEMS*32) and walks it 32 keys at a time in
+// address order; the lanes of a step that share a digit find each other
+// through a word of shared memory, a lane's rank is the warp's running
+// count of that digit plus the number of lower peer lanes, and the warps'
+// counts are scanned in warp order.  Across tiles, tile numbers are handed
+// out in order and the prefix a tile gets is the sum over all lower-numbered
+// tiles, so within a digit lower tiles land first.  (16-byte loads would
+// give a lane two neighbouring keys and break the lane-major address order
+// of a step, so loads are 8 bytes a lane, 256 contiguous bytes a warp.)
+//
+// The status word: status[pass][tile][digit] holds a 2-bit flag and a
+// 30-bit count in ONE 32-bit word, written by one st.relaxed.gpu and read
+// by ld.relaxed.gpu.  Nothing but this word passes from block to block (no
+// block reads keys another block wrote in the same launch), so no
+// release/acquire ordering is needed: a reader can never see a flag
+// without its count because they are one store, and .relaxed.gpu makes
+// both sides strong operations at device scope (served by L2, never by a
+// stale L1 line, never hoisted out of the spin loop).  Counts stay below
+// 2^30, so the wrapper refuses n >= 2^30.  The memset leaves every word
+// "not ready".
+//
+// Tiles are THREADS * ITEMS keys, staged in dynamic shared memory above the
+// 48 KB a block gets without asking, so a digit's run in a tile is ~32 keys
+// = 256 contiguous bytes on the way out.  The sizes below were picked by
+// benchmarks/sweep_sort.py --tiles, which rebuilds this file with other
+// values of the macros.
+
+#include <algorithm>
 
 #include "common.cuh"
 
+#ifndef KAT_RS_THREADS
+#define KAT_RS_THREADS 512
+#endif
+#ifndef KAT_RS_ITEMS
+#define KAT_RS_ITEMS 16
+#endif
+#ifndef KAT_RS_PAIR_THREADS
+#define KAT_RS_PAIR_THREADS 512
+#endif
+#ifndef KAT_RS_PAIR_ITEMS
+#define KAT_RS_PAIR_ITEMS 12
+#endif
+#ifndef KAT_RS_LOOK_BACK
+#define KAT_RS_LOOK_BACK 4  // status words a thread reads at once
+#endif
+
 namespace {
 
-constexpr int RS_THREADS = 256;
-constexpr int RS_WARPS = RS_THREADS / 32;
-constexpr int RS_ITEMS = 16;        // keys per thread: 4096 keys per block
-constexpr int RS_ITEMS_PAIRS = 8;   // pairs per thread: 2048 pairs per block
 constexpr int RS_RADIX = 256;
+constexpr int RS_MAX_PASSES = 8;
+constexpr int HIST_THREADS = 512;
+constexpr int HIST_ITEMS = 8;
+constexpr int HIST_TILE = HIST_THREADS * HIST_ITEMS;
+constexpr int LOOK_BACK = KAT_RS_LOOK_BACK;
 
+enum : int32_t { PASS_SKIP = 0, PASS_SORT = 1, PASS_COPY = 2 };
+enum : int32_t { BUF_IN = 0, BUF_OUT = 1, BUF_ALT = 2 };
+
+constexpr uint32_t FLAG_AGGREGATE = 1u << 30;  // count of this tile alone
+constexpr uint32_t FLAG_PREFIX = 2u << 30;     // count of tiles 0..this one
+constexpr uint32_t COUNT_MASK = (1u << 30) - 1;
+
+// The head of a sort's scratch; the status words follow it.
+struct SortState {
+  uint32_t base[RS_MAX_PASSES][RS_RADIX];  // digit counts, then their scan
+  uint32_t next_tile[RS_MAX_PASSES];       // each pass's tile counter
+  uint32_t hist_blocks_done;
+  int32_t mode[RS_MAX_PASSES];             // PASS_*
+  int32_t src[RS_MAX_PASSES];              // BUF_*
+  int32_t dst[RS_MAX_PASSES];
+};
+// in int32 words, rounded so that status rows start on a 1 KB boundary
+constexpr int64_t STATE_WORDS =
+    (sizeof(SortState) / 4 + RS_RADIX - 1) / RS_RADIX * RS_RADIX;
+
+// shift is a multiple of 8, so a digit lies inside one 32-bit half
 __device__ __forceinline__ int digit_of(int64_t key, int shift) {
-  return (int)(((uint64_t)key >> shift) & (RS_RADIX - 1));
+  const uint32_t half =
+      shift < 32 ? (uint32_t)key : (uint32_t)((uint64_t)key >> 32);
+  return (int)((half >> (shift & 31)) & (RS_RADIX - 1));
 }
 
-// hist[d * tiles + t] = number of keys of tile t whose digit is d.
-template <int ITEMS>
-__global__ void __launch_bounds__(RS_THREADS)
-radix_hist(const int64_t* __restrict__ keys, int64_t n, int shift,
-           int32_t* __restrict__ hist, int64_t tiles) {
-  __shared__ int32_t cnt[RS_RADIX];
-  cnt[threadIdx.x] = 0;
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// Digit counts of every pass in one read of the keys, then (last block) the
+// scan of each pass's counts and the pass plan.
+//
+// Counting is one shared-memory atomicAdd per key and digit.  On the H100 a
+// warp whose lanes all add to one address (sentinels, poly-A k-mers, sorted
+// input's high digits) is no slower than a warp of random digits, and
+// aggregating equal digits with ballots first made every distribution
+// slower (benchmarks/sweep_sort.py has the distributions), so the adds are
+// plain.
+__global__ void __launch_bounds__(HIST_THREADS)
+radix_histogram(const int64_t* __restrict__ keys, int64_t n, int passes,
+                SortState* st) {
+  __shared__ uint32_t cnt[RS_MAX_PASSES][RS_RADIX];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < passes * RS_RADIX; i += HIST_THREADS)
+    (&cnt[0][0])[i] = 0;
   __syncthreads();
-  constexpr int TILE = RS_THREADS * ITEMS;
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  for (int i = threadIdx.x; i < TILE; i += RS_THREADS) {
-    const int64_t g = base + i;
-    if (g < n) atomicAdd(&cnt[digit_of(keys[g], shift)], 1);
+
+  for (int64_t base = (int64_t)blockIdx.x * HIST_TILE; base < n;
+       base += (int64_t)gridDim.x * HIST_TILE) {
+    int64_t key[HIST_ITEMS];
+#pragma unroll
+    for (int i = 0; i < HIST_ITEMS; i++) {
+      const int64_t g = base + i * HIST_THREADS + tid;
+      key[i] = g < n ? keys[g] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < HIST_ITEMS; i++) {
+      if (base + i * HIST_THREADS + tid < n) {
+        for (int p = 0; p < passes; p++)
+          atomicAdd(&cnt[p][digit_of(key[i], 8 * p)], 1u);
+      }
+    }
   }
   __syncthreads();
-  hist[(int64_t)threadIdx.x * tiles + blockIdx.x] = cnt[threadIdx.x];
+  for (int i = tid; i < passes * RS_RADIX; i += HIST_THREADS) {
+    const uint32_t c = (&cnt[0][0])[i];
+    if (c) atomicAdd(&st->base[0][0] + i, c);
+  }
+
+  // the block that takes the last ticket sees every block's counts: each
+  // block's adds precede its fence and its ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    s_last = atomicAdd(&st->hist_blocks_done, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  unsigned trivial = 0;  // bit p: one bin of pass p holds all n keys
+  for (int p = 0; p < passes; p++) {
+    const uint32_t c = tid < RS_RADIX ? ld_relaxed(&st->base[p][tid]) : 0u;
+    uint32_t total;
+    const uint32_t ex = kat::block_exclusive_scan(c, &total);
+    if (tid < RS_RADIX) st->base[p][tid] = ex;
+    if (__syncthreads_or(c == (uint32_t)n)) trivial |= 1u << p;
+  }
+  if (tid != 0) return;
+  // the plan: the last pass that runs writes `out`, the one before it
+  // `alt`, and so on backwards; the first reads the input
+  bool to_out = true, any = false;
+  for (int p = passes - 1; p >= 0; p--) {
+    if (trivial >> p & 1) {
+      st->mode[p] = PASS_SKIP;
+      continue;
+    }
+    st->mode[p] = PASS_SORT;
+    st->dst[p] = to_out ? BUF_OUT : BUF_ALT;
+    to_out = !to_out;
+    any = true;
+  }
+  int cur = BUF_IN;
+  for (int p = 0; p < passes; p++) {
+    if (st->mode[p] != PASS_SORT) continue;
+    st->src[p] = cur;
+    cur = st->dst[p];
+  }
+  if (!any) {
+    st->mode[passes - 1] = PASS_COPY;
+    st->src[passes - 1] = BUF_IN;
+    st->dst[passes - 1] = BUF_OUT;
+  }
 }
 
-// Stable scatter of one tile; `offsets` is the exclusive scan of `hist`,
-// so offsets[d * tiles + t] is where tile t's first key of digit d goes.
-// With HAS_VAL every key's int32 value moves with it.
-template <int ITEMS, bool HAS_VAL>
-__global__ void __launch_bounds__(RS_THREADS)
-radix_scatter(const int64_t* __restrict__ in, int64_t* __restrict__ out,
-              const int32_t* __restrict__ vin, int32_t* __restrict__ vout,
-              int64_t n, int shift, const int32_t* __restrict__ offsets,
-              int64_t tiles) {
-  constexpr int TILE = RS_THREADS * ITEMS;
-  __shared__ int64_t s_keys[TILE];
-  __shared__ int32_t s_vals[HAS_VAL ? TILE : 1];
-  __shared__ int32_t s_warp[RS_WARPS][RS_RADIX];
-  __shared__ int32_t s_start[RS_RADIX];
-  __shared__ int32_t s_global[RS_RADIX];
+template <typename T>
+__device__ __forceinline__ T* pick(int which, const T* in, T* out, T* alt) {
+  return which == BUF_IN ? const_cast<T*>(in) : which == BUF_OUT ? out : alt;
+}
 
+// One stable 8-bit pass over all tiles.  With HAS_VAL every key's int32
+// value moves with it.
+template <int THREADS, int ITEMS, bool HAS_VAL>
+__global__ void __launch_bounds__(THREADS, 2)
+radix_onesweep(const int64_t* keys_in, int64_t* keys_out, int64_t* keys_alt,
+               const int32_t* vals_in, int32_t* vals_out, int32_t* vals_alt,
+               int64_t n, int pass, SortState* st, uint32_t* status) {
+  constexpr int TILE = THREADS * ITEMS;
+  constexpr int WARPS = THREADS / 32;
+  static_assert(ITEMS % 2 == 0, "ranks are packed two to a register");
+  static_assert(TILE < (1 << 16), "a rank must fit 16 bits");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* s_keys = reinterpret_cast<int64_t*>(smem);        // [TILE]
+  int32_t* s_vals = reinterpret_cast<int32_t*>(s_keys + TILE);
+  int32_t* s_warp = s_vals + (HAS_VAL ? TILE : 0);           // [WARPS][256]
+  int32_t* s_start = s_warp + WARPS * RS_RADIX;              // [256]
+  int32_t* s_global = s_start + RS_RADIX;                    // [256]
+  // the match tables of step 2 lie over s_keys, which step 4 fills
+  uint32_t* s_match = reinterpret_cast<uint32_t*>(smem);     // [WARPS][2][256]
+  static_assert(ITEMS >= 8, "the match tables must fit under the keys");
+  __shared__ uint32_t s_tile;
+
+  const int mode = st->mode[pass];
+  if (mode == PASS_SKIP) return;
+  const int src_buf = st->src[pass], dst_buf = st->dst[pass];
+  const int64_t* src = pick(src_buf, keys_in, keys_out, keys_alt);
+  int64_t* dst = pick(dst_buf, keys_in, keys_out, keys_alt);
+  const int32_t* vsrc =
+      HAS_VAL ? pick(src_buf, vals_in, vals_out, vals_alt) : nullptr;
+  int32_t* vdst =
+      HAS_VAL ? pick(dst_buf, vals_in, vals_out, vals_alt) : nullptr;
   const int tid = threadIdx.x;
+  if (mode == PASS_COPY) {
+    const int64_t base = (int64_t)blockIdx.x * TILE;
+    for (int j = tid; j < TILE && base + j < n; j += THREADS) {
+      dst[base + j] = src[base + j];
+      if constexpr (HAS_VAL) vdst[base + j] = vsrc[base + j];
+    }
+    return;
+  }
+
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-
-  for (int i = tid; i < RS_WARPS * RS_RADIX; i += RS_THREADS)
-    (&s_warp[0][0])[i] = 0;
-  s_global[tid] = offsets[(int64_t)tid * tiles + blockIdx.x];
+  const int shift = 8 * pass;
+  if (tid == 0) s_tile = atomicAdd(&st->next_tile[pass], 1u);
+  for (int i = tid; i < WARPS * RS_RADIX; i += THREADS) s_warp[i] = 0;
+  for (int i = tid; i < WARPS * 2 * RS_RADIX; i += THREADS) s_match[i] = 0;
   __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * TILE;
+  const int valid_n = (int)min((int64_t)TILE, n - base);
 
-  // 1. rank every key among the keys of its digit in this warp's slice
+  // 1. load the warp's slice, 32 consecutive keys a step
   int64_t key[ITEMS];
   int32_t val[HAS_VAL ? ITEMS : 1];
-  int digit[ITEMS];
-  int rank[ITEMS];
-  const int64_t seg = base + (int64_t)warp * (ITEMS * 32);
+  const int first = warp * (ITEMS * 32) + lane;
+#pragma unroll
+  for (int i = 0; i < ITEMS; i++) {
+    const int j = first + i * 32;
+    key[i] = j < valid_n ? src[base + j] : 0;
+    if constexpr (HAS_VAL) val[i] = j < valid_n ? vsrc[base + j] : 0;
+  }
+
+  // 2. rank every key among the keys of its digit in this warp's slice.
+  //    The lanes of a step that share a digit find each other by OR-ing
+  //    their lane bit into the digit's word of the warp's match table and
+  //    reading it back (eight ballots take four times as many operations and
+  //    measured slower).  The highest of them keeps the warp's running
+  //    count of the digit and clears the word; steps alternate between two
+  //    tables, so a clear never meets the next step's bits.
+  unsigned rank2[ITEMS / 2];
+  int32_t* my_warp = s_warp + warp * RS_RADIX;
   const unsigned lower = (1u << lane) - 1u;
 #pragma unroll
   for (int i = 0; i < ITEMS; i++) {
-    const int64_t g = seg + i * 32 + lane;
-    const bool valid = g < n;
-    key[i] = valid ? in[g] : 0;
-    if constexpr (HAS_VAL) val[i] = valid ? vin[g] : 0;
-    const int d = valid ? digit_of(key[i], shift) : RS_RADIX;  // 256 = none
-    digit[i] = d;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const bool valid = first + i * 32 < valid_n;
+    const int d = digit_of(key[i], shift);
+    uint32_t* match = s_match + (warp * 2 + i % 2) * RS_RADIX;
+    if (valid) atomicOr(&match[d], 1u << lane);
+    __syncwarp();
+    const unsigned peers = valid ? match[d] : 1u << lane;
+    __syncwarp();
     const int leader = 31 - __clz(peers);
-    const int cur = d < RS_RADIX ? s_warp[warp][d] : 0;
-    __syncwarp();
-    if (lane == leader && d < RS_RADIX) s_warp[warp][d] = cur + __popc(peers);
-    __syncwarp();
-    rank[i] = cur + __popc(peers & lower);
+    int prior = 0;
+    if (valid && lane == leader) {
+      prior = my_warp[d];
+      my_warp[d] = prior + __popc(peers);
+      match[d] = 0;
+    }
+    prior = __shfl_sync(0xffffffffu, prior, leader);
+    const unsigned r = (unsigned)(prior + __popc(peers & lower));
+    if (i % 2 == 0) rank2[i / 2] = r;
+    else rank2[i / 2] |= r << 16;
   }
   __syncthreads();
 
-  // 2. thread d: warp-order exclusive scan of digit d's counts, then the
-  //    tile-local start of each digit (scan over digits)
+  // 3. thread d: warp-order exclusive scan of digit d's counts, then the
+  //    tile-local start of each digit (scan over digits); the tile's count
+  //    goes out at once so that higher tiles need not wait for the rest
   int count = 0;
+  if (tid < RS_RADIX) {
 #pragma unroll
-  for (int w = 0; w < RS_WARPS; w++) {
-    const int c = s_warp[w][tid];
-    s_warp[w][tid] = count;
-    count += c;
+    for (int w = 0; w < WARPS; w++) {
+      const int c = s_warp[w * RS_RADIX + tid];
+      s_warp[w * RS_RADIX + tid] = count;
+      count += c;
+    }
   }
   int tile_total;
   const int start = kat::block_exclusive_scan(count, &tile_total);
-  s_start[tid] = start;
+  uint32_t* my_status = status + tile * RS_RADIX + tid;
+  const uint32_t* theirs = my_status;  // walks down the lower tiles
+  int64_t left = tile;                 // how many of them are not yet read
+  uint32_t word[LOOK_BACK];
+  // LOOK_BACK loads in flight at once: a step costs a trip to L2, and a word
+  // read early stays true (a tile's count never changes).  (Declared here,
+  // ahead of the staging: with the same lines inside step 5 the compiler's
+  // code measured slower.)
+  auto read_lower = [&] {
+#pragma unroll
+    for (int b = 0; b < LOOK_BACK; b++)
+      word[b] = b < left ? ld_relaxed(theirs - (b + 1) * RS_RADIX)
+                         : FLAG_PREFIX;  // below tile 0: nothing
+  };
+  if (tid < RS_RADIX) {
+    s_start[tid] = start;
+    st_relaxed(my_status, FLAG_AGGREGATE | (uint32_t)count);
+  }
   __syncthreads();
 
-  // 3. place the tile in shared memory in sorted-by-digit order
+  // 4. place the tile in shared memory in sorted-by-digit order
 #pragma unroll
   for (int i = 0; i < ITEMS; i++) {
-    const int d = digit[i];
-    if (d < RS_RADIX) {
-      const int slot = s_start[d] + s_warp[warp][d] + rank[i];
+    if (first + i * 32 < valid_n) {
+      const int d = digit_of(key[i], shift);
+      const int r = (int)((rank2[i / 2] >> (16 * (i % 2))) & 0xffffu);
+      const int slot = s_start[d] + my_warp[d] + r;
       s_keys[slot] = key[i];
       if constexpr (HAS_VAL) s_vals[slot] = val[i];
     }
   }
+
+  // 5. thread d looks back: add the lower tiles' counts of digit d until
+  //    one of them knows its whole prefix, then publish this tile's
+  if (tid < RS_RADIX) {
+    uint32_t before = 0;
+    for (;;) {
+      read_lower();
+      bool found = false;
+#pragma unroll
+      for (int b = 0; b < LOOK_BACK; b++) {
+        if (found) continue;
+        while ((word[b] & ~COUNT_MASK) == 0)
+          word[b] = ld_relaxed(theirs - (b + 1) * RS_RADIX);
+        before += word[b] & COUNT_MASK;
+        found = (word[b] & ~COUNT_MASK) == FLAG_PREFIX;
+      }
+      if (found) break;
+      theirs -= LOOK_BACK * RS_RADIX;
+      left -= LOOK_BACK;
+    }
+    st_relaxed(my_status, FLAG_PREFIX | (before + (uint32_t)count));
+    // where slot j of this tile goes, less j, for a key of digit d
+    s_global[tid] = (int32_t)(st->base[pass][tid] + before) - start;
+  }
   __syncthreads();
 
-  // 4. write it out: consecutive threads, consecutive keys of one digit
-  const int valid_n = (int)min((int64_t)TILE, n - base);
-  for (int j = tid; j < valid_n; j += RS_THREADS) {
+  // 6. write it out: consecutive threads, consecutive keys of one digit
+  for (int j = tid; j < valid_n; j += THREADS) {
     const int64_t k = s_keys[j];
-    const int d = digit_of(k, shift);
-    const int64_t o = (int64_t)s_global[d] + (j - s_start[d]);
-    out[o] = k;
-    if constexpr (HAS_VAL) vout[o] = s_vals[j];
+    const int64_t o = (int64_t)(s_global[digit_of(k, shift)] + j);
+    dst[o] = k;
+    if constexpr (HAS_VAL) vdst[o] = s_vals[j];
   }
 }
 
-int64_t tiles_for(int64_t n, int items) {
-  const int64_t tile = (int64_t)RS_THREADS * items;
-  return (n + tile - 1) / tile;
+int64_t tiles_for(int64_t n, int tile) { return (n + tile - 1) / tile; }
+
+int passes_for(int key_bits) { return (key_bits + 7) / 8; }
+
+int64_t scratch_for(int64_t n, int key_bits, int tile) {
+  return STATE_WORDS + passes_for(key_bits) * tiles_for(n, tile) * RS_RADIX;
 }
 
-int64_t scratch_for(int64_t n, int items) {
-  const int64_t h = (int64_t)RS_RADIX * tiles_for(n, items);
-  return h + kat::scan_partials_len(h);
-}
-
-// The LSD passes shared by both entry points: sort (keys, vals)[0:n) into
-// (out, vout), ping-ponging through (alt, valt).
-template <int ITEMS, bool HAS_VAL>
-int radix_sort_passes(const int64_t* keys, const int32_t* vals, int64_t* out,
-                      int32_t* vout, int64_t* alt, int32_t* valt,
-                      int32_t* scratch, int64_t n, int key_bits,
-                      cudaStream_t stream) {
+// Sort (keys, vals)[0:n) into (out, vout), ping-ponging through (alt, valt).
+template <int THREADS, int ITEMS, bool HAS_VAL>
+int onesweep_sort(const int64_t* keys, const int32_t* vals, int64_t* out,
+                  int32_t* vout, int64_t* alt, int32_t* valt,
+                  int32_t* scratch, int64_t n, int key_bits,
+                  cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int passes = (key_bits + 7) / 8;
-  const int64_t tiles = tiles_for(n, ITEMS);
-  const int64_t h = (int64_t)RS_RADIX * tiles;
-  int32_t* hist = scratch;
-  int32_t* partials = scratch + h;
+  constexpr int TILE = THREADS * ITEMS;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int SMEM = TILE * (HAS_VAL ? 12 : 8) + (WARPS + 2) * RS_RADIX * 4;
+  const int passes = passes_for(key_bits);
+  const int64_t tiles = tiles_for(n, TILE);
+  SortState* st = reinterpret_cast<SortState*>(scratch);
+  uint32_t* status = reinterpret_cast<uint32_t*>(scratch) + STATE_WORDS;
+
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, scratch_for(n, key_bits, TILE) * sizeof(int32_t), stream);
+  if (err != cudaSuccess) return (int)err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t hist_blocks =
+      std::min(tiles_for(n, HIST_TILE), (int64_t)sms * (2048 / HIST_THREADS));
+  radix_histogram<<<(unsigned)hist_blocks, HIST_THREADS, 0, stream>>>(
+      keys, n, passes, st);
+  KAT_CHECK_LAUNCH();
+
+  auto kernel = radix_onesweep<THREADS, ITEMS, HAS_VAL>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   for (int p = 0; p < passes; p++) {
-    // the last pass lands in `out`; earlier ones alternate backwards
-    const bool to_out = (passes - 1 - p) % 2 == 0;
-    const bool from_out = (passes - p) % 2 == 0;
-    int64_t* dst = to_out ? out : alt;
-    int32_t* vdst = to_out ? vout : valt;
-    const int64_t* src = p == 0 ? keys : (from_out ? out : alt);
-    const int32_t* vsrc = p == 0 ? vals : (from_out ? vout : valt);
-    const int shift = 8 * p;
-    radix_hist<ITEMS><<<(unsigned)tiles, RS_THREADS, 0, stream>>>(
-        src, n, shift, hist, tiles);
-    KAT_CHECK_LAUNCH();
-    const int err = kat::exclusive_scan<int32_t>(hist, h, partials, stream);
-    if (err) return err;
-    radix_scatter<ITEMS, HAS_VAL><<<(unsigned)tiles, RS_THREADS, 0, stream>>>(
-        src, dst, vsrc, vdst, n, shift, hist, tiles);
+    kernel<<<(unsigned)tiles, THREADS, SMEM, stream>>>(
+        keys, out, alt, vals, vout, valt, n, p, st,
+        status + p * tiles * RS_RADIX);
     KAT_CHECK_LAUNCH();
   }
   return 0;
 }
 
+constexpr int TILE_KEYS = KAT_RS_THREADS * KAT_RS_ITEMS;
+constexpr int TILE_PAIRS = KAT_RS_PAIR_THREADS * KAT_RS_PAIR_ITEMS;
+
 }  // namespace
 
-// int32 scratch elements kat_radix_sort needs for n keys.
-extern "C" int64_t kat_radix_sort_scratch(int64_t n) {
-  return scratch_for(n, RS_ITEMS);
+// Keys a thread block of kat_radix_sort takes.
+extern "C" int kat_radix_sort_tile() { return TILE_KEYS; }
+
+// int32 scratch elements kat_radix_sort needs for n keys of key_bits bits.
+extern "C" int64_t kat_radix_sort_scratch(int64_t n, int key_bits) {
+  return scratch_for(n, key_bits, TILE_KEYS);
 }
 
 // Sort keys[0:n) ascending into out[0:n).  `alt` (n keys) is the ping-pong
 // buffer of the passes; it may be null when key_bits <= 8.  keys is not
-// modified.  Requires n < 2^31 and every non-sentinel key < 2^(key_bits-1).
+// modified.  Requires n < 2^30 and every non-sentinel key < 2^(key_bits-1).
 extern "C" int kat_radix_sort(const int64_t* keys, int64_t* out,
                               int64_t* alt, int32_t* scratch, int64_t n,
                               int key_bits, void* stream_ptr) {
-  return radix_sort_passes<RS_ITEMS, false>(
+  return onesweep_sort<KAT_RS_THREADS, KAT_RS_ITEMS, false>(
       keys, nullptr, out, nullptr, alt, nullptr, scratch, n, key_bits,
       (cudaStream_t)stream_ptr);
 }
 
+// Pairs a thread block of kat_radix_sort_pairs takes.
+extern "C" int kat_radix_sort_pairs_tile() { return TILE_PAIRS; }
+
 // int32 scratch elements kat_radix_sort_pairs needs for n pairs.
-extern "C" int64_t kat_radix_sort_pairs_scratch(int64_t n) {
-  return scratch_for(n, RS_ITEMS_PAIRS);
+extern "C" int64_t kat_radix_sort_pairs_scratch(int64_t n, int key_bits) {
+  return scratch_for(n, key_bits, TILE_PAIRS);
 }
 
 // Stable sort of (keys, vals)[0:n) by key into (out, vout)[0:n); (alt, valt)
@@ -232,7 +486,7 @@ extern "C" int kat_radix_sort_pairs(const int64_t* keys, const int32_t* vals,
                                     int32_t* valt, int32_t* scratch,
                                     int64_t n, int key_bits,
                                     void* stream_ptr) {
-  return radix_sort_passes<RS_ITEMS_PAIRS, true>(
+  return onesweep_sort<KAT_RS_PAIR_THREADS, KAT_RS_PAIR_ITEMS, true>(
       keys, vals, out, vout, alt, valt, scratch, n, key_bits,
       (cudaStream_t)stream_ptr);
 }

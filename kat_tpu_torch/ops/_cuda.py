@@ -35,9 +35,11 @@ _INT = ctypes.c_int
 # never cuts a 64-bit address to a C int).
 _SIGNATURES = {
     "kat_radix_sort": [_P, _P, _P, _P, _I64, _INT, _P],
-    "kat_radix_sort_scratch": [_I64],
+    "kat_radix_sort_scratch": [_I64, _INT],
+    "kat_radix_sort_tile": [],
     "kat_radix_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P],
-    "kat_radix_sort_pairs_scratch": [_I64],
+    "kat_radix_sort_pairs_scratch": [_I64, _INT],
+    "kat_radix_sort_pairs_tile": [],
     "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P],
     "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                                  _INT, _P, _P, _P, _P, _P],
@@ -53,9 +55,12 @@ _SIGNATURES = {
 
 
 class KernelLibrary:
-    """The compiled kernels: built once per process at first `get()`."""
+    """The compiled kernels: built once per process at first `get()`.
+    `extra_flags` (say `-DKAT_RS_ITEMS=12`) go to nvcc after NVCC_FLAGS and
+    name a library of their own: a benchmark's variant, never the port's."""
 
-    def __init__(self):
+    def __init__(self, extra_flags: tuple[str, ...] = ()):
+        self._flags = [*NVCC_FLAGS, *extra_flags]
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.build_seconds: float | None = None
@@ -71,7 +76,7 @@ class KernelLibrary:
     def _build(self) -> str:
         srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
         hdrs = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha1(" ".join(self._flags).encode())
         for p in srcs + hdrs:
             with open(p, "rb") as f:
                 h.update(os.path.basename(p).encode() + f.read())
@@ -89,7 +94,7 @@ class KernelLibrary:
         t0 = time.perf_counter()
         try:
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src],
+                [nvcc, *self._flags, "-I", CSRC, "-c", "-o", obj, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for src, obj in zip(srcs, objs)]
             logs = [proc.communicate(timeout=900)[0] for proc in procs]

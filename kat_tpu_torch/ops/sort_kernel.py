@@ -6,10 +6,10 @@ K5: independent sort of every aligned chunk, and K6: merge of sorted runs
 Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
 mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
 `bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys` and
-`sort_pairs` launch the LSD radix sort of csrc/sort.cu, `sort_chunks` the
-shared-memory bitonic sort of csrc/chunk_sort.cu and `merge_runs` the
-merge-path tree of csrc/merge_runs.cu; on a CPU tensor they take the plain
-versions (`*_plain`).  No padding to a power of two: the radix sort and the
+`sort_pairs` launch the one-sweep LSD radix sort of csrc/sort.cu,
+`sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
+`merge_runs` the merge-path tree of csrc/merge_runs.cu; on a CPU tensor they
+take the plain versions (`*_plain`).  No padding to a power of two: the radix sort and the
 run merge take any length.
 """
 
@@ -29,8 +29,17 @@ def _check(keys: torch.Tensor, key_bits: int, name: str) -> None:
     _cuda.require(keys, "keys", torch.int64)
     if not 1 <= key_bits <= 63:
         raise ValueError(f"key_bits={key_bits} outside [1, 63]")
-    if keys.numel() >= 1 << 31:
-        raise ValueError(f"{name}: n={keys.numel()} must be < 2^31")
+    # the kernel's status words keep a count in 30 bits
+    if keys.numel() >= 1 << 30:
+        raise ValueError(f"{name}: n={keys.numel()} must be < 2^30")
+
+
+def tile_len(with_values: bool) -> int:
+    """Keys (or pairs) one thread block of the card's sort takes, as the
+    compiled library reports it."""
+    lib = _cuda.LIBRARY.get()
+    return int(lib.kat_radix_sort_pairs_tile() if with_values
+               else lib.kat_radix_sort_tile())
 
 
 def sort_keys(keys: torch.Tensor, key_bits: int) -> torch.Tensor:
@@ -48,8 +57,9 @@ def sort_keys(keys: torch.Tensor, key_bits: int) -> torch.Tensor:
     if n == 0:
         return out
     alt = torch.empty_like(keys) if key_bits > 8 else None
-    scratch = torch.empty(_cuda.scratch_len("kat_radix_sort_scratch", n),
-                          dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_radix_sort_scratch", n, key_bits),
+        dtype=torch.int32, device=keys.device)
     _cuda.launch("kat_radix_sort", keys.device, keys.data_ptr(),
                  out.data_ptr(), alt.data_ptr() if alt is not None else None,
                  scratch.data_ptr(), n, key_bits)
@@ -84,7 +94,7 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor, key_bits: int):
     alt = torch.empty_like(keys) if key_bits > 8 else None
     valt = torch.empty_like(values) if key_bits > 8 else None
     scratch = torch.empty(
-        _cuda.scratch_len("kat_radix_sort_pairs_scratch", n),
+        _cuda.scratch_len("kat_radix_sort_pairs_scratch", n, key_bits),
         dtype=torch.int32, device=keys.device)
     _cuda.launch("kat_radix_sort_pairs", keys.device, keys.data_ptr(),
                  values.data_ptr(), out.data_ptr(), vout.data_ptr(),

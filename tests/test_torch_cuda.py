@@ -28,11 +28,13 @@ from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
 from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
                                            sort_chunks, sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
-                                           sort_pairs, sort_pairs_plain)
+                                           sort_pairs, sort_pairs_plain,
+                                           tile_len)
 
 pytestmark = pytest.mark.cuda
 
-TILE = 4096  # K1 keys per block; sizes below straddle it on purpose
+TILE = 8192  # K1 keys per block; sizes below straddle it on purpose
+TILE_PAIRS = 6144  # K1 pairs per block
 
 
 @pytest.fixture
@@ -221,6 +223,108 @@ def test_sort_pairs_empty(dev):
     v = torch.zeros(0, dtype=torch.int32, device=dev)
     gk, gv = sort_pairs(k, v, 55)
     assert gk.numel() == 0 and gv.numel() == 0
+
+
+def test_sort_tiles_are_what_the_tests_assume(dev):
+    assert tile_len(False) == TILE and tile_len(True) == TILE_PAIRS
+
+
+def _k1(t, bits, with_values):
+    """(kernel outputs, plain outputs) of K1; with values every key carries
+    its position, so an unstable pass shows."""
+    if not with_values:
+        return (sort_keys(t, bits),), (sort_keys_plain(t),)
+    pos = torch.arange(t.numel(), dtype=torch.int32, device=t.device)
+    return sort_pairs(t, pos, bits), sort_pairs_plain(t, pos)
+
+
+def _assert_k1(t, bits, with_values):
+    before = t.clone()
+    got, want = _k1(t, bits, with_values)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    assert torch.equal(t, before)  # input untouched
+    return got
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("bits", [1, 8, 9, 16, 17, 55, 63])
+def test_sort_key_bits(dev, bits, with_values):
+    """Every pass count, odd and even (the ping-pong's parity), keys that
+    fill key_bits - 1 bits, SENTINEL mixed in."""
+    rng = np.random.default_rng(bits)
+    n = 3 * TILE + 17
+    keys = rng.integers(0, 1 << (bits - 1), n, dtype=np.int64)
+    keys[rng.random(n) < 0.1] = SENTINEL
+    _assert_k1(torch.from_numpy(keys).to(dev), bits, with_values)
+
+
+def _look_back_case(name, rng, tile):
+    n = 40 * tile + 5
+    if name == "all_equal":
+        return np.full(n, 12345, np.int64)
+    if name == "all_sentinel":
+        return np.full(n, SENTINEL, np.int64)
+    if name == "one_key_90":
+        k = _keys(rng, n)
+        k[rng.random(n) < 0.9] = 0x2AAAAAAAAAAAAA
+        return k
+    if name == "sorted":
+        return np.sort(_keys(rng, n))
+    if name == "one_digit_differs":
+        # every pass but one is skipped
+        return rng.integers(0, 256, n, dtype=np.int64) << 16
+    length = {"n_1": 1, "tile_minus_1": tile - 1, "tile": tile,
+              "tile_plus_1": tile + 1, "three_tiles_17": 3 * tile + 17}[name]
+    return _keys(rng, length)
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("name", ["all_equal", "all_sentinel", "one_key_90",
+                                  "sorted", "one_digit_differs", "n_1",
+                                  "tile_minus_1", "tile", "tile_plus_1",
+                                  "three_tiles_17"])
+def test_sort_look_back_shapes(dev, name, with_values):
+    """One digit chain carrying all or nearly all keys, sorted input, and
+    lengths around the tile."""
+    tile = TILE_PAIRS if with_values else TILE
+    keys = _look_back_case(name, np.random.default_rng(7), tile)
+    _assert_k1(torch.from_numpy(keys).to(dev), 55, with_values)
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+def test_sort_back_to_back_on_different_lengths(dev, with_values):
+    """Two sorts in a row may be handed the same scratch memory: the second
+    must not see the first one's tile counters or status words."""
+    rng = np.random.default_rng(8)
+    for n in ((1 << 20) + 11, 5 * TILE + 3, (1 << 20) + 11, 77):
+        _assert_k1(torch.from_numpy(_keys(rng, n)).to(dev), 55, with_values)
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+def test_sort_repeats_agree(dev, with_values):
+    """A race between tiles shows as a difference between runs."""
+    t = torch.from_numpy(_keys(np.random.default_rng(9), 1 << 22)).to(dev)
+    first = _assert_k1(t, 55, with_values)
+    for _ in range(19):
+        again, _ = _k1(t, 55, with_values)
+        for a, b in zip(first, again, strict=True):
+            assert torch.equal(a, b)
+
+
+def test_sort_pairs_duplicates_across_tiles_keep_input_order(dev):
+    """A handful of distinct keys, each repeated over many tiles: every
+    key's values must come out in input order."""
+    rng = np.random.default_rng(10)
+    n = 20 * TILE_PAIRS + 123
+    keys = rng.choice(_keys(rng, 5), n)
+    t = torch.from_numpy(keys).to(dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    gk, gv = sort_pairs(t, pos, 55)
+    order = np.argsort(keys, kind="stable")
+    assert np.array_equal(gk.cpu().numpy(), keys[order])
+    assert np.array_equal(gv.cpu().numpy(), order.astype(np.int32))
 
 
 @pytest.mark.parametrize("n_planes", [1, 2, 3])

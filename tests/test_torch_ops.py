@@ -20,7 +20,8 @@ from kat_tpu_torch.ops.reduce_kernel import compact_flagged, reduce_by_key
 from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
                                                      profile_rounds_plain)
 from kat_tpu_torch.ops.sort_kernel import (merge_runs, sort_chunks, sort_keys,
-                                           sort_pairs)
+                                           sort_keys_plain, sort_pairs,
+                                           sort_pairs_plain)
 
 
 def _keys(rng, n, bits=54, sent_frac=0.1):
@@ -41,6 +42,87 @@ def test_sort_matches_jax(n):
     want = from_planes(np.asarray(hi), np.asarray(lo))
     got = sort_keys(torch.from_numpy(keys), 55)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _radix_pass_model(keys, values, key_bits):
+    """csrc/sort.cu's pass plan, digit by digit, in plain torch: one stable
+    pass per 8-bit digit of the low key_bits bits, least significant first,
+    skipping a pass whose digit is the same for every key (one bin of its
+    histogram holds all n).  Returns (keys, values, the passes that ran)."""
+    n, ran = keys.numel(), []
+    for p in range((key_bits + 7) // 8):
+        digit = (keys >> (8 * p)) & 255
+        if int(torch.bincount(digit, minlength=256).max()) == n:
+            continue
+        order = torch.sort(digit, stable=True).indices
+        keys, values = keys[order], values[order]
+        ran.append(p)
+    return keys, values, ran
+
+
+@pytest.mark.parametrize("bits", [8, 9, 55, 63])
+def test_radix_pass_model_matches_plain_and_jax(bits):
+    """ceil(key_bits / 8) stable 8-bit passes sort what sort_keys_plain and
+    kat_tpu's full-sort kernel sort, SENTINEL last, and carry the values as
+    the stable plain sort does."""
+    rng = np.random.default_rng(bits)
+    n = 3000
+    keys = _keys(rng, n, bits=bits - 1)
+    t = torch.from_numpy(keys)
+    pos = torch.arange(n, dtype=torch.int32)
+    mk, mv, ran = _radix_pass_model(t, pos, bits)
+    assert ran == list(range((bits + 7) // 8))  # random keys: none skipped
+    assert torch.equal(mk, sort_keys_plain(t))
+    assert torch.equal(mk, sort_keys(t, bits))
+    wk, wv = sort_pairs_plain(t, pos)
+    assert torch.equal(mk, wk) and torch.equal(mv, wv)
+    hi, lo = sort_planes_padded(_planes(keys), 2, block_rows=8,
+                                interpret=True)
+    np.testing.assert_array_equal(
+        mk.numpy(), from_planes(np.asarray(hi), np.asarray(lo)))
+
+
+@pytest.mark.parametrize("name,ran", [("all_equal", []),
+                                      ("all_sentinel", []),
+                                      ("one_digit_differs", [2]),
+                                      ("low_bits_only", [0, 1])])
+def test_radix_pass_model_skips_uniform_digits(name, ran):
+    """The passes the kernel skips change nothing: the model with them left
+    out still equals the stable plain sort."""
+    rng = np.random.default_rng(11)
+    n = 2000
+    keys = {"all_equal": np.full(n, 12345, np.int64),
+            "all_sentinel": np.full(n, SENTINEL, np.int64),
+            "one_digit_differs": rng.integers(0, 256, n) << 16,
+            "low_bits_only": rng.integers(0, 1 << 16, n)}[name]
+    t = torch.from_numpy(keys.astype(np.int64))
+    pos = torch.arange(n, dtype=torch.int32)
+    mk, mv, got_ran = _radix_pass_model(t, pos, 55)
+    assert got_ran == ran
+    wk, wv = sort_pairs_plain(t, pos)
+    assert torch.equal(mk, wk) and torch.equal(mv, wv)
+
+
+def test_sort_wrappers_check_length_and_key_bits():
+    k = torch.zeros(8, dtype=torch.int64)
+    v = torch.zeros(8, dtype=torch.int32)
+    for bits in (0, 64, -1):
+        with pytest.raises(ValueError, match="key_bits"):
+            sort_keys(k, bits)
+        with pytest.raises(ValueError, match="key_bits"):
+            sort_pairs(k, v, bits)
+    for bits in (1, 63):
+        assert sort_keys(k, bits).numel() == 8
+    # the kernel's status words count in 30 bits; a meta tensor has the
+    # length without the memory
+    too_long = torch.empty(1 << 30, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match=r"2\^30"):
+        sort_keys(too_long, 55)
+    with pytest.raises(ValueError, match=r"2\^30"):
+        sort_pairs(too_long, torch.empty(1 << 30, dtype=torch.int32,
+                                         device="meta"), 55)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sort_keys(too_long[:-1], 55)
 
 
 def _table(rng, n, universe):
