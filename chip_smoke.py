@@ -14,7 +14,8 @@
    same function, that call's time.  K1, alone and with a value, is also
    held against its plain version on the inputs that strain its look-back
    (all keys equal, all SENTINEL, 90% one key, sorted, and lengths around
-   its tile), its full-size sort is run five times with equal outputs, and
+   its tile), its full-size sort is run five times with equal outputs, the
+   kernels and memsets of one sort are counted by torch.profiler, and
    it is timed at 2^16, 2^20 and 2^23 pairs beside torch.sort;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
@@ -69,7 +70,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 42
 TOLERANCE = 0  # exact: keys and counts are integers
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 ALU_OPS_PER_S = 67e12      # H100 SXM, published float32 rate outside the
 #                            tensor cores: the stand-in for integer
 #                            compares and adds, which have no published rate
@@ -106,6 +106,8 @@ def _bound(n_bytes: int, n_ops: int) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the function's
     compares and adds at the ALU rate, whichever is larger."""
+    from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
+
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / ALU_OPS_PER_S * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
@@ -130,7 +132,8 @@ def _report(entry: dict, what: str) -> dict:
           f"{entry['bound_by']}, library "
           + (f"{lib:.3f} ms" if lib is not None else "none")
           + (f"; {entry['passes']} passes of tile {entry['tile']}, "
-             f"{entry['launches_inside']} launches inside, their floor "
+             f"{entry['launches_inside']} kernels and memsets on the card "
+             f"(torch.profiler), the passes' floor "
              f"{entry['floor_ms']:.3f} ms" if "floor_ms" in entry else ""))
     return entry
 
@@ -138,19 +141,22 @@ def _report(entry: dict, what: str) -> dict:
 KEY_BITS = 55  # k = 27: what counting and the join pass to K1
 
 
-def _k1_extras(with_values: bool, n: int) -> dict:
-    """What the K1 entries say beside the common keys: the pass structure
-    and its own floor (one read for the histograms, one read and one write
-    per digit), which the one-read-one-write bound cannot reach."""
-    from kat_tpu_torch.benchmarks.sweep_sort import floor_bytes
+def _k1_extras(sort, with_values: bool, n: int) -> dict:
+    """What the K1 entries say beside the common keys: the pass structure,
+    the kernels and memsets that one call of `sort` ran on the card as
+    torch.profiler counted them in this run, and the pass structure's own
+    floor (one read for the histograms, one read and one write per digit),
+    which the one-read-one-write bound cannot reach."""
+    from kat_tpu_torch.benchmarks.workloads import (HBM_BYTES_PER_S,
+                                                    device_events)
     from kat_tpu_torch.ops import sort_kernel
 
-    passes = (KEY_BITS + 7) // 8
     return dict(
-        passes=passes,
-        launches_inside=passes + 2,  # a memset, the histogram, each digit
+        passes=(KEY_BITS + 7) // 8,
+        launches_inside=len(device_events(sort)),
         tile=sort_kernel.tile_len(with_values),
-        floor_ms=floor_bytes(n, with_values, passes) / HBM_BYTES_PER_S * 1e3)
+        floor_ms=sort_kernel.pass_floor_bytes(n, with_values, KEY_BITS)
+        / HBM_BYTES_PER_S * 1e3)
 
 
 def _k1_sort(keys, with_values: bool):
@@ -255,7 +261,8 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(lambda: sort_kernel.sort_keys_plain(keys), 5),
         **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
         library_ms=_timed_ms(lambda: torch.sort(keys), 5),
-        **_k1_extras(False, n_fresh)), "K1 sort 2^26 keys"))
+        **_k1_extras(lambda: sort_kernel.sort_keys(keys, KEY_BITS), False,
+                     n_fresh)), "K1 sort 2^26 keys"))
     del got
     check_sort_shapes(dev, gen, False, 1 << 24, keys)
     del keys
@@ -345,7 +352,8 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
         **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
         # the values are positions, so the stable sort's indices ARE them
         library_ms=_timed_ms(lambda: torch.sort(q, stable=True), 5),
-        **_k1_extras(True, m)), "K1 sort 2^23 (key, value) pairs"))
+        **_k1_extras(lambda: sort_kernel.sort_pairs(q, idx, KEY_BITS), True,
+                     m)), "K1 sort 2^23 (key, value) pairs"))
     sq, sidx = got
     del got
     check_sort_shapes(dev, gen, True, 1 << 22, q)
@@ -501,19 +509,15 @@ def main_path(dev):
     """Counting at bench.py's scale through CodeStreamingCounter."""
     import torch
 
+    from kat_tpu_torch.benchmarks import workloads
     from kat_tpu_torch.core import counting, stats
     from kat_tpu_torch.core.kmers import SENTINEL, extract_kmers
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
-    k, rows, length, n_batches = 27, 4096, 1024, 48
-    genome_len = 1 << 23
-    rng = np.random.default_rng(SEED)
-    genome = torch.from_numpy(
-        rng.integers(0, 4, genome_len + length, dtype=np.uint8)).to(dev)
-    reads = genome.unfold(0, length, 1)  # [genome_len + 1, length] view
-    offsets = torch.from_numpy(
-        rng.integers(0, genome_len, (n_batches, rows))).to(dev)
-    batches = [reads[offsets[i]] for i in range(n_batches)]  # on the card
+    k, rows, length, n_batches = (workloads.MAIN_K, workloads.MAIN_ROWS,
+                                  workloads.MAIN_LENGTH,
+                                  workloads.MAIN_BATCHES)
+    genome, batches = workloads.main_path_batches(dev, SEED)  # on the card
 
     warm = counting.CodeStreamingCounter(k, device=dev, flush_batches=2)
     for b in batches[:2]:
@@ -528,9 +532,7 @@ def main_path(dev):
     for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
-    sc = counting.CodeStreamingCounter(
-        k, canonical=True, initial_capacity=1 << 20,
-        flush_windows=1 << 26, device=dev)
+    sc = workloads.main_path_counter(dev)
     for b in batches:
         sc.add_codes(b)
     table = sc.finish()

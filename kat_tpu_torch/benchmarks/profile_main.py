@@ -2,13 +2,13 @@
 
     python -m kat_tpu_torch.benchmarks.profile_main
 
-Counts chip_smoke.py's main-path workload (k=27 canonical, 48 batches of
-4096 reads x 1024 bases from a 2^23-base random genome, staged on the card,
-196,214,784 windows in 3 flushes, table grown from 2^20 slots) once to warm
-up and once under torch.profiler, and prints the wall time, the device time
-in all, the share of each hand-written kernel (K1 is every `radix_` kernel
-and the memsets, which on this path are K1's scratch and a few small ones
-of PyTorch's), and the profiler's table of the 15 costliest kernels.
+Counts chip_smoke.py's main-path workload (benchmarks/workloads.py: k=27
+canonical, 48 batches of 4096 reads x 1024 bases from a 2^23-base random
+genome, staged on the card, 196,214,784 windows in 3 flushes, table grown
+from 2^20 slots) once to warm up and once under torch.profiler, and prints
+the wall time, the device time in all, the share of each hand-written
+kernel (K1 is every `radix_` kernel and the memset of its scratch, the one
+that runs just before a histogram), and the 15 costliest kernels.
 Needs an NVIDIA card; the first line names it with its power limit.
 """
 
@@ -18,7 +18,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 # how the kernels of csrc/ begin in the profiler's names (after "void ")
@@ -26,12 +25,12 @@ KERNEL_GROUPS = (("K1 sort", ("(anonymous namespace)::radix_",)),
                  ("K2 merge", ("(anonymous namespace)::merge_",)),
                  ("K3 reduce", ("(anonymous namespace)::reduce_",
                                 "kat::scan_")))
+HISTOGRAM = "(anonymous namespace)::radix_histogram"
 
 
 def main() -> int:
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..core import counting, stats
+    from ..core import stats
+    from . import workloads
 
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -41,49 +40,47 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
-    k, rows, length, n_batches, genome_len = 27, 4096, 1024, 48, 1 << 23
-    rng = np.random.default_rng(42)
-    genome = torch.from_numpy(
-        rng.integers(0, 4, genome_len + length, dtype=np.uint8)).to(dev)
-    reads = genome.unfold(0, length, 1)
-    offsets = torch.from_numpy(
-        rng.integers(0, genome_len, (n_batches, rows))).to(dev)
-    batches = [reads[offsets[i]] for i in range(n_batches)]
+    _genome, batches = workloads.main_path_batches(dev, 42)
+    table = None
 
     def run():
-        sc = counting.CodeStreamingCounter(
-            k, canonical=True, initial_capacity=1 << 20,
-            flush_windows=1 << 26, device=dev)
+        nonlocal table
+        sc = workloads.main_path_counter(dev)
         for b in batches:
             sc.add_codes(b)
         table = sc.finish()
         stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
         torch.cuda.synchronize()
-        return table
 
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        table = run()
-        wall = time.perf_counter() - t0
-    # kernels and memsets only: an operator's row repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    n_windows = n_batches * rows * (length - k + 1)
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    events = workloads.device_events(run)
+    device_us = sum(us for _name, us in events)
+    n_windows = (workloads.MAIN_BATCHES * workloads.MAIN_ROWS
+                 * (workloads.MAIN_LENGTH - workloads.MAIN_K + 1))
     print(f"main path, warm: {n_windows} windows, {table.n_unique} distinct, "
-          f"wall {wall * 1e3:.1f} ms, device {device_us / 1e3:.1f} ms")
-    for name, prefixes in KERNEL_GROUPS:
-        mine = [e for e in events
-                if e.key.removeprefix("void ").startswith(prefixes)
-                or (name == "K1 sort" and e.key.startswith("Memset"))]
-        us = sum(e.self_device_time_total for e in mine)
-        print(f"{name}: {us / 1e3:.3f} ms = {100 * us / device_us:.1f}% of "
-              f"the device time, in {sum(e.count for e in mine)} launches")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=15,
-                                    max_name_column_width=60))
+          f"wall {wall * 1e3:.1f} ms unprofiled, device {device_us / 1e3:.1f} "
+          "ms")
+    names = [name.removeprefix("void ") for name, _us in events]
+    for group, prefixes in KERNEL_GROUPS:
+        mine = [i for i, name in enumerate(names)
+                if name.startswith(prefixes)
+                or (group == "K1 sort" and name.startswith("Memset")
+                    and i + 1 < len(names)
+                    and names[i + 1].startswith(HISTOGRAM))]
+        us = sum(events[i][1] for i in mine)
+        print(f"{group}: {us / 1e3:.3f} ms = {100 * us / device_us:.1f}% of "
+              f"the device time, in {len(mine)} launches")
+    by_name = {}
+    for name, (_full, us) in zip(names, events):
+        calls, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (calls + 1, total + us)
+    print("the 15 costliest kernels: ms, calls, name")
+    for name, (calls, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:15]:
+        print(f"{us / 1e3:10.3f} {calls:6d} {name[:100]}")
     return 0
 
 

@@ -6,12 +6,12 @@
 Without `--tiles`: `sort_keys` and `sort_pairs` at key_bits 55 (k = 27) for
 n in 2^16 .. 2^26 and five distributions of 54-bit keys (random; random
 with 10% SENTINEL; 90% one key; the second one already sorted; all
-SENTINEL, where every pass is skipped).  Each cell
+SENTINEL, where one chain of status words carries every key).  Each cell
 is checked against `torch.sort` and timed beside it (CUDA events, 5
 launches after a warm-up, 20 below 2^22) and gives the GB/s the sort
 reaches against its pass structure's floor: 8 + 16 x passes bytes per key
-read and written, 12 + 24 x passes per pair.  Then one sort of 2^26 keys
-and one of 2^23 pairs under torch.profiler, by kernel.
+read and written, 12 + 24 x passes per pair.  Then one sort of 2^26 keys,
+one of 2^23 pairs and one of 2^16 pairs under torch.profiler, by kernel.
 
 With `--tiles`: rebuilds the kernels with other threads x keys-per-thread
 and other look-back depths (the KAT_RS_* macros of sort.cu, one library per
@@ -32,25 +32,20 @@ import sys
 
 import torch
 
+from ..ops.sort_kernel import pass_floor_bytes
 from .profile_join import _timed_ms
+from .workloads import HBM_BYTES_PER_S, device_events
 
-KEY_BITS = 55  # k = 27
-PASSES = (KEY_BITS + 7) // 8
+KEY_BITS = 55  # k = 27: 7 passes
 LENGTHS = tuple(1 << s for s in (16, 18, 20, 22, 23, 24, 26))
 DISTRIBUTIONS = ("random", "sentinels_10", "one_key_90", "sorted",
                  "all_sentinel")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-# threads x keys per thread; (512, 16) and (512, 12) are what sort.cu has
+# threads x keys per thread; sort.cu has (512, 16) for keys and
+# (384, 16) for pairs
 TILE_VARIANTS = ((256, 16), (384, 16), (512, 8), (512, 10), (512, 12),
                  (512, 14), (512, 16), (640, 10), (640, 12), (768, 8),
                  (768, 10))
 LOOK_BACK_VARIANTS = (1, 2, 8)  # sort.cu has 4
-
-
-def floor_bytes(n: int, with_values: bool, passes: int = PASSES) -> int:
-    """What the one-sweep pass structure must move: one read for the
-    histograms, one read and one write per digit."""
-    return n * ((12 + 24 * passes) if with_values else (8 + 16 * passes))
 
 
 def make_keys(name: str, n: int, dev, gen) -> torch.Tensor:
@@ -91,9 +86,10 @@ def _time_cell(keys, with_values: bool) -> dict:
     if not ok:
         raise AssertionError(f"sort of {n} {'pairs' if with_values else 'keys'}"
                              " differs from torch.sort")
-    floor_ms = floor_bytes(n, with_values) / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, torch_sort_ms=lib_ms, floor_ms=floor_ms,
-                gb_per_s=floor_bytes(n, with_values) / ms / 1e6)
+    floor = pass_floor_bytes(n, with_values, KEY_BITS)
+    return dict(ms=ms, torch_sort_ms=lib_ms,
+                floor_ms=floor / HBM_BYTES_PER_S * 1e3,
+                gb_per_s=floor / ms / 1e6)
 
 
 def sweep(dev, gen) -> list[dict]:
@@ -114,14 +110,12 @@ def sweep(dev, gen) -> list[dict]:
 
 
 def profile(dev, gen) -> dict:
-    """Device time by kernel of one sort of 2^26 keys and one of 2^23
-    pairs (sentinels_10), in microseconds."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+    """Device time by kernel of one sort of 2^26 keys, one of 2^23 pairs and
+    one of 2^16 pairs (sentinels_10), in microseconds."""
     from ..ops import sort_kernel
 
     out = {}
-    for what, n in (("keys", 1 << 26), ("pairs", 1 << 23)):
+    for what, n in (("keys", 1 << 26), ("pairs", 1 << 23), ("pairs", 1 << 16)):
         keys = make_keys("sentinels_10", n, dev, gen)
         vals = torch.arange(n, dtype=torch.int32, device=dev)
 
@@ -132,17 +126,12 @@ def profile(dev, gen) -> dict:
                 sort_kernel.sort_keys(keys, KEY_BITS)
 
         run()
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        by_kernel = {e.key[:60]: dict(calls=e.count,
-                                      us=e.device_time_total)
-                     for e in prof.key_averages()
-                     if e.device_time_total > 0
-                     and ("radix" in e.key or "emset" in e.key)}
-        out[what] = by_kernel
+        by_kernel = {}
+        for name, us in device_events(run):
+            row = by_kernel.setdefault(name[:60], dict(calls=0, us=0.0))
+            row["calls"] += 1
+            row["us"] += us
+        out[f"{what}_2_{n.bit_length() - 1}"] = by_kernel
         print(f"profile, 2^{n.bit_length() - 1} {what}: "
               + json.dumps(by_kernel))
     return out

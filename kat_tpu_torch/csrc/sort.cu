@@ -18,15 +18,13 @@
 // One sort is one memset of its scratch and passes + 1 launches:
 //   radix_histogram  counts the digits of every pass in one read of the
 //     keys; the block that finishes last turns each pass's 256 counts into
-//     their exclusive scan (the digit's base in the output) and writes the
-//     pass plan: a pass whose digit is the same for every key (one bin
-//     holds all n) is the identity of a stable sort and is skipped, and the
-//     ping-pong between `out` and `alt` is laid over the passes that run, so
-//     that the last of them lands in `out`.  The plan lives on the device:
-//     the host never reads it, so a sort stays free of synchronisation; a
-//     skipped pass is a launch whose blocks return at once.  When no pass
-//     runs, the last one copies the input.
-//   radix_onesweep, once per digit.  A block takes its tile number from an
+//     their exclusive scan (the digit's base in the output).
+//   radix_onesweep, once per digit, ping-ponging between `out` and `alt` so
+//     that the last pass lands in `out`.  Every pass runs, also one whose
+//     digit is the same for every key: no caller's keys leave a digit
+//     uniform (key_bits is 2k+1, tight over random k-mers), and finding out
+//     would cost the host a read of the histogram or every pass a plan to
+//     follow.  A block takes its tile number from an
 //     atomic counter, not from blockIdx: a block then only ever waits for
 //     tiles that have already started, whatever order the hardware
 //     schedules blocks in.  It ranks its tile, publishes its 256 digit
@@ -72,10 +70,10 @@
 #define KAT_RS_ITEMS 16
 #endif
 #ifndef KAT_RS_PAIR_THREADS
-#define KAT_RS_PAIR_THREADS 512
+#define KAT_RS_PAIR_THREADS 384
 #endif
 #ifndef KAT_RS_PAIR_ITEMS
-#define KAT_RS_PAIR_ITEMS 12
+#define KAT_RS_PAIR_ITEMS 16
 #endif
 #ifndef KAT_RS_LOOK_BACK
 #define KAT_RS_LOOK_BACK 4  // status words a thread reads at once
@@ -90,9 +88,6 @@ constexpr int HIST_ITEMS = 8;
 constexpr int HIST_TILE = HIST_THREADS * HIST_ITEMS;
 constexpr int LOOK_BACK = KAT_RS_LOOK_BACK;
 
-enum : int32_t { PASS_SKIP = 0, PASS_SORT = 1, PASS_COPY = 2 };
-enum : int32_t { BUF_IN = 0, BUF_OUT = 1, BUF_ALT = 2 };
-
 constexpr uint32_t FLAG_AGGREGATE = 1u << 30;  // count of this tile alone
 constexpr uint32_t FLAG_PREFIX = 2u << 30;     // count of tiles 0..this one
 constexpr uint32_t COUNT_MASK = (1u << 30) - 1;
@@ -102,9 +97,6 @@ struct SortState {
   uint32_t base[RS_MAX_PASSES][RS_RADIX];  // digit counts, then their scan
   uint32_t next_tile[RS_MAX_PASSES];       // each pass's tile counter
   uint32_t hist_blocks_done;
-  int32_t mode[RS_MAX_PASSES];             // PASS_*
-  int32_t src[RS_MAX_PASSES];              // BUF_*
-  int32_t dst[RS_MAX_PASSES];
 };
 // in int32 words, rounded so that status rows start on a 1 KB boundary
 constexpr int64_t STATE_WORDS =
@@ -130,7 +122,7 @@ __device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
 }
 
 // Digit counts of every pass in one read of the keys, then (last block) the
-// scan of each pass's counts and the pass plan.
+// scan of each pass's counts.
 //
 // Counting is one shared-memory atomicAdd per key and digit.  On the H100 a
 // warp whose lanes all add to one address (sentinels, poly-A k-mers, sorted
@@ -181,52 +173,20 @@ radix_histogram(const int64_t* __restrict__ keys, int64_t n, int passes,
   __syncthreads();
   if (!s_last) return;
 
-  unsigned trivial = 0;  // bit p: one bin of pass p holds all n keys
   for (int p = 0; p < passes; p++) {
     const uint32_t c = tid < RS_RADIX ? ld_relaxed(&st->base[p][tid]) : 0u;
     uint32_t total;
     const uint32_t ex = kat::block_exclusive_scan(c, &total);
     if (tid < RS_RADIX) st->base[p][tid] = ex;
-    if (__syncthreads_or(c == (uint32_t)n)) trivial |= 1u << p;
   }
-  if (tid != 0) return;
-  // the plan: the last pass that runs writes `out`, the one before it
-  // `alt`, and so on backwards; the first reads the input
-  bool to_out = true, any = false;
-  for (int p = passes - 1; p >= 0; p--) {
-    if (trivial >> p & 1) {
-      st->mode[p] = PASS_SKIP;
-      continue;
-    }
-    st->mode[p] = PASS_SORT;
-    st->dst[p] = to_out ? BUF_OUT : BUF_ALT;
-    to_out = !to_out;
-    any = true;
-  }
-  int cur = BUF_IN;
-  for (int p = 0; p < passes; p++) {
-    if (st->mode[p] != PASS_SORT) continue;
-    st->src[p] = cur;
-    cur = st->dst[p];
-  }
-  if (!any) {
-    st->mode[passes - 1] = PASS_COPY;
-    st->src[passes - 1] = BUF_IN;
-    st->dst[passes - 1] = BUF_OUT;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T* pick(int which, const T* in, T* out, T* alt) {
-  return which == BUF_IN ? const_cast<T*>(in) : which == BUF_OUT ? out : alt;
 }
 
 // One stable 8-bit pass over all tiles.  With HAS_VAL every key's int32
 // value moves with it.
 template <int THREADS, int ITEMS, bool HAS_VAL>
 __global__ void __launch_bounds__(THREADS, 2)
-radix_onesweep(const int64_t* keys_in, int64_t* keys_out, int64_t* keys_alt,
-               const int32_t* vals_in, int32_t* vals_out, int32_t* vals_alt,
+radix_onesweep(const int64_t* __restrict__ src, int64_t* __restrict__ dst,
+               const int32_t* __restrict__ vsrc, int32_t* __restrict__ vdst,
                int64_t n, int pass, SortState* st, uint32_t* status) {
   constexpr int TILE = THREADS * ITEMS;
   constexpr int WARPS = THREADS / 32;
@@ -243,25 +203,7 @@ radix_onesweep(const int64_t* keys_in, int64_t* keys_out, int64_t* keys_alt,
   static_assert(ITEMS >= 8, "the match tables must fit under the keys");
   __shared__ uint32_t s_tile;
 
-  const int mode = st->mode[pass];
-  if (mode == PASS_SKIP) return;
-  const int src_buf = st->src[pass], dst_buf = st->dst[pass];
-  const int64_t* src = pick(src_buf, keys_in, keys_out, keys_alt);
-  int64_t* dst = pick(dst_buf, keys_in, keys_out, keys_alt);
-  const int32_t* vsrc =
-      HAS_VAL ? pick(src_buf, vals_in, vals_out, vals_alt) : nullptr;
-  int32_t* vdst =
-      HAS_VAL ? pick(dst_buf, vals_in, vals_out, vals_alt) : nullptr;
   const int tid = threadIdx.x;
-  if (mode == PASS_COPY) {
-    const int64_t base = (int64_t)blockIdx.x * TILE;
-    for (int j = tid; j < TILE && base + j < n; j += THREADS) {
-      dst[base + j] = src[base + j];
-      if constexpr (HAS_VAL) vdst[base + j] = vsrc[base + j];
-    }
-    return;
-  }
-
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int shift = 8 * pass;
@@ -420,12 +362,28 @@ int onesweep_sort(const int64_t* keys, const int32_t* vals, int64_t* out,
   SortState* st = reinterpret_cast<SortState*>(scratch);
   uint32_t* status = reinterpret_cast<uint32_t*>(scratch) + STATE_WORDS;
 
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, scratch_for(n, key_bits, TILE) * sizeof(int32_t), stream);
+  // what a device is asked once: its SM count, and leave for this kernel
+  // to take its shared memory there (0: not asked yet; two threads that
+  // both ask write the same answer)
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES] = {};
+  auto kernel = radix_onesweep<THREADS, ITEMS, HAS_VAL>;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  int device, sms;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[device];
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[device] = sms;
+  }
+
+  err = cudaMemsetAsync(
+      scratch, 0, scratch_for(n, key_bits, TILE) * sizeof(int32_t), stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t hist_blocks =
       std::min(tiles_for(n, HIST_TILE), (int64_t)sms * (2048 / HIST_THREADS));
@@ -433,15 +391,19 @@ int onesweep_sort(const int64_t* keys, const int32_t* vals, int64_t* out,
       keys, n, passes, st);
   KAT_CHECK_LAUNCH();
 
-  auto kernel = radix_onesweep<THREADS, ITEMS, HAS_VAL>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
+  // the last pass writes `out`, the one before it `alt`, and so on
+  // backwards; the first reads the input
+  const int64_t* src = keys;
+  const int32_t* vsrc = vals;
   for (int p = 0; p < passes; p++) {
+    const bool to_out = (passes - 1 - p) % 2 == 0;
+    int64_t* dst = to_out ? out : alt;
+    int32_t* vdst = to_out ? vout : valt;
     kernel<<<(unsigned)tiles, THREADS, SMEM, stream>>>(
-        keys, out, alt, vals, vout, valt, n, p, st,
-        status + p * tiles * RS_RADIX);
+        src, dst, vsrc, vdst, n, p, st, status + p * tiles * RS_RADIX);
     KAT_CHECK_LAUNCH();
+    src = dst;
+    vsrc = vdst;
   }
   return 0;
 }

@@ -42,6 +42,14 @@ def tile_len(with_values: bool) -> int:
                else lib.kat_radix_sort_tile())
 
 
+def pass_floor_bytes(n: int, with_values: bool, key_bits: int) -> int:
+    """Bytes the card's sort must move by its pass structure: one read of
+    the keys for the histograms, then one read and one write of every key
+    (and value) per 8-bit digit of key_bits."""
+    passes = (key_bits + 7) // 8
+    return n * ((12 + 24 * passes) if with_values else (8 + 16 * passes))
+
+
 def sort_keys(keys: torch.Tensor, key_bits: int) -> torch.Tensor:
     """Ascending sort of a 1-D int64 key tensor, returned as a new tensor.
 

@@ -273,8 +273,11 @@ def _look_back_case(name, rng, tile):
     if name == "sorted":
         return np.sort(_keys(rng, n))
     if name == "one_digit_differs":
-        # every pass but one is skipped
+        # every pass but one must move nothing
         return rng.integers(0, 256, n, dtype=np.int64) << 16
+    if name == "low_bits_only":
+        # key_bits overstates the keys: the top five passes move nothing
+        return rng.integers(0, 1 << 16, n, dtype=np.int64)
     length = {"n_1": 1, "tile_minus_1": tile - 1, "tile": tile,
               "tile_plus_1": tile + 1, "three_tiles_17": 3 * tile + 17}[name]
     return _keys(rng, length)
@@ -282,12 +285,14 @@ def _look_back_case(name, rng, tile):
 
 @pytest.mark.parametrize("with_values", [False, True])
 @pytest.mark.parametrize("name", ["all_equal", "all_sentinel", "one_key_90",
-                                  "sorted", "one_digit_differs", "n_1",
+                                  "sorted", "one_digit_differs",
+                                  "low_bits_only", "n_1",
                                   "tile_minus_1", "tile", "tile_plus_1",
                                   "three_tiles_17"])
 def test_sort_look_back_shapes(dev, name, with_values):
-    """One digit chain carrying all or nearly all keys, sorted input, and
-    lengths around the tile."""
+    """One digit chain carrying all or nearly all keys (the uniform-digit
+    cases of tests/test_torch_ops.py's pass model among them), sorted
+    input, and lengths around the tile."""
     tile = TILE_PAIRS if with_values else TILE
     keys = _look_back_case(name, np.random.default_rng(7), tile)
     _assert_k1(torch.from_numpy(keys).to(dev), 55, with_values)

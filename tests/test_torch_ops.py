@@ -45,19 +45,18 @@ def test_sort_matches_jax(n):
 
 
 def _radix_pass_model(keys, values, key_bits):
-    """csrc/sort.cu's pass plan, digit by digit, in plain torch: one stable
-    pass per 8-bit digit of the low key_bits bits, least significant first,
-    skipping a pass whose digit is the same for every key (one bin of its
-    histogram holds all n).  Returns (keys, values, the passes that ran)."""
-    n, ran = keys.numel(), []
+    """csrc/sort.cu's passes, digit by digit, in plain torch: one stable
+    pass per 8-bit digit of the low key_bits bits, least significant first;
+    none is skipped, as in the kernel.  Returns (keys, values, the passes
+    that moved a key)."""
+    moved = []
     for p in range((key_bits + 7) // 8):
         digit = (keys >> (8 * p)) & 255
-        if int(torch.bincount(digit, minlength=256).max()) == n:
-            continue
         order = torch.sort(digit, stable=True).indices
+        if not torch.equal(order, torch.arange(keys.numel())):
+            moved.append(p)
         keys, values = keys[order], values[order]
-        ran.append(p)
-    return keys, values, ran
+    return keys, values, moved
 
 
 @pytest.mark.parametrize("bits", [8, 9, 55, 63])
@@ -70,8 +69,8 @@ def test_radix_pass_model_matches_plain_and_jax(bits):
     keys = _keys(rng, n, bits=bits - 1)
     t = torch.from_numpy(keys)
     pos = torch.arange(n, dtype=torch.int32)
-    mk, mv, ran = _radix_pass_model(t, pos, bits)
-    assert ran == list(range((bits + 7) // 8))  # random keys: none skipped
+    mk, mv, moved = _radix_pass_model(t, pos, bits)
+    assert moved == list(range((bits + 7) // 8))  # random keys: every pass
     assert torch.equal(mk, sort_keys_plain(t))
     assert torch.equal(mk, sort_keys(t, bits))
     wk, wv = sort_pairs_plain(t, pos)
@@ -87,8 +86,10 @@ def test_radix_pass_model_matches_plain_and_jax(bits):
                                       ("one_digit_differs", [2]),
                                       ("low_bits_only", [0, 1])])
 def test_radix_pass_model_skips_uniform_digits(name, ran):
-    """The passes the kernel skips change nothing: the model with them left
-    out still equals the stable plain sort."""
+    """The kernel runs every pass, also over a digit that is the same for
+    every key (key_bits overstating the keys, all-equal input): such a pass
+    must move nothing, so only the passes in `ran` do, and the result still
+    equals the stable plain sort."""
     rng = np.random.default_rng(11)
     n = 2000
     keys = {"all_equal": np.full(n, 12345, np.int64),
@@ -97,8 +98,8 @@ def test_radix_pass_model_skips_uniform_digits(name, ran):
             "low_bits_only": rng.integers(0, 1 << 16, n)}[name]
     t = torch.from_numpy(keys.astype(np.int64))
     pos = torch.arange(n, dtype=torch.int32)
-    mk, mv, got_ran = _radix_pass_model(t, pos, 55)
-    assert got_ran == ran
+    mk, mv, moved = _radix_pass_model(t, pos, 55)
+    assert moved == ran
     wk, wv = sort_pairs_plain(t, pos)
     assert torch.equal(mk, wk) and torch.equal(mv, wv)
 
