@@ -16,7 +16,14 @@
    (all keys equal, all SENTINEL, 90% one key, sorted, and lengths around
    its tile), its full-size sort is run five times with equal outputs, the
    kernels and memsets of one sort are counted by torch.profiler, and
-   it is timed at 2^16, 2^20 and 2^23 pairs beside torch.sort;
+   it is timed at 2^16, 2^20 and 2^23 pairs beside torch.sort.  K3 and both
+   forms of K2 are held against their plain versions on the inputs that
+   strain a single pass (one run across every tile, 2^26 equal keys, all
+   SENTINEL, a count of 2^31 - 1, interior sentinel runs, overflow, no
+   slots, n = 1, an empty side, every key tied, one side before the other,
+   lengths around the tile), each is run five times at the path's shapes
+   with equal outputs, and the kernels and memsets inside one call of
+   each are counted by torch.profiler;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -129,31 +136,28 @@ def _report(entry: dict, what: str) -> dict:
     lib = entry["library_ms"]
     print(f"{what}: exact, kernel {entry['ms']:.3f} ms, plain "
           f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms by "
-          f"{entry['bound_by']}, library "
+          f"{entry['bound_by']} (the kernel reaches "
+          f"{entry['bound_ms'] / entry['ms']:.1%} of it), library "
           + (f"{lib:.3f} ms" if lib is not None else "none")
-          + (f"; {entry['passes']} passes of tile {entry['tile']}, "
-             f"{entry['launches_inside']} kernels and memsets on the card "
-             f"(torch.profiler), the passes' floor "
-             f"{entry['floor_ms']:.3f} ms" if "floor_ms" in entry else ""))
+          + (f"; {entry['passes']} passes of tile {entry['tile']}, the "
+             f"passes' floor {entry['floor_ms']:.3f} ms"
+             if "floor_ms" in entry else
+             f"; tile {entry['tile']}" if "tile" in entry else ""))
     return entry
 
 
 KEY_BITS = 55  # k = 27: what counting and the join pass to K1
 
 
-def _k1_extras(sort, with_values: bool, n: int) -> dict:
-    """What the K1 entries say beside the common keys: the pass structure,
-    the kernels and memsets that one call of `sort` ran on the card as
-    torch.profiler counted them in this run, and the pass structure's own
-    floor (one read for the histograms, one read and one write per digit),
-    which the one-read-one-write bound cannot reach."""
-    from kat_tpu_torch.benchmarks.workloads import (HBM_BYTES_PER_S,
-                                                    device_events)
+def _k1_extras(with_values: bool, n: int) -> dict:
+    """What the K1 entries say beside the common keys: the pass structure
+    and its own floor (one read for the histograms, one read and one write
+    per digit), which the one-read-one-write bound cannot reach."""
+    from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
     from kat_tpu_torch.ops import sort_kernel
 
     return dict(
         passes=(KEY_BITS + 7) // 8,
-        launches_inside=len(device_events(sort)),
         tile=sort_kernel.tile_len(with_values),
         floor_ms=sort_kernel.pass_floor_bytes(n, with_values, KEY_BITS)
         / HBM_BYTES_PER_S * 1e3)
@@ -235,6 +239,61 @@ def time_small_sorts(dev, gen) -> None:
     print("K1 with a value: " + "; ".join(parts))
 
 
+def check_flush_shapes(dev, gen, shapes) -> None:
+    """K3 and both forms of K2 exact against their plain versions where a
+    single pass can go wrong (workloads.reduce_strain / merge_strain: one
+    run across every tile, 2^26 equal keys, all SENTINEL, a count of
+    2^31 - 1, interior sentinel runs, overflow, no slots, n = 1, one side
+    empty, every key tied, one side before the other, lengths around the
+    tile), then five runs of each at the path's shapes with equal
+    outputs, since a race between tiles shows as a difference between
+    runs."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel
+
+    for name in workloads.REDUCE_STRAIN:
+        k, w, out_size = workloads.reduce_strain(
+            name, reduce_kernel.tile_len(), dev, gen)
+        got = reduce_kernel.reduce_by_key(k, w, out_size)
+        want = reduce_kernel.reduce_by_key_plain(k, w, out_size)
+        if int(got[2]) != int(want[2]):
+            raise AssertionError(f"K3 n_unique {int(got[2])} != "
+                                 f"{int(want[2])} ({name})")
+        _same(got[:2], want[:2])
+    del k, w, got, want
+    for name in workloads.MERGE_STRAIN:
+        a, ac, b = workloads.merge_strain(name, merge_kernel.tile_len(), dev,
+                                          gen)
+        _same(merge_kernel.merge_sorted(a, ac, b),
+              merge_kernel.merge_sorted_plain(a, ac, b))
+        bp = (torch.arange(b.numel(), dtype=torch.int32, device=dev),)
+        mk, mp = merge_kernel.merge_sorted_payload(a, (ac,), b, bp)
+        pk, pp = merge_kernel.merge_sorted_payload_plain(a, (ac,), b, bp)
+        _same((mk, *mp), (pk, *pp))
+    t_keys, t_counts, fresh, mk, mw, q = shapes
+    ap = (torch.full((t_keys.numel(),), -1, dtype=torch.int32, device=dev),)
+    bp = (torch.arange(q.numel(), dtype=torch.int32, device=dev),)
+    for what, fn in (
+            ("K3", lambda: reduce_kernel.reduce_by_key(mk, mw, 1 << 24)),
+            ("K2", lambda: merge_kernel.merge_sorted(t_keys, t_counts,
+                                                     fresh)),
+            ("K2 with a payload", lambda: (lambda k, p: (k, *p))(
+                *merge_kernel.merge_sorted_payload(t_keys, ap, q, bp)))):
+        first = fn()
+        for _ in range(4):
+            if not all(torch.equal(x, y) for x, y in zip(first, fn())):
+                raise AssertionError(f"two runs of {what} on the same input "
+                                     "differ")
+    print("K3 and K2 (both forms): exact on "
+          + ", ".join(workloads.REDUCE_STRAIN) + " (K3; tile "
+          f"{reduce_kernel.tile_len()}) and "
+          + ", ".join(workloads.MERGE_STRAIN) + " (K2; tile "
+          f"{merge_kernel.tile_len()}); five runs of each at the path's "
+          "shapes agree")
+
+
 def check_kernels(dev, gen):
     """Every kernel against its plain version: K1-K3 at the flush's shapes
     here, the lookup path's three in check_lookup_kernels."""
@@ -242,6 +301,7 @@ def check_kernels(dev, gen):
 
     import torch
 
+    from kat_tpu_torch.benchmarks import workloads
     from kat_tpu_torch.core.kmers import SENTINEL
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
@@ -261,30 +321,16 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(lambda: sort_kernel.sort_keys_plain(keys), 5),
         **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
         library_ms=_timed_ms(lambda: torch.sort(keys), 5),
-        **_k1_extras(lambda: sort_kernel.sort_keys(keys, KEY_BITS), False,
-                     n_fresh)), "K1 sort 2^26 keys"))
+        **_k1_extras(False, n_fresh)), "K1 sort 2^26 keys"))
+    counted = [(results[-1], lambda: sort_kernel.sort_keys(keys, KEY_BITS))]
     del got
     check_sort_shapes(dev, gen, False, 1 << 24, keys)
-    del keys
 
     # K2: a 2^24-slot table (~2^23 real keys) with 2^26 sorted fresh keys
     # drawn from a 1.5 x 2^23 key universe (10% sentinels)
-    universe = torch.randint(0, 1 << 54, (3 << 22,), dtype=torch.int64,
-                             device=dev, generator=gen)
-    real = torch.unique(universe[:1 << 23])
-    t_keys = torch.full((cap,), SENTINEL, dtype=torch.int64, device=dev)
-    t_keys[:real.numel()] = real
-    t_counts = torch.zeros(cap, dtype=torch.int32, device=dev)
-    t_counts[:real.numel()] = torch.randint(
-        1, 100, (real.numel(),), dtype=torch.int32, device=dev,
-        generator=gen)
-    pick = torch.randint(0, universe.numel(), (n_fresh,), device=dev,
-                         generator=gen)
-    fresh = universe[pick]
-    fresh[torch.rand(n_fresh, device=dev, generator=gen) < 0.1] = SENTINEL
-    fresh = sort_kernel.sort_keys_plain(fresh)
+    shapes = workloads.flush_shapes(dev, gen)
+    t_keys, t_counts, fresh, pk, pw, _q = shapes
     mk, mw = merge_kernel.merge_sorted(t_keys, t_counts, fresh)
-    pk, pw = merge_kernel.merge_sorted_plain(t_keys, t_counts, fresh)
     err = max(_max_abs_err(mk, pk), _max_abs_err(mw, pw))
     del pk, pw
     results.append(_report(dict(
@@ -295,7 +341,10 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_plain(
             t_keys, t_counts, fresh), 3),
         **_bound(_nbytes(t_keys, t_counts, fresh, mk, mw), mk.numel()),
-        library_ms=None), "K2 merge 2^24 table + 2^26 fresh"))
+        library_ms=None, tile=merge_kernel.tile_len()),
+        "K2 merge 2^24 table + 2^26 fresh"))
+    counted.append((results[-1], lambda: merge_kernel.merge_sorted(
+        t_keys, t_counts, fresh)))
 
     # K3: that merged stream reduced to cap 2^24, and to 2^20 (overflow:
     # the true n_unique must come back)
@@ -307,6 +356,7 @@ def check_kernels(dev, gen):
             raise AssertionError(f"K3 n_unique {int(gn)} != {int(wn)}")
         errs += [_max_abs_err(gk, wk), _max_abs_err(gc, wc)]
         print(f"K3 reduce to {out_size}: n_unique {int(gn)} exact")
+    del gk, gc, wk, wc
     results.append(_report(dict(
         name="reduce_by_key", route="cuda",
         source="kat_tpu_torch/csrc/reduce.cu",
@@ -315,9 +365,29 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(
             lambda: reduce_kernel.reduce_by_key_plain(mk, mw, cap), 3),
         **_bound(_nbytes(mk, mw) + cap * 12, 2 * mk.numel()),
-        library_ms=None), f"K3 reduce {mk.numel()} -> 2^24"))
-    del mk, mw, fresh, universe, pick
-    return results + check_lookup_kernels(dev, gen, t_keys, t_counts)
+        library_ms=None, tile=reduce_kernel.tile_len()),
+        f"K3 reduce {mk.numel()} -> 2^24"))
+    counted.append((results[-1],
+                    lambda: reduce_kernel.reduce_by_key(mk, mw, cap)))
+    check_flush_shapes(dev, gen, shapes)
+    lookup, lookup_counted = check_lookup_kernels(dev, gen, t_keys, t_counts)
+    count_inside(counted + lookup_counted)
+    return results + lookup
+
+
+def count_inside(counted) -> None:
+    """launches_inside of each (entry, call): the kernels and memsets that
+    one call ran on the card, as torch.profiler counted them, all calls in
+    one profiled window."""
+    from kat_tpu_torch.benchmarks.workloads import device_event_groups
+
+    groups = device_event_groups([fn for _entry, fn in counted])
+    for (entry, _fn), events in zip(counted, groups):
+        entry["launches_inside"] = len(events)
+    print("kernels and memsets inside one call (torch.profiler, one "
+          "window): " + ", ".join(f"{entry['name']} {len(events)}"
+                                  for (entry, _fn), events
+                                  in zip(counted, groups)))
 
 
 def check_lookup_kernels(dev, gen, t_keys, t_counts):
@@ -352,13 +422,12 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
         **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
         # the values are positions, so the stable sort's indices ARE them
         library_ms=_timed_ms(lambda: torch.sort(q, stable=True), 5),
-        **_k1_extras(lambda: sort_kernel.sort_pairs(q, idx, KEY_BITS), True,
-                     m)), "K1 sort 2^23 (key, value) pairs"))
+        **_k1_extras(True, m)), "K1 sort 2^23 (key, value) pairs"))
+    counted = [(results[-1], lambda: sort_kernel.sort_pairs(q, idx, KEY_BITS))]
     sq, sidx = got
     del got
     check_sort_shapes(dev, gen, True, 1 << 22, q)
     time_small_sorts(dev, gen)
-    del q
 
     # K2 with a payload: the table carrying -1 and the sorted queries
     # their positions, as the join merges them
@@ -379,7 +448,10 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
             t_keys, a_planes, sq, b_planes), 3),
         **_bound(_nbytes(t_keys, *a_planes, sq, *b_planes, mk, *mp),
                  mk.numel()),
-        library_ms=None), "K2 merge 2^24 table + 2^23 queries, 1 plane"))
+        library_ms=None, tile=merge_kernel.tile_len()),
+        "K2 merge 2^24 table + 2^23 queries, 1 plane"))
+    counted.append((results[-1], lambda: merge_kernel.merge_sorted_payload(
+        t_keys, a_planes, sq, b_planes)))
 
     # K4: the query rows (a third of the merged stream) pulled out of the
     # position plane and a count plane; then every row, no row, and an
@@ -413,7 +485,7 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
         library_ms=_timed_ms(
             lambda: [torch.masked_select(p, flag) for p in mp], 5)),
         f"K4 compact {n} x 2 planes -> 2^23"))
-    return results
+    return results, counted
 
 
 def check_bucketed_kernels(dev, gen, group_chunks: int):

@@ -7,8 +7,9 @@ canonical, 48 batches of 4096 reads x 1024 bases from a 2^23-base random
 genome, staged on the card, 196,214,784 windows in 3 flushes, table grown
 from 2^20 slots) once to warm up and once under torch.profiler, and prints
 the wall time, the device time in all, the share of each hand-written
-kernel (K1 is every `radix_` kernel and the memset of its scratch, the one
-that runs just before a histogram), and the 15 costliest kernels.
+kernel (a memset of a kernel's scratch counts with the kernel that runs
+just after it: K1's histogram, K3's tile pass), and the 15 costliest
+kernels.
 Needs an NVIDIA card; the first line names it with its power limit.
 """
 
@@ -21,11 +22,9 @@ import time
 import torch
 
 # how the kernels of csrc/ begin in the profiler's names (after "void ")
-KERNEL_GROUPS = (("K1 sort", ("(anonymous namespace)::radix_",)),
-                 ("K2 merge", ("(anonymous namespace)::merge_",)),
-                 ("K3 reduce", ("(anonymous namespace)::reduce_",
-                                "kat::scan_")))
-HISTOGRAM = "(anonymous namespace)::radix_histogram"
+KERNEL_GROUPS = (("K1 sort", "(anonymous namespace)::radix_"),
+                 ("K2 merge", "(anonymous namespace)::merge_"),
+                 ("K3 reduce", "(anonymous namespace)::reduce_"))
 
 
 def main() -> int:
@@ -64,12 +63,11 @@ def main() -> int:
           f"wall {wall * 1e3:.1f} ms unprofiled, device {device_us / 1e3:.1f} "
           "ms")
     names = [name.removeprefix("void ") for name, _us in events]
-    for group, prefixes in KERNEL_GROUPS:
+    for group, prefix in KERNEL_GROUPS:
         mine = [i for i, name in enumerate(names)
-                if name.startswith(prefixes)
-                or (group == "K1 sort" and name.startswith("Memset")
-                    and i + 1 < len(names)
-                    and names[i + 1].startswith(HISTOGRAM))]
+                if name.startswith(prefix)
+                or (name.startswith("Memset") and i + 1 < len(names)
+                    and names[i + 1].startswith(prefix))]
         us = sum(events[i][1] for i in mine)
         print(f"{group}: {us / 1e3:.3f} ms = {100 * us / device_us:.1f}% of "
               f"the device time, in {len(mine)} launches")

@@ -1,11 +1,14 @@
-"""What the measurement scripts and chip_smoke.py share: the card's
-published rates, the main path's input, and a count of what one call runs
-on the card."""
+"""What the measurement scripts, chip_smoke.py and the card tests share:
+the card's published rates, the main path's input, the counting flush's
+shapes, the K2 and K3 inputs that strain a single pass, and a count of
+what one call runs on the card."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core.kmers import SENTINEL
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
@@ -36,20 +39,165 @@ def main_path_counter(dev):
         flush_windows=1 << 26, device=dev)
 
 
-def device_events(fn) -> list[tuple[str, float]]:
-    """(name, microseconds) of every kernel, memset and copy that one call
-    of `fn` runs on the card, in the order they ran, as torch.profiler
-    traces them."""
+def _traced(fns) -> list:
+    """The card's events (kernels, memsets, copies) of `fns`, called in turn
+    20 ms apart inside ONE torch.profiler window, in the order they ran."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        for fn in fns:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(0.02)
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     if not events:
         raise RuntimeError("torch.profiler traced nothing on the card")
-    return [(e.name, e.time_range.elapsed_us()) for e in events]
+    return events
+
+
+def device_events(fn) -> list[tuple[str, float]]:
+    """(name, microseconds) of every kernel, memset and copy that one call
+    of `fn` runs on the card, in the order they ran, as torch.profiler
+    traces them."""
+    return [(e.name, e.time_range.elapsed_us()) for e in _traced([fn])]
+
+
+def device_event_groups(fns) -> list[list[tuple[str, float]]]:
+    """device_events of each of `fns` (calls with no 10 ms pause of their
+    own), all in one profiled window and told apart by the pauses between
+    them.  (A process that had opened a dozen profiled windows lost events
+    at the start of later ones; a script that counts several calls opens
+    one window.)"""
+    groups, last_end = [], None
+    for e in _traced(fns):
+        if last_end is None or e.time_range.start - last_end > 10_000:
+            groups.append([])
+        groups[-1].append((e.name, e.time_range.elapsed_us()))
+        last_end = e.time_range.end
+    if len(groups) != len(fns):
+        raise RuntimeError(f"torch.profiler traced {len(groups)} calls on "
+                           f"the card, expected {len(fns)}")
+    return groups
+
+
+def flush_shapes(dev, gen):
+    """The counting flush's shapes once the main path's table has grown to
+    2^24 slots, and the join's: (table keys, table counts, fresh keys,
+    their merge's keys and weights, sorted queries).  A 2^24-slot table of ~2^23 distinct 54-bit
+    keys with counts 1-99, 2^26 sorted fresh keys drawn from a 1.5 x 2^23
+    key universe with 10% SENTINEL, their 83,886,080-element merge (by the
+    plain version), and 2^23 sorted queries from the same universe."""
+    from ..ops import merge_kernel
+
+    cap, n_fresh = 1 << 24, 1 << 26
+    universe = torch.randint(0, 1 << 54, (3 << 22,), dtype=torch.int64,
+                             device=dev, generator=gen)
+    real = torch.unique(universe[:1 << 23])
+    t_keys = torch.full((cap,), SENTINEL, dtype=torch.int64, device=dev)
+    t_keys[:real.numel()] = real
+    t_counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+    t_counts[:real.numel()] = torch.randint(
+        1, 100, (real.numel(),), dtype=torch.int32, device=dev,
+        generator=gen)
+    fresh = universe[torch.randint(0, universe.numel(), (n_fresh,),
+                                   device=dev, generator=gen)]
+    fresh[torch.rand(n_fresh, device=dev, generator=gen) < 0.1] = SENTINEL
+    fresh = torch.sort(fresh).values
+    mk, mw = merge_kernel.merge_sorted_plain(t_keys, t_counts, fresh)
+    q = torch.sort(universe[torch.randint(
+        0, universe.numel(), (1 << 23,), device=dev, generator=gen)]).values
+    return t_keys, t_counts, fresh, mk, mw, q
+
+
+def _sorted_keys(n, bits, sent, dev, gen):
+    k = torch.randint(0, 1 << bits, (n,), dtype=torch.int64, device=dev,
+                      generator=gen)
+    k[torch.rand(n, device=dev, generator=gen) < sent] = SENTINEL
+    return torch.sort(k).values
+
+
+REDUCE_STRAIN = ("one_run_every_tile", "equal_2_26", "all_sentinel_2_26",
+                 "sum_near_2_31", "interior_sentinels", "overflow",
+                 "out_size_0", "n_1", "tile_minus_1", "tile", "tile_plus_1")
+
+
+def reduce_strain(name: str, tile: int, dev, gen):
+    """(keys, int32 weights, out_size) of a K3 input where its single pass
+    can go wrong: one run across every tile (37 tiles, and 2^26 equal
+    keys), 2^26 SENTINEL, one run whose count is 2^31 - 1, sorted chunks
+    with sentinel tails of their own, more runs than slots, no slots, one
+    element, lengths around the tile."""
+    def weights(k):
+        w = torch.randint(1, 9, (k.numel(),), dtype=torch.int32, device=dev,
+                          generator=gen)
+        return torch.where(k == SENTINEL, 0, w).to(torch.int32)
+
+    if name == "one_run_every_tile":
+        k = torch.full((37 * tile + 11,), 99, dtype=torch.int64, device=dev)
+        return k, weights(k), 4
+    if name == "equal_2_26":
+        k = torch.full((1 << 26,), 12345, dtype=torch.int64, device=dev)
+        return k, torch.ones(1 << 26, dtype=torch.int32, device=dev), 16
+    if name == "all_sentinel_2_26":
+        k = torch.full((1 << 26,), SENTINEL, dtype=torch.int64, device=dev)
+        return k, torch.zeros(1 << 26, dtype=torch.int32, device=dev), 256
+    if name == "sum_near_2_31":
+        n = 1 << 20
+        k = torch.full((n,), 7, dtype=torch.int64, device=dev)
+        w = torch.full((n,), (2 ** 31 - 1) // n, dtype=torch.int32,
+                       device=dev)
+        w[0] += 2 ** 31 - 1 - int(w.to(torch.int64).sum())
+        return k, w, 2
+    if name == "interior_sentinels":
+        k = torch.cat([_sorted_keys(tile // 3 + 5, 10, 0.3, dev, gen)
+                       for _ in range(64)])
+        return k, weights(k), k.numel()
+    if name == "overflow":
+        k = _sorted_keys(20 * tile, 30, 0.05, dev, gen)
+        return k, weights(k), 1000
+    if name == "out_size_0":
+        k = _sorted_keys(5 * tile + 3, 16, 0.1, dev, gen)
+        return k, weights(k), 0
+    if name == "n_1":
+        return (torch.tensor([5], dtype=torch.int64, device=dev),
+                torch.tensor([7], dtype=torch.int32, device=dev), 3)
+    n = {"tile_minus_1": tile - 1, "tile": tile, "tile_plus_1": tile + 1}[name]
+    k = _sorted_keys(n, 12, 0.1, dev, gen)
+    return k, weights(k), n
+
+
+MERGE_STRAIN = ("na_0", "nb_0", "equal_keys", "a_before_b", "b_before_a",
+                "tile_minus_1", "tile", "tile_plus_1")
+
+
+def merge_strain(name: str, tile: int, dev, gen):
+    """(table keys, int32 table counts, fresh keys) of a K2 input where its
+    tile splits can go wrong: one side empty, every key equal on both sides,
+    one side wholly before the other (2^22 outputs), lengths around the
+    tile."""
+    if name == "equal_keys":
+        a = torch.full((3 * tile + 1,), 5, dtype=torch.int64, device=dev)
+        b = torch.full((5 * tile + 3,), 5, dtype=torch.int64, device=dev)
+        return a, torch.arange(a.numel(), dtype=torch.int32, device=dev), b
+    n = {"tile_minus_1": tile - 1, "tile": tile, "tile_plus_1": tile + 1}.get(
+        name, 1 << 22)
+    a = torch.unique(_sorted_keys(n // 3, 40, 0.0, dev, gen))
+    b = _sorted_keys(n - a.numel(), 40, 0.1, dev, gen)
+    if name == "a_before_b":
+        b = torch.where(b == SENTINEL, b, b + (1 << 41))
+    if name == "b_before_a":
+        a = a + (1 << 41)
+    if name == "na_0":
+        a = a[:0]
+    if name == "nb_0":
+        b = b[:0]
+    counts = torch.randint(1, 1000, (a.numel(),), dtype=torch.int32,
+                           device=dev, generator=gen)
+    return a, counts, b

@@ -1,6 +1,7 @@
 // Shared pieces of the kat_tpu_torch kernels: the key sentinel, the error
-// convention of the C entry points, warp/block/array scans, and the merge
-// path search.
+// convention of the C entry points, warp/block scans, the merge path
+// search, and what a single-pass kernel's blocks share (tile counter,
+// relaxed status words, decoupled look-back, the once-per-device setup).
 #pragma once
 
 #include <cstdint>
@@ -72,27 +73,8 @@ __device__ __forceinline__ int64_t merge_path(const int64_t* __restrict__ a,
   return lo;
 }
 
-constexpr int SCAN_THREADS = 256;
-constexpr int SCAN_ITEMS = 8;
-constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;  // elements per block
-
-// Device-wide exclusive scan, phase 1: each block sums its SCAN_TILE slice.
-template <typename T>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tile_sums(const T* data, int64_t n, T* partials) {
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  T s = 0;
-  for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
-    const int64_t g = base + i;
-    if (g < n) s += data[g];
-  }
-  T total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
-// Phase 2 (and any short array): one block scans `data` in place, carrying
-// the running sum from chunk to chunk; *total (if given) gets the sum.
+// One block scans `data` in place, carrying the running sum from chunk to
+// chunk; *total (if given) gets the sum.
 template <typename T>
 __global__ void __launch_bounds__(1024)
 scan_single_block(T* data, int64_t n, T* total) {
@@ -124,58 +106,219 @@ scan_single_block(T* data, int64_t n, T* total) {
   if (threadIdx.x == 0 && total != nullptr) *total = carry;
 }
 
-// Phase 3: each block scans its slice in place, starting from its partial.
+// Element e of a 16-byte chunk of int64 (e < 2) or int32 (e < 4) values.
 template <typename T>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tile_apply(T* data, int64_t n, const T* partials) {
-  __shared__ T tile[SCAN_TILE];
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
-  for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
-    const int64_t g = base + i;
-    tile[i] = g < n ? data[g] : T(0);
-  }
-  __syncthreads();
-  T v[SCAN_ITEMS];
-  T s = 0;
-#pragma unroll
-  for (int e = 0; e < SCAN_ITEMS; e++) {
-    v[e] = tile[threadIdx.x * SCAN_ITEMS + e];
-    s += v[e];
-  }
-  T tot;
-  T ex = block_exclusive_scan(s, &tot) + partials[blockIdx.x];
-#pragma unroll
-  for (int e = 0; e < SCAN_ITEMS; e++) {
-    tile[threadIdx.x * SCAN_ITEMS + e] = ex;
-    ex += v[e];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < SCAN_TILE; i += SCAN_THREADS) {
-    const int64_t g = base + i;
-    if (g < n) data[g] = tile[i];
+__device__ __forceinline__ T chunk_elem(const uint4& c, int e) {
+  if constexpr (sizeof(T) == 8) {
+    return (T)(e == 0 ? (uint64_t)c.y << 32 | c.x
+                      : (uint64_t)c.w << 32 | c.z);
+  } else {
+    return (T)(e == 0 ? c.x : e == 1 ? c.y : e == 2 ? c.z : c.w);
   }
 }
 
-inline int64_t scan_partials_len(int64_t n) {
-  return (n + SCAN_TILE - 1) / SCAN_TILE;
+// A block's staging of one or two ranges of T, src0[0, len0) then
+// src1[0, len1), in 16-byte chunks of the aligned memory that covers each
+// range: every load of the block is issued before any store, SLOTS chunks
+// a thread.  A range's first chunk starts skew[q] elements before it; a
+// chunk reaches at most 15 bytes past either end of its range and never
+// leaves its aligned 16 bytes, so it never touches a page the range does
+// not.
+template <typename T, int THREADS, int SLOTS>
+struct Chunks {
+  static constexpr int PER = 16 / sizeof(T);
+  uint4 r[SLOTS];
+  int skew[2], count[2];
+
+  __device__ __forceinline__ void load(const T* src0, int len0,
+                                       const T* src1 = nullptr,
+                                       int len1 = 0) {
+    const T* src[2] = {src0, src1};
+    const int len[2] = {len0, len1};
+    const uint4* c[2];
+#pragma unroll
+    for (int q = 0; q < 2; q++) {
+      skew[q] = (int)(((uintptr_t)src[q] & 15) / sizeof(T));
+      count[q] = len[q] > 0 ? (len[q] + skew[q] + PER - 1) / PER : 0;
+      c[q] = reinterpret_cast<const uint4*>((uintptr_t)src[q] &
+                                            ~(uintptr_t)15);
+    }
+#pragma unroll
+    for (int v = 0; v < SLOTS; v++) {
+      const int u = v * THREADS + threadIdx.x;
+      if (u < count[0]) r[v] = __ldg(c[0] + u);
+      else if (u < count[0] + count[1]) r[v] = __ldg(c[1] + (u - count[0]));
+    }
+  }
+
+  // Whole chunks in a row from dst (16-byte aligned): range 0's element j
+  // lands at dst[skew[0] + j], range 1's at dst[first(1) + j].
+  __device__ __forceinline__ int first(int q) const {
+    return q == 0 ? skew[0] : count[0] * PER + skew[1];
+  }
+  __device__ __forceinline__ void store(T* dst) const {
+#pragma unroll
+    for (int v = 0; v < SLOTS; v++) {
+      const int u = v * THREADS + threadIdx.x;
+      if (u < count[0] + count[1])
+        *reinterpret_cast<uint4*>(dst + u * PER) = r[v];
+    }
+  }
+
+  // Range 0 alone, its element j to dst[slot(j)]: an aligned chunk wholly
+  // in range goes as one 16-byte store (slot must keep the PER elements of
+  // such a chunk contiguous and 16-byte aligned), any other element alone.
+  template <class Slot>
+  __device__ __forceinline__ void store(T* dst, int len, Slot slot) const {
+#pragma unroll
+    for (int v = 0; v < SLOTS; v++) {
+      const int u = v * THREADS + threadIdx.x;
+      if (u >= count[0]) continue;
+      const int j0 = u * PER - skew[0];
+      if (skew[0] == 0 && j0 + PER <= len) {
+        *reinterpret_cast<uint4*>(dst + slot(j0)) = r[v];
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < PER; e++)
+        if (j0 + e >= 0 && j0 + e < len)
+          dst[slot(j0 + e)] = chunk_elem<T>(r[v], e);
+    }
+  }
+};
+
+// Relaxed loads and stores at device scope: strong operations, served by
+// L2 (never by a stale L1 line) and never hoisted out of a spin loop.  The
+// look-backs below pass nothing between blocks but such one-word status
+// values, so they need no release/acquire ordering: a reader cannot see a
+// flag without the value stored beside it in the same word.
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Exclusive scan of data[0:n) in place; `partials` holds
-// scan_partials_len(n) elements of scratch.
-template <typename T>
-inline int exclusive_scan(T* data, int64_t n, T* partials,
-                          cudaStream_t stream) {
-  const int64_t blocks = scan_partials_len(n);
-  if (blocks == 0) return 0;
-  scan_tile_sums<T><<<(unsigned)blocks, SCAN_THREADS, 0, stream>>>(
-      data, n, partials);
-  KAT_CHECK_LAUNCH();
-  scan_single_block<T><<<1, 1024, 0, stream>>>(partials, blocks, nullptr);
-  KAT_CHECK_LAUNCH();
-  scan_tile_apply<T><<<(unsigned)blocks, SCAN_THREADS, 0, stream>>>(
-      data, n, partials);
-  KAT_CHECK_LAUNCH();
-  return 0;
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_relaxed(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// A block's tile number from the launch's counter (thread 0 writes it to
+// *s_tile; the caller synchronises before reading it).  Numbers are handed
+// out in the order blocks start, so a block only ever waits for tiles that
+// are already running, whatever order the hardware schedules blocks in.
+__device__ __forceinline__ void take_tile(uint32_t* counter,
+                                          uint32_t* s_tile) {
+  if (threadIdx.x == 0) *s_tile = atomicAdd(counter, 1u);
+}
+
+// Decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", 2016): the combined value of every tile
+// below `tile`, read from their status words, which lie `stride` words
+// apart below `mine`.  It stops at the first word that holds its tile's
+// inclusive prefix; a word read early stays true.  Two ways to walk:
+//   GROUP == 1: one thread reads DEPTH words a step (in flight together)
+//     and waits on each in turn (K1: a thread per digit);
+//   GROUP == 32, DEPTH == 1: a warp reads 32 words a step, waits until all
+//     are published, and combines those up to the nearest prefix with a
+//     shuffle tree; every lane gets the result (K3: a warp per tile).
+// Status supplies:
+//   Word, Value           the status word and the value carried;
+//   NOTHING               a ready prefix of no tiles (below tile 0);
+//   ready(w), prefix(w)   whether w is published, and as a prefix;
+//   value(w)              the value w carries;
+//   combine(a, b)         the value of a's tiles followed by b's;
+//   shfl(v, src)          (GROUP == 32) __shfl_sync of a Value.
+template <class Status, int DEPTH, int GROUP = 1>
+__device__ __forceinline__ typename Status::Value look_back(
+    const typename Status::Word* mine, int64_t tile, int64_t stride) {
+  static_assert(GROUP == 1 || (GROUP == 32 && DEPTH == 1),
+                "one thread, or one warp reading a word a lane");
+  using Word = typename Status::Word;
+  using Value = typename Status::Value;
+  const int lane = GROUP == 1 ? 0 : (int)(threadIdx.x & 31);
+  Value acc = Status::identity();
+  const Word* theirs = mine;
+  int64_t left = tile;  // lower tiles not yet read
+  for (;;) {
+    Word word[DEPTH];
+#pragma unroll
+    for (int b = 0; b < DEPTH; b++) {
+      const int64_t d = (int64_t)b * GROUP + lane;
+      word[b] = d < left ? ld_relaxed(theirs - (d + 1) * stride)
+                         : Status::NOTHING;
+    }
+    if constexpr (GROUP == 1) {
+      bool found = false;
+#pragma unroll
+      for (int b = 0; b < DEPTH; b++) {
+        if (found) continue;
+        while (!Status::ready(word[b]))
+          word[b] = ld_relaxed(theirs - (b + 1) * stride);
+        acc = Status::combine(Status::value(word[b]), acc);
+        found = Status::prefix(word[b]);
+      }
+      if (found) return acc;
+    } else {
+      while (__any_sync(0xffffffffu, !Status::ready(word[0]))) {
+        if (!Status::ready(word[0]))
+          word[0] = ld_relaxed(theirs - (lane + 1) * stride);
+      }
+      // lane 0 holds the nearest tile; keep lanes up to the first prefix
+      const unsigned prefixes =
+          __ballot_sync(0xffffffffu, Status::prefix(word[0]));
+      const int last = prefixes ? __ffs(prefixes) - 1 : 31;
+      Value v = lane <= last ? Status::value(word[0]) : Status::identity();
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const Value u = Status::shfl(v, min(lane + d, 31));  // farther
+        if (lane + d < 32) v = Status::combine(u, v);
+      }
+      acc = Status::combine(Status::shfl(v, 0), acc);
+      if (prefixes) return acc;
+    }
+    theirs -= (int64_t)DEPTH * GROUP * stride;
+    left -= (int64_t)DEPTH * GROUP;
+  }
+}
+
+// What a launcher asks of the current device once per kernel, not per
+// call: the device's SM count, after leave for `kernel` to take `smem`
+// bytes of dynamic shared memory there.  `cache` is the launcher's own
+// table (0: not asked yet; two threads that both ask write the same
+// answer).
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+inline cudaError_t prepare(Kernel kernel, int smem, int* cache, int* sms) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cache[device] == 0) {
+    int n;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    cache[device] = n;
+  }
+  *sms = cache[device];
+  return cudaSuccess;
 }
 
 }  // namespace kat

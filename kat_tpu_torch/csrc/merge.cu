@@ -6,19 +6,26 @@
 // TPU laid the two runs out as [reversed(b) | a | pad] and ran the last
 // phase of a bitonic network over it; none of that layout is carried over.
 //
-// What bounds it on the H100: device-memory traffic, 12 bytes read and 12
-// written per output element (int64 key + int32 weight), so one pass.
-// Each block owns 2048 consecutive outputs: it finds where its output
-// range starts and ends in each input by binary search on the merge path
-// (the diagonal), stages the two input slices in shared memory with
-// coalesced loads, lets each thread merge 8 outputs sequentially from
-// shared memory, and stores the 2048 outputs coalesced.
+// What bounds it on the H100: device-memory traffic, one read of both
+// inputs and one write of the output (int64 key + int32 weight: 12 bytes
+// each way per element).  One merge is two launches:
+//   merge_partition  one thread per tile boundary finds, by binary search
+//     on the merge path, how many a-elements precede output d = tile *
+//     TILE; all the searches run at once, so no tile waits on ~26
+//     dependent loads of its own before it can stage anything;
+//   merge_tiles      one block per TILE consecutive outputs reads its two
+//     splits, stages a's and b's slices (keys and planes) in dynamic
+//     shared memory with 16-byte loads, every load issued before any
+//     store; each thread finds its ITEMS outputs' start by a merge-path
+//     search in shared memory and merges them from there; the outputs go
+//     back through shared memory (ITEMS a thread, padded so that neither
+//     side meets a bank conflict) and out as 16-byte stores.
 //
 // Ties take the table element first, so the merge is stable; the fresh
 // keys' weight is (key != SENTINEL), as at counting.py:349-350.  The
 // output is exactly na + nb long.
 //
-// kat_merge_sorted_payload is the same kernel carrying 1-3 int32 planes
+// kat_merge_sorted_payload is the same body carrying 1-3 int32 planes
 // from BOTH sides: the table/query merge of the sort-merge join
 // (kat_tpu/ops/join.py:130, payload (count, idx); :199, payload
 // (count_a, count_b, source); the port's join carries one plane, the
@@ -28,127 +35,220 @@
 
 #include "common.cuh"
 
+// 384 x 8 outputs a block: benchmarks/sweep_flush_kernels.py --tiles
+// rebuilds this file with other values
+#ifndef KAT_MG_THREADS
+#define KAT_MG_THREADS 384
+#endif
+#ifndef KAT_MG_ITEMS
+#define KAT_MG_ITEMS 8
+#endif
+
 namespace {
 
-constexpr int MG_THREADS = 256;
-constexpr int MG_ITEMS = 8;
-constexpr int MG_TILE = MG_THREADS * MG_ITEMS;  // outputs per block
-constexpr int MG_MAX_PLANES = 3;
+constexpr int THREADS = KAT_MG_THREADS;
+constexpr int ITEMS = KAT_MG_ITEMS;
+constexpr int TILE = THREADS * ITEMS;  // outputs per block
+constexpr int MAX_PLANES = 3;
+static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps");
+static_assert(ITEMS % 8 == 0, "padded outputs need ITEMS % 8 == 0 to be "
+                              "free of bank conflicts");
+static_assert(TILE <= 1 << 16, "a source index must fit 16 bits");
+
+// shared memory: the staged keys (at most TILE + 4 slots), then per plane
+// the staged values (TILE + 8); on the way out thread t's keys sit at
+// [t * KEY_STRIDE, + ITEMS) and its plane values at [t * P_STRIDE, + ITEMS)
+constexpr int KEY_STRIDE = ITEMS + 2;
+constexpr int P_STRIDE = ITEMS + 4;
+constexpr int KEY_SLOTS = THREADS * KEY_STRIDE;
+constexpr int P_SLOTS = THREADS * P_STRIDE;
+constexpr uint32_t FROM_B = 1u << 16;
 
 struct PlanesIn {
-  const int32_t* p[MG_MAX_PLANES];
+  const int32_t* p[MAX_PLANES];
 };
 struct PlanesOut {
-  int32_t* p[MG_MAX_PLANES];
+  int32_t* p[MAX_PLANES];
 };
+
+// One thread per tile boundary t: the merge-path split of output d = t *
+// TILE.  (A warp per boundary testing 32 cut points a step took ~6 steps
+// but nine times the loads, and measured three times slower.)
+__global__ void __launch_bounds__(256)
+merge_partition(const int64_t* __restrict__ a, int64_t na,
+                const int64_t* __restrict__ b, int64_t nb, int64_t tiles,
+                int64_t* __restrict__ splits) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t <= tiles)
+    splits[t] = kat::merge_path(a, na, b, nb, min(t * TILE, na + nb));
+}
 
 // P payload planes ride with the keys.  With B_WEIGHT (P == 1) the b side
 // has no plane in memory: its value is (key != SENTINEL).
 template <int P, bool B_WEIGHT>
-__global__ void __launch_bounds__(MG_THREADS)
-merge_kernel(const int64_t* __restrict__ a, PlanesIn ap, int64_t na,
-             const int64_t* __restrict__ b, PlanesIn bp, int64_t nb,
-             int64_t* __restrict__ out_keys, PlanesOut op) {
-  __shared__ int64_t sk[MG_TILE];
-  __shared__ int32_t sw[P][MG_TILE];
-  __shared__ int64_t s_split[2];
-
-  const int64_t n = na + nb;
-  const int64_t d0 = (int64_t)blockIdx.x * MG_TILE;
-  const int64_t d1 = min(d0 + MG_TILE, n);
-  // two warps search the two ends concurrently
-  if (threadIdx.x == 0) s_split[0] = kat::merge_path(a, na, b, nb, d0);
-  if (threadIdx.x == 32) s_split[1] = kat::merge_path(a, na, b, nb, d1);
-  __syncthreads();
-  const int64_t i0 = s_split[0], i1 = s_split[1];
+__global__ void __launch_bounds__(THREADS)
+merge_tiles(const int64_t* __restrict__ a, PlanesIn ap, int64_t na,
+            const int64_t* __restrict__ b, PlanesIn bp, int64_t nb,
+            const int64_t* __restrict__ splits,
+            int64_t* __restrict__ out_keys, PlanesOut op) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);
+  int32_t* sp = reinterpret_cast<int32_t*>(sk + KEY_SLOTS);  // [P][P_SLOTS]
+  const int tid = threadIdx.x;
+  const int64_t d0 = (int64_t)blockIdx.x * TILE;
+  const int64_t i0 = splits[blockIdx.x];
+  const int len = (int)(min(d0 + TILE, na + nb) - d0);
+  const int la = (int)(splits[blockIdx.x + 1] - i0);
+  const int lb = len - la;
   const int64_t j0 = d0 - i0;
-  const int la = (int)(i1 - i0);
-  const int lb = (int)((d1 - i1) - j0);
-  const int len = la + lb;
 
-  for (int t = threadIdx.x; t < la; t += MG_THREADS) {
-    sk[t] = a[i0 + t];
+  // 1. stage a[i0, i0 + la) and b[j0, j0 + lb)
+  kat::Chunks<int64_t, THREADS, ITEMS / 2 + 1> ck;
+  kat::Chunks<int32_t, THREADS, ITEMS / 4 + 1> cp[P];
+  ck.load(a + i0, la, b + j0, lb);
 #pragma unroll
-    for (int q = 0; q < P; q++) sw[q][t] = ap.p[q][i0 + t];
+  for (int q = 0; q < P; q++) {
+    if constexpr (B_WEIGHT) cp[q].load(ap.p[q] + i0, la);
+    else cp[q].load(ap.p[q] + i0, la, bp.p[q] + j0, lb);
   }
-  for (int t = threadIdx.x; t < lb; t += MG_THREADS) {
-    const int64_t k = b[j0 + t];
-    sk[la + t] = k;
-    if constexpr (B_WEIGHT) {
-      sw[0][la + t] = k != KAT_SENTINEL;
-    } else {
+  ck.store(sk);
 #pragma unroll
-      for (int q = 0; q < P; q++) sw[q][la + t] = bp.p[q][j0 + t];
-    }
-  }
+  for (int q = 0; q < P; q++) cp[q].store(sp + q * P_SLOTS);
   __syncthreads();
+  const int64_t* sa = sk + ck.first(0);
+  const int64_t* sb = sk + ck.first(1);
 
-  // this thread's outputs start at local diagonal dt
-  const int dt = min((int)threadIdx.x * MG_ITEMS, len);
-  int lo = dt > lb ? dt - lb : 0;
-  int hi = dt < la ? dt : la;
+  // 2. this thread's outputs start at local diagonal dt
+  const int dt = min(tid * ITEMS, len);
+  int lo = max(0, dt - lb);
+  int hi = min(dt, la);
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (sk[mid] <= sk[la + dt - 1 - mid]) lo = mid + 1;
+    if (sa[mid] <= sb[dt - 1 - mid]) lo = mid + 1;
     else hi = mid;
   }
   int ia = lo, ib = dt - lo;
-  int64_t rk[MG_ITEMS];
-  int32_t rw[P][MG_ITEMS];
+  int64_t ka = sa[ia], kb = sb[ib];  // the heads (slots past an end are
+                                     // staged memory, never taken)
+  int64_t rk[ITEMS];
+  uint32_t src[ITEMS];
 #pragma unroll
-  for (int e = 0; e < MG_ITEMS; e++) {
-    if (ia + ib < len) {
-      const bool take_a = ia < la && (ib >= lb || sk[ia] <= sk[la + ib]);
-      const int src = take_a ? ia : la + ib;
-      rk[e] = sk[src];
+  for (int e = 0; e < ITEMS; e++) {
+    const bool take_a = ia < la && (ib >= lb || ka <= kb);
+    rk[e] = take_a ? ka : kb;
+    src[e] = take_a ? (uint32_t)ia : FROM_B | (uint32_t)ib;
+    if (take_a) ka = sa[++ia];
+    else kb = sb[++ib];
+  }
+  int32_t rp[P][ITEMS];
 #pragma unroll
-      for (int q = 0; q < P; q++) rw[q][e] = sw[q][src];
-      if (take_a) ia++;
-      else ib++;
+  for (int q = 0; q < P; q++) {
+    const int32_t* pa = sp + q * P_SLOTS + cp[q].first(0);
+    const int32_t* pb = sp + q * P_SLOTS + cp[q].first(1);
+#pragma unroll
+    for (int e = 0; e < ITEMS; e++) {
+      const int i = (int)(src[e] & (FROM_B - 1));
+      if constexpr (B_WEIGHT)
+        rp[q][e] = src[e] & FROM_B ? rk[e] != KAT_SENTINEL : pa[i];
+      else
+        rp[q][e] = src[e] & FROM_B ? pb[i] : pa[i];
     }
   }
-  __syncthreads();  // every thread is done reading the inputs
+  __syncthreads();  // every thread is done reading the staged inputs
+
+  // 3. back through shared memory, padded, and out 16 bytes at a time
+  {
+    longlong2* mk = reinterpret_cast<longlong2*>(sk + tid * KEY_STRIDE);
 #pragma unroll
-  for (int e = 0; e < MG_ITEMS; e++) {
-    const int p = dt + e;
-    if (p < len) {
-      sk[p] = rk[e];
+    for (int v = 0; v < ITEMS / 2; v++)
+      mk[v] = make_longlong2(rk[2 * v], rk[2 * v + 1]);
 #pragma unroll
-      for (int q = 0; q < P; q++) sw[q][p] = rw[q][e];
+    for (int q = 0; q < P; q++) {
+      int4* mp = reinterpret_cast<int4*>(sp + q * P_SLOTS + tid * P_STRIDE);
+#pragma unroll
+      for (int v = 0; v < ITEMS / 4; v++)
+        mp[v] = make_int4(rp[q][4 * v], rp[q][4 * v + 1], rp[q][4 * v + 2],
+                          rp[q][4 * v + 3]);
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < len; t += MG_THREADS) {
-    out_keys[d0 + t] = sk[t];
 #pragma unroll
-    for (int q = 0; q < P; q++) op.p[q][d0 + t] = sw[q][t];
+  for (int v = 0; v < ITEMS / 2; v++) {
+    const int j = 2 * (v * THREADS + tid);
+    if (j >= len) continue;
+    const longlong2 x =
+        *reinterpret_cast<const longlong2*>(sk + j + 2 * (j / ITEMS));
+    if (j + 2 <= len) {
+      *reinterpret_cast<longlong2*>(out_keys + d0 + j) = x;
+    } else {
+      out_keys[d0 + j] = x.x;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < P; q++) {
+    const int32_t* mp = sp + q * P_SLOTS;
+#pragma unroll
+    for (int v = 0; v < ITEMS / 4; v++) {
+      const int j = 4 * (v * THREADS + tid);
+      if (j >= len) continue;
+      const int4 x = *reinterpret_cast<const int4*>(mp + j + 4 * (j / ITEMS));
+      if (j + 4 <= len) {
+        *reinterpret_cast<int4*>(op.p[q] + d0 + j) = x;
+      } else {
+        const int32_t xs[4] = {x.x, x.y, x.z, x.w};
+        for (int e = 0; j + e < len; e++) op.p[q][d0 + j + e] = xs[e];
+      }
+    }
   }
 }
+
+int64_t tiles_for(int64_t n) { return (n + TILE - 1) / TILE; }
 
 template <int P, bool B_WEIGHT>
 int launch_merge(const int64_t* a, PlanesIn ap, int64_t na, const int64_t* b,
                  PlanesIn bp, int64_t nb, int64_t* out_keys, PlanesOut op,
-                 cudaStream_t stream) {
+                 int64_t* splits, cudaStream_t stream) {
   const int64_t n = na + nb;
   if (n <= 0) return 0;
-  const int64_t blocks = (n + MG_TILE - 1) / MG_TILE;
-  merge_kernel<P, B_WEIGHT><<<(unsigned)blocks, MG_THREADS, 0, stream>>>(
-      a, ap, na, b, bp, nb, out_keys, op);
+  uintptr_t outs = (uintptr_t)out_keys;
+  for (int q = 0; q < P; q++) outs |= (uintptr_t)op.p[q];
+  if ((outs & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  constexpr int SMEM = KEY_SLOTS * 8 + P * P_SLOTS * 4;
+  static int sms_of[kat::MAX_DEVICES] = {};
+  int sms;
+  const cudaError_t err =
+      kat::prepare(merge_tiles<P, B_WEIGHT>, SMEM, sms_of, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = tiles_for(n);
+  merge_partition<<<(unsigned)((tiles + 256) / 256), 256, 0, stream>>>(
+      a, na, b, nb, tiles, splits);
+  KAT_CHECK_LAUNCH();
+  merge_tiles<P, B_WEIGHT><<<(unsigned)tiles, THREADS, SMEM, stream>>>(
+      a, ap, na, b, bp, nb, splits, out_keys, op);
   KAT_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace
 
-// out[0:na+nb) = stable merge of (a, aw) with (b, b != SENTINEL).
+// Outputs a thread block of the merge takes.
+extern "C" int kat_merge_sorted_tile() { return TILE; }
+
+// int64 scratch words a merge of n outputs needs: the tile splits.
+extern "C" int64_t kat_merge_sorted_scratch(int64_t n) {
+  return tiles_for(n) + 1;
+}
+
+// out[0:na+nb) = stable merge of (a, aw) with (b, b != SENTINEL).  Outputs
+// must be 16-byte aligned.
 extern "C" int kat_merge_sorted(const int64_t* a, const int32_t* aw,
                                 int64_t na, const int64_t* b, int64_t nb,
                                 int64_t* out_keys, int32_t* out_w,
-                                void* stream_ptr) {
+                                int64_t* scratch, void* stream_ptr) {
   const PlanesIn ap = {{aw, nullptr, nullptr}};
   const PlanesIn bp = {{nullptr, nullptr, nullptr}};
   const PlanesOut op = {{out_w, nullptr, nullptr}};
-  return launch_merge<1, true>(a, ap, na, b, bp, nb, out_keys, op,
+  return launch_merge<1, true>(a, ap, na, b, bp, nb, out_keys, op, scratch,
                                (cudaStream_t)stream_ptr);
 }
 
@@ -158,7 +258,8 @@ extern "C" int kat_merge_sorted_payload(
     const int64_t* a, const int32_t* a0, const int32_t* a1, const int32_t* a2,
     int64_t na, const int64_t* b, const int32_t* b0, const int32_t* b1,
     const int32_t* b2, int64_t nb, int n_planes, int64_t* out_keys,
-    int32_t* o0, int32_t* o1, int32_t* o2, void* stream_ptr) {
+    int32_t* o0, int32_t* o1, int32_t* o2, int64_t* scratch,
+    void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const PlanesIn ap = {{a0, a1, a2}};
   const PlanesIn bp = {{b0, b1, b2}};
@@ -166,13 +267,13 @@ extern "C" int kat_merge_sorted_payload(
   switch (n_planes) {
     case 1:
       return launch_merge<1, false>(a, ap, na, b, bp, nb, out_keys, op,
-                                    stream);
+                                    scratch, stream);
     case 2:
       return launch_merge<2, false>(a, ap, na, b, bp, nb, out_keys, op,
-                                    stream);
+                                    scratch, stream);
     case 3:
       return launch_merge<3, false>(a, ap, na, b, bp, nb, out_keys, op,
-                                    stream);
+                                    scratch, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

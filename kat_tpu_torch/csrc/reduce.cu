@@ -6,191 +6,368 @@
 // each run's key with its summed weight, in stream order, at the front of
 // out_size slots padded with SENTINEL / 0; never emit a sentinel run, even
 // an interior one; report the true number of runs in n_unique even when it
-// exceeds out_size (the caller then grows the table and replays).
+// exceeds out_size (the caller then grows the table and replays).  Writes
+// at or past out_size are dropped.
 //
-// The TPU kernel walks its tiles in order on one core and carries the
-// open run's key, partial sum and the output cursor from tile to tile in
-// SMEM (reduce_kernel.py:169-273).  CUDA blocks run in no order, so the
-// carry becomes scans:
-//   1. run ends are flagged: emit[i] = key[i] != key[i+1] && key[i] !=
-//      SENTINEL;
-//   2. per-block totals of the flags and of the weights, a one-block
-//      exclusive scan of those totals, and a block scan inside each block
-//      give every element its output rank r and the inclusive int64
-//      prefix S of the weights;
-//   3. the first element of a run stores S[first-1] as start_sum[r], the
-//      last stores its key and S[last] as end_sum[r]; a last pass writes
-//      count[r] = end_sum[r] - start_sum[r] and the padding.
-// Writes of rank >= out_size are dropped, never sent out of bounds.
+// What bounds it on the H100: device-memory traffic, one read of the
+// stream (12 bytes per element) and one write of each output slot (12
+// bytes).  The TPU kernel walks its tiles in order on one core and carries
+// the open run's key, partial sum and output cursor from tile to tile in
+// SMEM (reduce_kernel.py:169-273).  Here blocks run in no order, so the
+// carry is a segmented sum found in the same single pass by decoupled
+// look-back (common.cuh, shared with K1):
+//   - element i ends a run when i = n-1 or key[i] != key[i+1], and emits it
+//     when its key is not SENTINEL;
+//   - a span's aggregate is (runs it emits, whether any run ends in it, the
+//     weight after its last run end); spans combine left to right as
+//     (c1, e1, s1) then (c2, e2, s2) = (c1 + c2, e1 | e2, e2 ? s2 : s1 + s2);
+//   - a block takes its tile number from an atomic counter, stages the tile
+//     and the next tile's first key in shared memory with 16-byte loads,
+//     scans its threads' aggregates, publishes the tile's aggregate in ONE
+//     64-bit status word (2 flag bits, a 30-bit run count, the 32-bit open
+//     sum; flag 1 or 2: aggregate without or with a run end, 3: inclusive
+//     prefix), looks back with one warp for the sum of the tiles below (32
+//     words a round trip), publishes its prefix, and writes each of its
+//     runs once, key and count at the run's rank: the runs go through
+//     shared memory first, so that the stores leave in rank order,
+//     consecutive threads on consecutive runs (written straight from each
+//     thread's registers, a warp's stores scattered over ~5 sectors each
+//     and the kernel measured 17% slower);
+//   - the tile holding the last element writes n_unique, and a second,
+//     small launch pads [n_unique, out_size) with SENTINEL / 0.  The
+//     scratch is the tile counter and the status words, zeroed by one
+//     memset.
+// A thread's ITEMS elements lie contiguous in shared memory with 16 bytes
+// of padding after them, so its 16-byte reads meet no bank conflict.
 //
-// What bounds it on the H100: device-memory traffic, two reads of the
-// stream (12 bytes per element each) plus 28 bytes per emitted run; tiles
-// are staged in shared memory so the loads are coalesced.
-//
-// Counts are stored as int32.  kat_tpu's uint32 counts wrap past 2^32; a
-// count past 2^31 - 1 is out of scope here (a k-mer seen 2 billion times).
+// Counts are int32 and sums are taken mod 2^32, as the plain version's
+// int64 sum cut to int32.  kat_tpu's uint32 counts wrap past 2^32; a count
+// past 2^31 - 1 is out of scope here (a k-mer seen 2 billion times).  Run
+// counts travel in 30 bits, so the wrapper refuses n >= 2^30 (K1's limit).
+
+#include <algorithm>
 
 #include "common.cuh"
 
+#ifndef KAT_RD_THREADS
+#define KAT_RD_THREADS 256
+#endif
+#ifndef KAT_RD_ITEMS
+#define KAT_RD_ITEMS 16
+#endif
+
 namespace {
 
-constexpr int RD_THREADS = 256;
-constexpr int RD_ITEMS = 8;
-constexpr int RD_TILE = RD_THREADS * RD_ITEMS;
+constexpr int THREADS = KAT_RD_THREADS;
+constexpr int ITEMS = KAT_RD_ITEMS;
+constexpr int TILE = THREADS * ITEMS;
+constexpr int WARPS = THREADS / 32;
+static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps");
+static_assert(ITEMS % 8 == 0 && ITEMS <= 32,
+              "a thread's run-end bits fit one word; padded reads need "
+              "ITEMS % 8 == 0 to be free of bank conflicts");
 
-// sk[0] = key[base-1], sk[1+i] = key[base+i], sk[RD_TILE+1] =
-// key[base+RD_TILE]; entries outside [0, n) are never compared (the run
-// boundary tests check the index first).
-__device__ __forceinline__ void load_tile(const int64_t* __restrict__ keys,
-                                          const int32_t* __restrict__ w,
-                                          int64_t n, int64_t base,
-                                          int64_t* sk, int32_t* sw) {
-  for (int i = threadIdx.x; i < RD_TILE + 2; i += RD_THREADS) {
-    const int64_t g = base - 1 + i;
-    sk[i] = (g >= 0 && g < n) ? keys[g] : 0;
-  }
-  for (int i = threadIdx.x; i < RD_TILE; i += RD_THREADS) {
-    const int64_t g = base + i;
-    sw[i] = g < n ? w[g] : 0;
-  }
+// shared memory: thread t's keys at [t * KEY_STRIDE, + ITEMS), its weights
+// at [t * W_STRIDE, + ITEMS); key TILE (the next tile's first) follows
+constexpr int KEY_STRIDE = ITEMS + 2;
+constexpr int W_STRIDE = ITEMS + 4;
+constexpr int KEY_SLOTS = (THREADS + 1) * KEY_STRIDE;
+constexpr int SMEM = KEY_SLOTS * 8 + THREADS * W_STRIDE * 4;
+
+struct KeySlot {
+  __device__ int operator()(int j) const { return j + 2 * (j / ITEMS); }
+};
+struct WeightSlot {
+  __device__ int operator()(int j) const { return j + 4 * (j / ITEMS); }
+};
+
+// A segmented sum: runs emitted (bit 31: a run ends inside) and the weight
+// after the last run end, mod 2^32.
+struct Seg {
+  uint32_t runs;
+  uint32_t sum;
+};
+constexpr uint32_t CLOSED = 1u << 31;
+constexpr uint32_t RUNS_MASK = (1u << 30) - 1;
+
+__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {  // a, then b
+  return {((a.runs & ~CLOSED) + (b.runs & ~CLOSED)) |
+              ((a.runs | b.runs) & CLOSED),
+          (b.runs & CLOSED) ? b.sum : a.sum + b.sum};
 }
 
-// This thread's number of emitted runs and weight sum over its items.
-__device__ __forceinline__ void thread_totals(const int64_t* sk,
-                                              const int32_t* sw, int64_t n,
-                                              int64_t base, int64_t* cnt,
-                                              int64_t* sum) {
-  int64_t c = 0, s = 0;
+// status word: flag << 62 | runs << 32 | sum
+constexpr uint64_t AGG_OPEN = 1, AGG_CLOSED = 2, PREFIX = 3;
+
+__device__ __forceinline__ uint64_t pack(uint64_t flag, Seg v) {
+  return flag << 62 | (uint64_t)(v.runs & RUNS_MASK) << 32 | v.sum;
+}
+
+struct SegStatus {
+  using Word = uint64_t;
+  using Value = Seg;
+  static constexpr Word NOTHING = PREFIX << 62;
+  __device__ static Value identity() { return {0u, 0u}; }
+  __device__ static bool ready(Word w) { return (w >> 62) != 0; }
+  __device__ static bool prefix(Word w) { return (w >> 62) == PREFIX; }
+  __device__ static Value value(Word w) {
+    return {((uint32_t)(w >> 32) & RUNS_MASK) |
+                ((w >> 62) == AGG_CLOSED ? CLOSED : 0u),
+            (uint32_t)w};
+  }
+  __device__ static Value combine(Value a, Value b) {
+    return seg_combine(a, b);
+  }
+  __device__ static Value shfl(Value v, int src) {
+    return {__shfl_sync(0xffffffffu, v.runs, src),
+            __shfl_sync(0xffffffffu, v.sum, src)};
+  }
+};
+
+__device__ __forceinline__ Seg shfl_up(Seg v, int d) {
+  return {__shfl_up_sync(0xffffffffu, v.runs, d),
+          __shfl_up_sync(0xffffffffu, v.sum, d)};
+}
+
+__device__ __forceinline__ Seg warp_inclusive(Seg v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int e = 0; e < RD_ITEMS; e++) {
-    const int l = threadIdx.x * RD_ITEMS + e;
-    const int64_t g = base + l;
-    if (g < n) {
-      const int64_t k = sk[l + 1];
-      const bool last = g == n - 1 || sk[l + 2] != k;
-      c += (last && k != KAT_SENTINEL);
-      s += sw[l];
+  for (int d = 1; d < 32; d <<= 1) {
+    const Seg u = shfl_up(v, d);
+    if (lane >= d) v = seg_combine(u, v);
+  }
+  return v;
+}
+
+// What a block's warps share about its tile.
+struct TileShared {
+  Seg warp_pre[WARPS];  // each warp's aggregate, then its exclusive prefix
+                        // with the tiles below
+  Seg before, total;    // the tiles below; this tile
+  uint32_t tile;
+};
+
+__global__ void __launch_bounds__(THREADS)
+reduce_tiles(const int64_t* __restrict__ keys, const int32_t* __restrict__ w,
+             int64_t n, int64_t tiles, int64_t* __restrict__ out_keys,
+             int32_t* __restrict__ out_counts, int64_t out_size,
+             uint32_t* next_tile, uint64_t* status, int64_t* n_unique) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);
+  int32_t* sw = reinterpret_cast<int32_t*>(sk + KEY_SLOTS);
+  __shared__ TileShared sh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  kat::take_tile(next_tile, &sh.tile);
+  __syncthreads();
+  const int64_t tile = sh.tile;
+  const int64_t base = tile * TILE;
+  const int valid = (int)min((int64_t)TILE, n - base);
+
+  // 1. stage the tile's weights and keys, and the next tile's first key
+  {
+    kat::Chunks<int64_t, THREADS, ITEMS / 2 + 1> ck;
+    kat::Chunks<int32_t, THREADS, ITEMS / 4 + 1> cw;
+    const int klen = (int)min((int64_t)TILE + 1, n - base);
+    ck.load(keys + base, klen);
+    cw.load(w + base, valid);
+    ck.store(sk, klen, KeySlot());
+    cw.store(sw, valid, WeightSlot());
+  }
+  __syncthreads();
+
+  // 2. this thread's run ends and aggregate
+  const int j0 = tid * ITEMS;
+  const int64_t* mk = sk + tid * KEY_STRIDE;  // key j0 + e at mk[e]
+  const int32_t* mw = sw + tid * W_STRIDE;
+  int64_t k[ITEMS + 1];
+#pragma unroll
+  for (int v = 0; v < ITEMS / 2; v++) {
+    const longlong2 p = reinterpret_cast<const longlong2*>(mk)[v];
+    k[2 * v] = p.x;
+    k[2 * v + 1] = p.y;
+  }
+  k[ITEMS] = mk[KEY_STRIDE];  // key j0 + ITEMS: the next thread's first
+  uint32_t ends = 0, emits = 0;
+  Seg mine = {0u, 0u};
+#pragma unroll
+  for (int v = 0; v < ITEMS / 4; v++) {
+    const int4 q = reinterpret_cast<const int4*>(mw)[v];
+    const int32_t wq[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const int e = 4 * v + i;
+      if (j0 + e < valid) {
+        mine.sum += (uint32_t)wq[i];
+        if (base + j0 + e == n - 1 || k[e] != k[e + 1]) {
+          ends |= 1u << e;
+          mine.runs |= CLOSED;
+          mine.sum = 0;
+          if (k[e] != KAT_SENTINEL) {
+            emits |= 1u << e;
+            mine.runs++;
+          }
+        }
+      }
     }
   }
-  *cnt = c;
-  *sum = s;
-}
 
-__global__ void __launch_bounds__(RD_THREADS)
-reduce_partials(const int64_t* __restrict__ keys,
-                const int32_t* __restrict__ w, int64_t n,
-                int64_t* __restrict__ p_cnt, int64_t* __restrict__ p_sum) {
-  __shared__ int64_t sk[RD_TILE + 2];
-  __shared__ int32_t sw[RD_TILE];
-  const int64_t base = (int64_t)blockIdx.x * RD_TILE;
-  load_tile(keys, w, n, base, sk, sw);
+  // 3. the warps' scans; then warp 0 scans the warps' aggregates,
+  //    publishes the tile's, looks back (a warp reading 32 words at a
+  //    time), publishes the tile's prefix and leaves each warp its own
+  const Seg inc = warp_inclusive(mine);
+  if (lane == 31) sh.warp_pre[warp] = inc;
   __syncthreads();
-  int64_t c, s, tc, ts;
-  thread_totals(sk, sw, n, base, &c, &s);
-  kat::block_exclusive_scan(c, &tc);
-  kat::block_exclusive_scan(s, &ts);
-  if (threadIdx.x == 0) {
-    p_cnt[blockIdx.x] = tc;
-    p_sum[blockIdx.x] = ts;
+  if (warp == 0) {
+    Seg t = lane < WARPS ? sh.warp_pre[lane] : SegStatus::identity();
+    t = warp_inclusive(t);
+    const Seg total = SegStatus::shfl(t, WARPS - 1);
+    Seg before = SegStatus::identity();
+    if (tile > 0) {
+      if (lane == 0)
+        kat::st_relaxed(status + tile,
+                        pack(total.runs & CLOSED ? AGG_CLOSED : AGG_OPEN,
+                             total));
+      before = kat::look_back<SegStatus, 1, 32>(status + tile, tile, 1);
+    }
+    if (lane == 0) {
+      kat::st_relaxed(status + tile,
+                      pack(PREFIX, seg_combine(before, total)));
+      if (tile == tiles - 1)
+        *n_unique = (int64_t)((before.runs & RUNS_MASK) +
+                              (total.runs & RUNS_MASK));
+      sh.before = before;
+      sh.total = total;
+    }
+    Seg ex = shfl_up(t, 1);
+    if (lane == 0) ex = SegStatus::identity();
+    if (lane < WARPS) sh.warp_pre[lane] = seg_combine(before, ex);
+  }
+  __syncthreads();
+
+  // 4. each run once, key and count at its rank: through shared memory
+  //    (keys and weights come back into registers only now: held across
+  //    the look-back they cost the third block on an SM), then out in rank
+  //    order, consecutive threads on consecutive runs
+  Seg ex = shfl_up(inc, 1);
+  if (lane == 0) ex = SegStatus::identity();
+  const Seg start = seg_combine(sh.warp_pre[warp], ex);
+  const uint32_t r0 = sh.before.runs & RUNS_MASK;
+  const uint32_t count = sh.total.runs & RUNS_MASK;
+  uint32_t r = (start.runs & RUNS_MASK) - r0;
+  uint32_t s = start.sum;
+  int32_t wt[ITEMS];
+#pragma unroll
+  for (int v = 0; v < ITEMS / 2; v++) {
+    const longlong2 p = reinterpret_cast<const longlong2*>(mk)[v];
+    k[2 * v] = p.x;
+    k[2 * v + 1] = p.y;
+  }
+#pragma unroll
+  for (int v = 0; v < ITEMS / 4; v++) {
+    const int4 q = reinterpret_cast<const int4*>(mw)[v];
+    wt[4 * v] = q.x;
+    wt[4 * v + 1] = q.y;
+    wt[4 * v + 2] = q.z;
+    wt[4 * v + 3] = q.w;
+  }
+  __syncthreads();  // every thread has read the tile and sh
+#pragma unroll
+  for (int e = 0; e < ITEMS; e++) {
+    s += (uint32_t)wt[e];
+    if (ends >> e & 1u) {
+      if (emits >> e & 1u) {
+        sk[r] = k[e];
+        sw[r] = (int32_t)s;
+        r++;
+      }
+      s = 0;
+    }
+  }
+  __syncthreads();
+  for (uint32_t i = tid; i < count && r0 + i < out_size; i += THREADS) {
+    out_keys[r0 + i] = sk[i];
+    out_counts[r0 + i] = sw[i];
   }
 }
 
-__global__ void __launch_bounds__(RD_THREADS)
-reduce_emit(const int64_t* __restrict__ keys, const int32_t* __restrict__ w,
-            int64_t n, const int64_t* __restrict__ p_cnt,
-            const int64_t* __restrict__ p_sum,
-            int64_t* __restrict__ out_keys, int64_t out_size,
-            int64_t* __restrict__ start_sum, int64_t* __restrict__ end_sum) {
-  __shared__ int64_t sk[RD_TILE + 2];
-  __shared__ int32_t sw[RD_TILE];
-  const int64_t base = (int64_t)blockIdx.x * RD_TILE;
-  load_tile(keys, w, n, base, sk, sw);
-  __syncthreads();
-  int64_t c, s, tc, ts;
-  thread_totals(sk, sw, n, base, &c, &s);
-  int64_t r = kat::block_exclusive_scan(c, &tc) + p_cnt[blockIdx.x];
-  int64_t S = kat::block_exclusive_scan(s, &ts) + p_sum[blockIdx.x];
-#pragma unroll
-  for (int e = 0; e < RD_ITEMS; e++) {
-    const int l = threadIdx.x * RD_ITEMS + e;
-    const int64_t g = base + l;
-    if (g < n) {
-      const int64_t k = sk[l + 1];
-      const bool real = k != KAT_SENTINEL;
-      const bool first = g == 0 || sk[l] != k;
-      const bool last = g == n - 1 || sk[l + 2] != k;
-      if (real && first && r < out_size) start_sum[r] = S;
-      S += sw[l];
-      if (real && last) {
-        if (r < out_size) {
-          out_keys[r] = k;
-          end_sum[r] = S;
+// Slots [min(n_unique, out_size), out_size) get SENTINEL / 0, four at a
+// time.
+__global__ void __launch_bounds__(256)
+reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
+           int64_t out_size, const int64_t* __restrict__ n_unique) {
+  const int64_t first = min(*n_unique, out_size);
+  const int64_t groups = (out_size + 3) / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t g = first / 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t s = 4 * g;
+    if (s >= first && s + 4 <= out_size) {
+      const longlong2 sent = {KAT_SENTINEL, KAT_SENTINEL};
+      reinterpret_cast<longlong2*>(out_keys + s)[0] = sent;
+      reinterpret_cast<longlong2*>(out_keys + s)[1] = sent;
+      *reinterpret_cast<int4*>(out_counts + s) = make_int4(0, 0, 0, 0);
+    } else {
+      for (int e = 0; e < 4; e++) {
+        if (s + e >= first && s + e < out_size) {
+          out_keys[s + e] = KAT_SENTINEL;
+          out_counts[s + e] = 0;
         }
-        r++;
       }
     }
   }
 }
 
-__global__ void reduce_finish(int64_t* __restrict__ out_keys,
-                              int32_t* __restrict__ out_counts,
-                              int64_t out_size,
-                              const int64_t* __restrict__ start_sum,
-                              const int64_t* __restrict__ end_sum,
-                              const int64_t* __restrict__ n_unique) {
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= out_size) return;
-  if (r < *n_unique) {
-    out_counts[r] = (int32_t)(end_sum[r] - start_sum[r]);
-  } else {
-    out_keys[r] = KAT_SENTINEL;
-    out_counts[r] = 0;
-  }
-}
-
-int64_t blocks_for(int64_t n) { return (n + RD_TILE - 1) / RD_TILE; }
+int64_t tiles_for(int64_t n) { return (n + TILE - 1) / TILE; }
 
 }  // namespace
 
-// int64 scratch elements kat_reduce_by_key needs.
-extern "C" int64_t kat_reduce_by_key_scratch(int64_t n, int64_t out_size) {
-  return 2 * blocks_for(n) + 2 * out_size;
+// Elements a thread block of kat_reduce_by_key takes.
+extern "C" int kat_reduce_by_key_tile() { return TILE; }
+
+// int64 scratch words kat_reduce_by_key needs: the tile counter, then one
+// status word per tile.
+extern "C" int64_t kat_reduce_by_key_scratch(int64_t n) {
+  return 1 + tiles_for(n);
 }
 
 // Reduce the sorted stream (keys, w)[0:n) into out_keys/out_counts
 // [0:out_size); n_unique[0] gets the true number of non-sentinel runs.
+// Requires n < 2^30 and 16-byte aligned outputs.
 extern "C" int kat_reduce_by_key(const int64_t* keys, const int32_t* w,
                                  int64_t n, int64_t* out_keys,
                                  int32_t* out_counts, int64_t out_size,
                                  int64_t* scratch, int64_t* n_unique,
                                  void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int64_t blocks = blocks_for(n);
-  int64_t* p_cnt = scratch;
-  int64_t* p_sum = scratch + blocks;
-  int64_t* start_sum = scratch + 2 * blocks;
-  int64_t* end_sum = start_sum + out_size;
-  if (blocks == 0) {
-    const cudaError_t err =
-        cudaMemsetAsync(n_unique, 0, sizeof(int64_t), stream);
-    if (err != cudaSuccess) return (int)err;
+  if ((((uintptr_t)out_keys | (uintptr_t)out_counts) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  static int sms_of[kat::MAX_DEVICES] = {};
+  int sms;
+  cudaError_t err = kat::prepare(reduce_tiles, SMEM, sms_of, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = tiles_for(n);
+  if (tiles == 0) {
+    err = cudaMemsetAsync(n_unique, 0, sizeof(int64_t), stream);
   } else {
-    reduce_partials<<<(unsigned)blocks, RD_THREADS, 0, stream>>>(
-        keys, w, n, p_cnt, p_sum);
-    KAT_CHECK_LAUNCH();
-    kat::scan_single_block<int64_t><<<1, 1024, 0, stream>>>(p_cnt, blocks,
-                                                            n_unique);
-    KAT_CHECK_LAUNCH();
-    kat::scan_single_block<int64_t><<<1, 1024, 0, stream>>>(p_sum, blocks,
-                                                            nullptr);
-    KAT_CHECK_LAUNCH();
-    reduce_emit<<<(unsigned)blocks, RD_THREADS, 0, stream>>>(
-        keys, w, n, p_cnt, p_sum, out_keys, out_size, start_sum, end_sum);
+    err = cudaMemsetAsync(scratch, 0,
+                          kat_reduce_by_key_scratch(n) * sizeof(int64_t),
+                          stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (tiles > 0) {
+    reduce_tiles<<<(unsigned)tiles, THREADS, SMEM, stream>>>(
+        keys, w, n, tiles, out_keys, out_counts, out_size,
+        reinterpret_cast<uint32_t*>(scratch),
+        reinterpret_cast<uint64_t*>(scratch + 1), n_unique);
     KAT_CHECK_LAUNCH();
   }
   if (out_size > 0) {
-    reduce_finish<<<(unsigned)((out_size + 255) / 256), 256, 0, stream>>>(
-        out_keys, out_counts, out_size, start_sum, end_sum, n_unique);
+    const int64_t blocks =
+        std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
+    reduce_pad<<<(unsigned)blocks, 256, 0, stream>>>(out_keys, out_counts,
+                                                     out_size, n_unique);
     KAT_CHECK_LAUNCH();
   }
   return 0;

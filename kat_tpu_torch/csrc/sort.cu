@@ -44,14 +44,15 @@
 //
 // The status word: status[pass][tile][digit] holds a 2-bit flag and a
 // 30-bit count in ONE 32-bit word, written by one st.relaxed.gpu and read
-// by ld.relaxed.gpu.  Nothing but this word passes from block to block (no
-// block reads keys another block wrote in the same launch), so no
-// release/acquire ordering is needed: a reader can never see a flag
-// without its count because they are one store, and .relaxed.gpu makes
-// both sides strong operations at device scope (served by L2, never by a
-// stale L1 line, never hoisted out of the spin loop).  Counts stay below
-// 2^30, so the wrapper refuses n >= 2^30.  The memset leaves every word
-// "not ready".
+// by ld.relaxed.gpu (the tile counter, these accesses and the look-back
+// loop are common.cuh's, shared with K3).  Nothing but this word passes
+// from block to block (no block reads keys another block wrote in the
+// same launch), so no release/acquire ordering is needed: a reader can
+// never see a flag without its count because they are one store, and
+// .relaxed.gpu makes both sides strong operations at device scope (served
+// by L2, never by a stale L1 line, never hoisted out of the spin loop).
+// Counts stay below 2^30, so the wrapper refuses n >= 2^30.  The memset
+// leaves every word "not ready".
 //
 // Tiles are THREADS * ITEMS keys, staged in dynamic shared memory above the
 // 48 KB a block gets without asking, so a digit's run in a tile is ~32 keys
@@ -109,17 +110,19 @@ __device__ __forceinline__ int digit_of(int64_t key, int shift) {
   return (int)((half >> (shift & 31)) & (RS_RADIX - 1));
 }
 
-__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
-  uint32_t v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
+// The look-back's view of status[pass][tile][digit] (kat::look_back).
+struct DigitStatus {
+  using Word = uint32_t;
+  using Value = uint32_t;  // keys of the digit in the tiles read so far
+  static constexpr Word NOTHING = FLAG_PREFIX;
+  __device__ static Value identity() { return 0; }
+  __device__ static bool ready(Word w) { return (w & ~COUNT_MASK) != 0; }
+  __device__ static bool prefix(Word w) {
+    return (w & ~COUNT_MASK) == FLAG_PREFIX;
+  }
+  __device__ static Value value(Word w) { return w & COUNT_MASK; }
+  __device__ static Value combine(Value a, Value b) { return a + b; }
+};
 
 // Digit counts of every pass in one read of the keys, then (last block) the
 // scan of each pass's counts.
@@ -174,7 +177,8 @@ radix_histogram(const int64_t* __restrict__ keys, int64_t n, int passes,
   if (!s_last) return;
 
   for (int p = 0; p < passes; p++) {
-    const uint32_t c = tid < RS_RADIX ? ld_relaxed(&st->base[p][tid]) : 0u;
+    const uint32_t c =
+        tid < RS_RADIX ? kat::ld_relaxed(&st->base[p][tid]) : 0u;
     uint32_t total;
     const uint32_t ex = kat::block_exclusive_scan(c, &total);
     if (tid < RS_RADIX) st->base[p][tid] = ex;
@@ -207,7 +211,7 @@ radix_onesweep(const int64_t* __restrict__ src, int64_t* __restrict__ dst,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int shift = 8 * pass;
-  if (tid == 0) s_tile = atomicAdd(&st->next_tile[pass], 1u);
+  kat::take_tile(&st->next_tile[pass], &s_tile);
   for (int i = tid; i < WARPS * RS_RADIX; i += THREADS) s_warp[i] = 0;
   for (int i = tid; i < WARPS * 2 * RS_RADIX; i += THREADS) s_match[i] = 0;
   __syncthreads();
@@ -274,22 +278,9 @@ radix_onesweep(const int64_t* __restrict__ src, int64_t* __restrict__ dst,
   int tile_total;
   const int start = kat::block_exclusive_scan(count, &tile_total);
   uint32_t* my_status = status + tile * RS_RADIX + tid;
-  const uint32_t* theirs = my_status;  // walks down the lower tiles
-  int64_t left = tile;                 // how many of them are not yet read
-  uint32_t word[LOOK_BACK];
-  // LOOK_BACK loads in flight at once: a step costs a trip to L2, and a word
-  // read early stays true (a tile's count never changes).  (Declared here,
-  // ahead of the staging: with the same lines inside step 5 the compiler's
-  // code measured slower.)
-  auto read_lower = [&] {
-#pragma unroll
-    for (int b = 0; b < LOOK_BACK; b++)
-      word[b] = b < left ? ld_relaxed(theirs - (b + 1) * RS_RADIX)
-                         : FLAG_PREFIX;  // below tile 0: nothing
-  };
   if (tid < RS_RADIX) {
     s_start[tid] = start;
-    st_relaxed(my_status, FLAG_AGGREGATE | (uint32_t)count);
+    kat::st_relaxed(my_status, FLAG_AGGREGATE | (uint32_t)count);
   }
   __syncthreads();
 
@@ -308,23 +299,9 @@ radix_onesweep(const int64_t* __restrict__ src, int64_t* __restrict__ dst,
   // 5. thread d looks back: add the lower tiles' counts of digit d until
   //    one of them knows its whole prefix, then publish this tile's
   if (tid < RS_RADIX) {
-    uint32_t before = 0;
-    for (;;) {
-      read_lower();
-      bool found = false;
-#pragma unroll
-      for (int b = 0; b < LOOK_BACK; b++) {
-        if (found) continue;
-        while ((word[b] & ~COUNT_MASK) == 0)
-          word[b] = ld_relaxed(theirs - (b + 1) * RS_RADIX);
-        before += word[b] & COUNT_MASK;
-        found = (word[b] & ~COUNT_MASK) == FLAG_PREFIX;
-      }
-      if (found) break;
-      theirs -= LOOK_BACK * RS_RADIX;
-      left -= LOOK_BACK;
-    }
-    st_relaxed(my_status, FLAG_PREFIX | (before + (uint32_t)count));
+    const uint32_t before =
+        kat::look_back<DigitStatus, LOOK_BACK>(my_status, tile, RS_RADIX);
+    kat::st_relaxed(my_status, FLAG_PREFIX | (before + (uint32_t)count));
     // where slot j of this tile goes, less j, for a key of digit d
     s_global[tid] = (int32_t)(st->base[pass][tid] + before) - start;
   }
@@ -362,25 +339,11 @@ int onesweep_sort(const int64_t* keys, const int32_t* vals, int64_t* out,
   SortState* st = reinterpret_cast<SortState*>(scratch);
   uint32_t* status = reinterpret_cast<uint32_t*>(scratch) + STATE_WORDS;
 
-  // what a device is asked once: its SM count, and leave for this kernel
-  // to take its shared memory there (0: not asked yet; two threads that
-  // both ask write the same answer)
-  constexpr int MAX_DEVICES = 64;
-  static int sms_of[MAX_DEVICES] = {};
+  static int sms_of[kat::MAX_DEVICES] = {};
   auto kernel = radix_onesweep<THREADS, ITEMS, HAS_VAL>;
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
+  int sms;
+  cudaError_t err = kat::prepare(kernel, SMEM, sms_of, &sms);
   if (err != cudaSuccess) return (int)err;
-  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int sms = sms_of[device];
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    sms_of[device] = sms;
-  }
 
   err = cudaMemsetAsync(
       scratch, 0, scratch_for(n, key_bits, TILE) * sizeof(int32_t), stream);

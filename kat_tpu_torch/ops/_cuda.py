@@ -40,14 +40,17 @@ _SIGNATURES = {
     "kat_radix_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P],
     "kat_radix_sort_pairs_scratch": [_I64, _INT],
     "kat_radix_sort_pairs_tile": [],
-    "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P],
+    "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
-                                 _INT, _P, _P, _P, _P, _P],
+                                 _INT, _P, _P, _P, _P, _P, _P],
+    "kat_merge_sorted_scratch": [_I64],
+    "kat_merge_sorted_tile": [],
     "kat_compact_flagged": [_P, _P, _P, _INT, _P, _I64, _P, _P, _P, _I64, _P,
                             _P, _P],
     "kat_compact_flagged_scratch": [_I64],
     "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
-    "kat_reduce_by_key_scratch": [_I64, _I64],
+    "kat_reduce_by_key_scratch": [_I64],
+    "kat_reduce_by_key_tile": [],
     "kat_sort_chunks": [_P, _P, _I64, _INT, _P],
     "kat_merge_runs": [_P, _P, _P, _I64, _I64, _P],
     "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],

@@ -4,8 +4,9 @@ carry 1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join).
 
 Counterpart of kat_tpu/ops/merge_kernel.py::merge_sorted_kernel (the
 final-phase mode of kat_tpu's bitonic `_window_kernel`).  On a CUDA tensor
-both launch the merge-path merge of csrc/merge.cu; on a CPU tensor they
-take the plain versions, `merge_sorted_plain` and
+both launch the merge of csrc/merge.cu (a partition launch that finds
+every tile's split on the merge path, then one block per tile); on a CPU
+tensor they take the plain versions, `merge_sorted_plain` and
 `merge_sorted_payload_plain`.  The output is exactly len(a) + len(b) long,
 with no block padding, and ties take the `a` element first.
 """
@@ -16,6 +17,18 @@ import torch
 
 from ..core.kmers import SENTINEL
 from . import _cuda
+
+
+def tile_len() -> int:
+    """Outputs one thread block of the card's merge takes, as the compiled
+    library reports it."""
+    return int(_cuda.LIBRARY.get().kat_merge_sorted_tile())
+
+
+def _splits(n: int, device: torch.device) -> torch.Tensor:
+    """Scratch for the merge's tile splits."""
+    return torch.empty(_cuda.scratch_len("kat_merge_sorted_scratch", n),
+                       dtype=torch.int64, device=device)
 
 
 def merge_sorted_plain(a_keys: torch.Tensor, a_counts: torch.Tensor,
@@ -48,7 +61,8 @@ def merge_sorted(a_keys: torch.Tensor, a_counts: torch.Tensor,
         return out_keys, out_w
     _cuda.launch("kat_merge_sorted", a_keys.device, a_keys.data_ptr(),
                  a_counts.data_ptr(), na, b_keys.data_ptr(), nb,
-                 out_keys.data_ptr(), out_w.data_ptr())
+                 out_keys.data_ptr(), out_w.data_ptr(),
+                 _splits(na + nb, a_keys.device).data_ptr())
     merge_sorted.launches += 1
     return out_keys, out_w
 
@@ -96,7 +110,8 @@ def merge_sorted_payload(a_keys, a_planes, b_keys, b_planes):
 
     _cuda.launch("kat_merge_sorted_payload", dev, a_keys.data_ptr(),
                  *ptrs(a_planes), na, b_keys.data_ptr(), *ptrs(b_planes), nb,
-                 n_planes, out_keys.data_ptr(), *ptrs(out))
+                 n_planes, out_keys.data_ptr(), *ptrs(out),
+                 _splits(na + nb, dev).data_ptr())
     merge_sorted_payload.launches += 1
     return out_keys, out
 

@@ -3,9 +3,10 @@ front, and K4: stable compaction of the flagged elements of int32 planes.
 
 Counterparts of kat_tpu/ops/reduce_kernel.py::reduce_compact_sorted and
 ::compact_flagged.  On a CUDA tensor `reduce_by_key` launches the
-scan-based kernels of csrc/reduce.cu and `compact_flagged` those of
-csrc/compact.cu; on a CPU tensor they take the plain versions,
-`reduce_by_key_plain` and `compact_flagged_plain`.
+single-pass kernel of csrc/reduce.cu (a segmented sum by decoupled
+look-back) and `compact_flagged` the kernels of csrc/compact.cu; on a CPU
+tensor they take the plain versions, `reduce_by_key_plain` and
+`compact_flagged_plain`.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ def reduce_by_key_plain(keys: torch.Tensor, w: torch.Tensor, out_size: int):
                                               device=keys.device)
 
 
+def tile_len() -> int:
+    """Elements one thread block of the card's reduce takes, as the compiled
+    library reports it."""
+    return int(_cuda.LIBRARY.get().kat_reduce_by_key_tile())
+
+
 def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     """Reduce a sorted int64 key stream with int32 weights to its runs.
 
@@ -49,6 +56,9 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
         raise ValueError("keys and w differ in length")
     if out_size < 0:
         raise ValueError(f"out_size={out_size} < 0")
+    # the kernel's status words count runs in 30 bits
+    if keys.numel() >= 1 << 30:
+        raise ValueError(f"reduce_by_key: n={keys.numel()} must be < 2^30")
     if not _cuda.on_cuda(keys, "reduce_by_key"):
         return reduce_by_key_plain(keys, w, out_size)
     dev = keys.device
@@ -56,9 +66,8 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     out_counts = torch.empty(out_size, dtype=torch.int32, device=dev)
     n_unique = torch.empty(1, dtype=torch.int64, device=dev)
     n = keys.numel()
-    scratch = torch.empty(
-        _cuda.scratch_len("kat_reduce_by_key_scratch", n, out_size),
-        dtype=torch.int64, device=dev)
+    scratch = torch.empty(_cuda.scratch_len("kat_reduce_by_key_scratch", n),
+                          dtype=torch.int64, device=dev)
     _cuda.launch("kat_reduce_by_key", dev, keys.data_ptr(), w.data_ptr(), n,
                  out_keys.data_ptr(), out_counts.data_ptr(), out_size,
                  scratch.data_ptr(), n_unique.data_ptr())

@@ -9,10 +9,13 @@ imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from kat_tpu_torch.benchmarks import workloads
 from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
                                                      profile_rounds_plain)
 from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
@@ -21,10 +24,12 @@ from kat_tpu_torch.ops.join import counts_join, counts_join_dual
 from kat_tpu_torch.ops.merge_kernel import (merge_sorted, merge_sorted_payload,
                                             merge_sorted_payload_plain,
                                             merge_sorted_plain)
+from kat_tpu_torch.ops.merge_kernel import tile_len as merge_tile_len
 from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              compact_flagged_plain,
                                              reduce_by_key,
                                              reduce_by_key_plain)
+from kat_tpu_torch.ops.reduce_kernel import tile_len as reduce_tile_len
 from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
                                            sort_chunks, sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
@@ -672,3 +677,106 @@ def test_bucketed_counter_on_the_card(dev, tmp_path):
             initial_capacity=1 << 12, device="cpu")
         assert torch.equal(got.keys.cpu(), cpu.keys)
         assert torch.equal(got.counts.cpu(), cpu.counts)
+
+
+# -- K3 and K2 where their single pass can go wrong, at the path's shapes ---
+
+@functools.lru_cache(maxsize=1)
+def _flush_shapes(device: str):
+    """workloads.flush_shapes on the card, built once for the module."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    return workloads.flush_shapes(dev, g)
+
+
+def _k3_strain(name, dev):
+    """(keys, weights, out_size) on the card."""
+    _tk, _tc, _f, mk, mw, _q = (_flush_shapes(str(dev)) if "main" in name
+                                else (None,) * 6)
+    if name == "main_path_shape":
+        return mk, mw, 1 << 24
+    if name == "main_path_overflow":
+        return mk, mw, 1 << 20
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(name))
+    return workloads.reduce_strain(name, reduce_tile_len(), dev, g)
+
+
+@pytest.mark.parametrize("name", ["main_path_shape", "main_path_overflow",
+                                  *workloads.REDUCE_STRAIN])
+def test_reduce_strain(dev, name):
+    """One run across every tile (the longest chain of open sums through
+    the look-back), sentinel runs inside the stream, more runs than slots,
+    no slots, one element, lengths around the tile, and the main path's
+    83.9M-element merge into 2^24 and 2^20 slots."""
+    k, w, out_size = _k3_strain(name, dev)
+    before = reduce_by_key.launches
+    gk, gc, gn = reduce_by_key(k, w, out_size)
+    torch.cuda.synchronize()
+    assert reduce_by_key.launches == before + 1
+    wk, wc, wn = reduce_by_key_plain(k, w, out_size)
+    assert int(gn) == int(wn)
+    assert torch.equal(gk, wk) and torch.equal(gc, wc)
+
+
+def _k2_strain(name, dev):
+    """(table keys, table counts, fresh keys) on the card."""
+    if name == "main_path_shape":
+        t_keys, t_counts, fresh, _mk, _mw, _q = _flush_shapes(str(dev))
+        return t_keys, t_counts, fresh
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(name) + 50)
+    return workloads.merge_strain(name, merge_tile_len(), dev, g)
+
+
+@pytest.mark.parametrize("name", ["main_path_shape", *workloads.MERGE_STRAIN])
+def test_merge_strain(dev, name):
+    """Tile splits where one side is empty, where every key ties, where one
+    side lies wholly before the other, lengths around the tile, and the
+    main path's 2^24 + 2^26 merge."""
+    a, ac, b = _k2_strain(name, dev)
+    before = merge_sorted.launches
+    gk, gw = merge_sorted(a, ac, b)
+    torch.cuda.synchronize()
+    assert merge_sorted.launches == before + 1
+    wk, ww = merge_sorted_plain(a, ac, b)
+    assert torch.equal(gk, wk) and torch.equal(gw, ww)
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+def test_merge_payload_at_the_join_shape(dev, n_planes):
+    """The join's merge: a 2^24-slot table and 2^23 sorted queries, each
+    side carrying n_planes planes."""
+    t_keys, _tc, _f, _mk, _mw, q = _flush_shapes(str(dev))
+    g = torch.Generator(device=dev)
+    g.manual_seed(n_planes)
+    ap = tuple(torch.randint(-5, 1 << 30, (t_keys.numel(),),
+                             dtype=torch.int32, device=dev, generator=g)
+               for _ in range(n_planes))
+    bp = tuple(torch.randint(-5, 1 << 30, (q.numel(),), dtype=torch.int32,
+                             device=dev, generator=g)
+               for _ in range(n_planes))
+    gk, gp = merge_sorted_payload(t_keys, ap, q, bp)
+    wk, wp = merge_sorted_payload_plain(t_keys, ap, q, bp)
+    assert torch.equal(gk, wk)
+    for x, y in zip(gp, wp, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("what", ["reduce", "merge", "merge_payload"])
+def test_flush_kernels_repeat(dev, what):
+    """Five runs on one input at the path's shapes give equal outputs: a
+    race between tiles shows as a difference between runs."""
+    t_keys, t_counts, fresh, mk, mw, q = _flush_shapes(str(dev))
+    ap = (torch.full((t_keys.numel(),), -1, dtype=torch.int32, device=dev),)
+    bp = (torch.arange(q.numel(), dtype=torch.int32, device=dev),)
+    run = {"reduce": lambda: reduce_by_key(mk, mw, 1 << 24),
+           "merge": lambda: merge_sorted(t_keys, t_counts, fresh),
+           "merge_payload": lambda: (lambda k, p: (k, *p))(
+               *merge_sorted_payload(t_keys, ap, q, bp))}[what]
+    first = run()
+    for _ in range(4):
+        again = run()
+        for x, y in zip(first, again, strict=True):
+            assert torch.equal(x, y)

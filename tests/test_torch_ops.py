@@ -439,3 +439,285 @@ def test_profile_rounds_rejects_bad_input():
         profile_rounds(k[:100], "copy", 1)
     with pytest.raises(ValueError):
         profile_rounds(k, "copy", -1)
+
+
+# -- K3's decomposition on the card (csrc/reduce.cu), modelled in numpy -----
+
+MASK32 = (1 << 32) - 1
+RUNS_MASK = (1 << 30) - 1
+AGG_OPEN, AGG_CLOSED, PREFIX = 1, 2, 3
+
+
+def _seg(a, b):
+    """Segmented sums (runs emitted, a run ends inside, weight after the
+    last run end mod 2^32): a, then b."""
+    return (a[0] + b[0], a[1] or b[1],
+            b[2] if b[1] else (a[2] + b[2]) & MASK32)
+
+
+def _pack(flag, v):
+    return flag << 62 | (v[0] & RUNS_MASK) << 32 | v[2]
+
+
+def _unpack(word):
+    flag = word >> 62
+    return flag, ((word >> 32) & RUNS_MASK, flag == AGG_CLOSED, word & MASK32)
+
+
+def _k3_model(keys, w, out_size, tile, rng, group=32):
+    """csrc/reduce.cu's single pass: every tile's aggregate, each tile's
+    exclusive prefix by a look-back down the lower tiles' 64-bit status
+    words until one holds a prefix, `group` words a step (common.cuh's
+    look_back: 1 for a thread, 32 for a warp, which combines the words of
+    a step up to the nearest prefix as a tree), then each run written once
+    at its rank and the padding filled.  Half the tiles (never tile 0)
+    leave only their aggregate behind, as a tile does whose prefix is not
+    out yet: the look-back must give the same answer either way."""
+    n = keys.size
+    end = np.ones(n, bool)
+    end[:-1] = keys[:-1] != keys[1:]
+    emit = end & (keys != SENTINEL)
+    tiles = -(-n // tile)
+    words, before, aggs = [], [], []
+    for t in range(tiles):
+        span = slice(t * tile, (t + 1) * tile)
+        ends = np.flatnonzero(end[span])
+        after = w[span][ends[-1] + 1:] if ends.size else w[span]
+        agg = (int(emit[span].sum()), bool(ends.size),
+               int(after.astype(np.uint64).sum()) & MASK32)
+        aggs.append(agg)
+        acc, hi = (0, False, 0), t
+        while hi > 0:
+            # lane l reads tile hi - 1 - l; below tile 0: a prefix of nothing
+            step = [_unpack(words[j]) if j >= 0 else (PREFIX, (0, False, 0))
+                    for j in range(hi - 1, hi - 1 - group, -1)]
+            assert all(flag != 0 for flag, _v in step)
+            last = next((i for i, (flag, _v) in enumerate(step)
+                         if flag == PREFIX), group - 1)
+            vals = [v for _flag, v in step[:last + 1]]
+            while len(vals) > 1:  # farther tiles first, pairwise
+                vals = [_seg(vals[i + 1], vals[i]) if i + 1 < len(vals)
+                        else vals[i] for i in range(0, len(vals), 2)]
+            acc = _seg(vals[0], acc)
+            if step[last][0] == PREFIX:
+                break
+            hi -= group
+        before.append(acc)
+        if t == 0 or rng.random() < 0.5:
+            words.append(_pack(PREFIX, _seg(acc, agg)))
+        else:
+            words.append(_pack(AGG_CLOSED if agg[1] else AGG_OPEN, agg))
+    out_k = np.full(out_size, SENTINEL, np.int64)
+    out_c = np.zeros(out_size, np.int32)
+    for t in range(tiles):
+        r, _closed, s = before[t]
+        for i in range(t * tile, min((t + 1) * tile, n)):
+            s = (s + int(w[i])) & MASK32
+            if end[i]:
+                if emit[i]:
+                    if r < out_size:
+                        out_k[r] = keys[i]
+                        out_c[r] = np.uint32(s).view(np.int32)
+                    r += 1
+                s = 0
+    # the tile holding the last element writes n_unique
+    n_unique = before[-1][0] + aggs[-1][0] if tiles else 0
+    return out_k, out_c, n_unique
+
+
+K3_MODEL_TILE = 256
+
+
+def _k3_case(name):
+    """(keys, weights, out_size) of the strain cases, lengths around the
+    model's middle tile of 256."""
+    rng = np.random.default_rng(len(name))
+    T = K3_MODEL_TILE
+    if name == "one_run":
+        k = np.full(3 * T + 7, 99, np.int64)
+        return k, rng.integers(1, 1000, k.size), 8
+    if name == "interior_sentinels":
+        parts = [np.sort(_keys(rng, 2 * T + 1, bits=7, sent_frac=0.3))
+                 for _ in range(3)]
+        k = np.concatenate(parts)
+        return k, np.where(k == SENTINEL, 0, rng.integers(1, 9, k.size)), 600
+    if name == "overflow":
+        k = np.sort(_keys(rng, 5 * T, bits=14, sent_frac=0.05))
+        return k, (k != SENTINEL).astype(np.int64), 100
+    if name == "out_size_0":
+        k = np.sort(_keys(rng, 3 * T, bits=8))
+        return k, rng.integers(0, 4, k.size), 0
+    if name == "all_sentinel":
+        return np.full(2 * T + 3, SENTINEL, np.int64), np.zeros(2 * T + 3), 64
+    n = {"n_1": 1, "tile_minus_1": T - 1, "tile": T,
+         "tile_plus_1": T + 1}[name]
+    k = np.sort(_keys(rng, n, bits=6))
+    return k, np.where(k == SENTINEL, 0, rng.integers(1, 50, n)), n + 3
+
+
+K3_CASES = ["one_run", "interior_sentinels", "overflow", "out_size_0",
+            "all_sentinel", "n_1", "tile_minus_1", "tile", "tile_plus_1"]
+_JAX_REDUCED = {}
+
+
+def _jax_reduced(name):
+    """kat_tpu's reduce_compact_sorted in interpret mode, once per case."""
+    if name not in _JAX_REDUCED:
+        keys, w, out_size = _k3_case(name)
+        w = np.asarray(w, np.int64)
+        jh, jl, jc, jn = reduce_compact_sorted(
+            _planes(keys), jnp.asarray(w.astype(np.uint32)),
+            max(out_size, 1), rows_per_tile=8, interpret=True)
+        _JAX_REDUCED[name] = (
+            from_planes(np.asarray(jh), np.asarray(jl))[:out_size],
+            np.asarray(jc).astype(np.int32)[:out_size], int(jn))
+    return _JAX_REDUCED[name]
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("tile", [32, K3_MODEL_TILE, 4096])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_k3_look_back_model(name, tile, group):
+    """The tile aggregates and the segmented look-back (one word a step,
+    or a warp's 32) give what reduce_by_key_plain and kat_tpu's reduce
+    kernel give, at tile sizes below, at and above the lengths: one run
+    across every tile, interior sentinel runs, n_unique > out_size,
+    out_size = 0, n = 1, tile +- 1."""
+    keys, w, out_size = _k3_case(name)
+    w = np.asarray(w, np.int64)
+    mk, mc, mn = _k3_model(keys, w, out_size, tile,
+                           np.random.default_rng(tile), group)
+    pk, pc, pn = reduce_by_key(torch.from_numpy(keys),
+                               torch.from_numpy(w.astype(np.int32)), out_size)
+    assert mn == int(pn)
+    np.testing.assert_array_equal(mk, pk.numpy())
+    np.testing.assert_array_equal(mc, pc.numpy())
+    jk, jc, jn = _jax_reduced(name)
+    assert mn == jn
+    np.testing.assert_array_equal(mk, jk)
+    np.testing.assert_array_equal(mc, jc)
+
+
+def test_k3_status_word_round_trip():
+    """A status word holds a 30-bit run count and a 32-bit sum beside its
+    flag, and an aggregate's flag says whether a run ends in its tile."""
+    for flag, v in ((AGG_OPEN, (0, False, MASK32)),
+                    (AGG_CLOSED, (RUNS_MASK, True, 12345)),
+                    (PREFIX, ((1 << 30) - 7, False, 0))):
+        w = _pack(flag, v)
+        assert w < 1 << 64
+        assert _unpack(w) == (flag, v)
+    assert _unpack(_pack(PREFIX, (0, False, 0)))[0] == PREFIX
+    # sums wrap mod 2^32 like the plain version's int64 sum cut to int32
+    assert _seg((1, True, MASK32), (0, False, 2)) == (1, True, 1)
+
+
+def test_reduce_wrapper_checks_length():
+    too_long = torch.empty(1 << 30, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match=r"2\^30"):
+        reduce_by_key(too_long, torch.empty(1 << 30, dtype=torch.int32,
+                                            device="meta"), 4)
+
+
+# -- K2's decomposition on the card (csrc/merge.cu), modelled in numpy ------
+
+def _merge_path(a, b, diag):
+    lo, hi = max(0, diag - b.size), min(diag, a.size)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[diag - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _k2_model(a, aw, b, tile, items):
+    """csrc/merge.cu's two launches: the split of every tile boundary on
+    the merge path, then each tile on its own: `items` outputs a thread,
+    each thread's start found by a merge-path search inside the tile's two
+    slices, ties to a; b's weight is (key != SENTINEL)."""
+    n = a.size + b.size
+    tiles = -(-n // tile)
+    splits = [_merge_path(a, b, min(t * tile, n)) for t in range(tiles + 1)]
+    assert splits[-1] == a.size and splits == sorted(splits)
+    out_k, out_w = np.zeros(n, np.int64), np.zeros(n, np.int32)
+    for t in range(tiles):
+        d0 = t * tile
+        length = min(d0 + tile, n) - d0
+        sa, wa = a[splits[t]:splits[t + 1]], aw[splits[t]:splits[t + 1]]
+        sb = b[d0 - splits[t]:d0 - splits[t] + length - sa.size]
+        for dt in range(0, length, items):
+            ia = _merge_path(sa, sb, dt)
+            ib = dt - ia
+            for d in range(dt, min(dt + items, length)):
+                if ia < sa.size and (ib >= sb.size or sa[ia] <= sb[ib]):
+                    out_k[d0 + d], out_w[d0 + d] = sa[ia], wa[ia]
+                    ia += 1
+                else:
+                    out_k[d0 + d] = sb[ib]
+                    out_w[d0 + d] = sb[ib] != SENTINEL
+                    ib += 1
+    return out_k, out_w
+
+
+def _k2_case(name):
+    rng = np.random.default_rng(len(name) + 100)
+    universe = _keys(rng, 600, sent_frac=0.0)
+    if name == "equal_keys":
+        a, b = np.full(300, 5, np.int64), np.full(500, 5, np.int64)
+        return a, rng.integers(1, 9, 300).astype(np.int32), b
+    a, ac = _table(rng, 400, universe)
+    b = np.sort(np.where(rng.random(600) < 0.1, SENTINEL,
+                         rng.choice(universe, 600)))
+    if name == "na_0":
+        return a[:0], ac[:0], b
+    if name == "nb_0":
+        return a, ac, b[:0]
+    if name == "a_before_b":
+        return np.sort(a % (1 << 20)), ac, np.sort(b % (1 << 20) + (1 << 21))
+    if name == "b_before_a":
+        return np.sort(a % (1 << 20) + (1 << 21)), ac, np.sort(b % (1 << 20))
+    return a, ac, b
+
+
+K2_CASES = ["random", "na_0", "nb_0", "equal_keys", "a_before_b",
+            "b_before_a"]
+_JAX_MERGED = {}
+
+
+def _jax_merged(name):
+    """kat_tpu's merge kernel in interpret mode, reduced (equal keys may
+    meet in another order there), once per case."""
+    if name not in _JAX_MERGED:
+        a, ac, b = _k2_case(name)
+        bw = (b != SENTINEL).astype(np.uint32)
+        (mh, ml), (mw,) = merge_sorted_kernel(
+            _planes(a), (jnp.asarray(ac.astype(np.uint32)),), _planes(b),
+            (jnp.asarray(bw),), block_rows=8, interpret=True)
+        n = a.size + b.size
+        keys = from_planes(np.asarray(mh)[:n], np.asarray(ml)[:n])
+        _JAX_MERGED[name] = (keys, np.asarray(mw)[:n].astype(np.int32))
+    return _JAX_MERGED[name]
+
+
+@pytest.mark.parametrize("tile,items", [(16, 4), (256, 16), (4096, 16)])
+@pytest.mark.parametrize("name", K2_CASES)
+def test_k2_split_model(name, tile, items):
+    """The tile splits and the per-thread merges inside a tile give
+    merge_sorted_plain's stable merge exactly, and kat_tpu's merge kernel's
+    keys (and its weights once equal keys are summed): na = 0, nb = 0,
+    every key equal across both sides, one side wholly before the other."""
+    a, ac, b = _k2_case(name)
+    mk, mw = _k2_model(a, ac, b, tile, items)
+    pk, pw = merge_sorted(torch.from_numpy(a), torch.from_numpy(ac),
+                          torch.from_numpy(b))
+    np.testing.assert_array_equal(mk, pk.numpy())
+    np.testing.assert_array_equal(mw, pw.numpy())
+    jk, jw = _jax_merged(name)
+    np.testing.assert_array_equal(mk, jk)
+    n = mk.size
+    got = reduce_by_key(torch.from_numpy(mk), torch.from_numpy(mw), n)
+    want = reduce_by_key(torch.from_numpy(jk), torch.from_numpy(jw), n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
