@@ -24,6 +24,13 @@
    lengths around the tile), each is run five times at the path's shapes
    with equal outputs, and the kernels and memsets inside one call of
    each are counted by torch.profiler;
+2b. checks the W-word forms of K1, K2 and K3 (wide keys, 31 < k <= 255)
+   against their plain versions at the wide flush's shapes (k = 41, W = 2:
+   2^26 fresh keys, a 2^24-slot table, their 83.9M-element merge), timed,
+   five runs each with equal outputs, and on strain inputs (random, equal
+   top words, all SENTINEL, one run) at k = 33, 62, 63, 93, 94, 124, 125
+   and 255 (W = 2..9); their kernels and memsets inside one call are
+   counted in the same profiled window as the others;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -35,6 +42,14 @@
    coverage.window_counts; the counts must come from the sort-merge join,
    equal the binary-search route and a reference built from torch.unique's
    table, and each lookup kernel must have been launched by that run;
+4b. drives wide-key counting through WideCodeStreamingCounter on the main
+   path's reads at k = 41 (193,462,272 windows, table grown from 2^20 to
+   2^24 slots, W = 2) and on 8 of its batches at k = 95 (W = 4, a top word
+   of 4 bits), cold and warm; tables and histograms must equal a reference
+   built by the plain W-word sort and reduce over the same windows, and
+   each W-word kernel must have been launched by each run; then prints the
+   k = 41 path's device time by kernel (benchmarks/profile_main.py --k 41
+   in a process of its own);
 5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
    against numpy) and `hist` from the dumped .jf (same histogram);
 6. runs `sect` of 200 contigs against those reads through the command
@@ -43,7 +58,10 @@
    just before and read just after, every kernel must have been launched,
    the lookup kernels once per length bucket that the join policy takes,
    and those buckets must hold most of the windows; the artifacts are held
-   against numpy.
+   against numpy;
+6b. the same at k = 41: `hist -m 41 -d` and `hist` of its .jf as
+   processes, `sect -m 41` through cli.main with the W-word kernels'
+   launch counts read around it; every artifact against numpy.
 
 7. drives the minimizer-bucketed flush at full width: the main path's read
    model (k=27 canonical, 196,608 reads of 1024 bases from the 2^23-base
@@ -296,7 +314,9 @@ def check_flush_shapes(dev, gen, shapes) -> None:
 
 def check_kernels(dev, gen):
     """Every kernel against its plain version: K1-K3 at the flush's shapes
-    here, the lookup path's three in check_lookup_kernels."""
+    here, the lookup path's three in check_lookup_kernels.  Returns the
+    entries and the (entry, call) pairs whose kernels count_inside
+    counts."""
     import math
 
     import torch
@@ -371,8 +391,7 @@ def check_kernels(dev, gen):
                     lambda: reduce_kernel.reduce_by_key(mk, mw, cap)))
     check_flush_shapes(dev, gen, shapes)
     lookup, lookup_counted = check_lookup_kernels(dev, gen, t_keys, t_counts)
-    count_inside(counted + lookup_counted)
-    return results + lookup
+    return results + lookup, counted + lookup_counted
 
 
 def count_inside(counted) -> None:
@@ -577,6 +596,158 @@ def check_rounds_kernel(dev):
     return entry
 
 
+def _repeat_equal(what: str, fn) -> None:
+    """Four more runs of fn equal its first: a race between tiles shows as
+    a difference between runs."""
+    import torch
+
+    first = fn()
+    for _ in range(4):
+        if not all(torch.equal(x, y) for x, y in zip(first, fn())):
+            raise AssertionError(f"two runs of {what} on the same input "
+                                 "differ")
+
+
+def check_wide_kernels(dev, gen):
+    """K1, K2 and K3 W-word against their plain versions: at the wide
+    flush's shapes (k = 41, W = 2: 2^26 fresh keys, a 2^24-slot table,
+    their 83.9M-element merge), timed and five runs each with equal
+    outputs; then on workloads.WIDE_STRAIN at the boundary k of every
+    W = 2..9.  Returns the entries and their (entry, call) pairs."""
+    import math
+
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
+    from kat_tpu_torch.core.kmers import top_bases
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    k = workloads.WIDE_K
+    tb = 2 * top_bases(k) + 1
+    n_fresh, cap = 1 << 26, 1 << 24
+    results, counted = [], []
+
+    # K1 W-word: 2^26 random 41-mers, 10% SENTINEL
+    keys = workloads.wide_keys(k, n_fresh, dev, gen)
+    W = keys.shape[0]
+    got = sort_kernel.sort_words(keys, tb)
+    err = _max_abs_err(got, sort_kernel.sort_words_plain(keys))
+    results.append(_report(dict(
+        name="radix_sort_words", route="cuda",
+        source="kat_tpu_torch/csrc/sort.cu",
+        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+        ms=_timed_ms(lambda: sort_kernel.sort_words(keys, tb), 5),
+        # the W chained stable torch.sort calls with their gathers: no one
+        # PyTorch call sorts W-word keys
+        plain_ms=_timed_ms(lambda: sort_kernel.sort_words_plain(keys), 3),
+        **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
+        library_ms=None, passes=sort_kernel.words_passes(W, tb),
+        tile=sort_kernel.words_tile_len(W),
+        floor_ms=sort_kernel.words_pass_floor_bytes(n_fresh, W, tb)
+        / HBM_BYTES_PER_S * 1e3), f"K1 W-word sort 2^26 keys, k={k} (W={W})"))
+    counted.append((results[-1], lambda: sort_kernel.sort_words(keys, tb)))
+    del got
+    _repeat_equal("K1 W-word", lambda: (sort_kernel.sort_words(keys, tb),))
+
+    # K2 W-word: a 2^24-slot table (~2^23 real keys) with 2^26 sorted
+    # fresh keys from a 1.5 x 2^23 key universe (10% SENTINEL)
+    t_keys, t_counts, fresh, pk, pw = workloads.wide_flush_shapes(k, dev,
+                                                                  gen)
+    mk, mw = merge_kernel.merge_sorted_words(t_keys, t_counts, fresh)
+    err = _same((mk, mw), (pk, pw))
+    del pk, pw
+    results.append(_report(dict(
+        name="merge_path_words", route="cuda",
+        source="kat_tpu_torch/csrc/merge.cu",
+        replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_words(
+            t_keys, t_counts, fresh), 5),
+        plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_plain(
+            t_keys, t_counts, fresh), 3),
+        **_bound(_nbytes(t_keys, t_counts, fresh, mk, mw),
+                 W * mk.shape[1]),
+        library_ms=None, tile=merge_kernel.words_tile_len(W)),
+        f"K2 W-word merge 2^24 table + 2^26 fresh (W={W})"))
+    counted.append((results[-1], lambda: merge_kernel.merge_sorted_words(
+        t_keys, t_counts, fresh)))
+    _repeat_equal("K2 W-word", lambda: merge_kernel.merge_sorted_words(
+        t_keys, t_counts, fresh))
+
+    # K3 W-word: that merged stream reduced to 2^24, and to 2^20 (the
+    # true n_unique must come back)
+    errs = []
+    for out_size in (cap, 1 << 20):
+        g = reduce_kernel.reduce_by_key_words(mk, mw, out_size)
+        w = reduce_kernel.reduce_by_key_words_plain(mk, mw, out_size)
+        if int(g[2]) != int(w[2]):
+            raise AssertionError(f"K3 W-word n_unique {int(g[2])} != "
+                                 f"{int(w[2])}")
+        errs += [_max_abs_err(g[0], w[0]), _max_abs_err(g[1], w[1])]
+        print(f"K3 W-word reduce to {out_size}: n_unique {int(g[2])} exact")
+    del g, w
+    results.append(_report(dict(
+        name="reduce_by_key_words", route="cuda",
+        source="kat_tpu_torch/csrc/reduce.cu",
+        replaces="kat_tpu/ops/reduce_kernel.py:147", max_abs_err=max(errs),
+        ms=_timed_ms(lambda: reduce_kernel.reduce_by_key_words(mk, mw, cap),
+                     5),
+        plain_ms=_timed_ms(
+            lambda: reduce_kernel.reduce_by_key_words_plain(mk, mw, cap), 3),
+        **_bound(_nbytes(mk, mw) + cap * (8 * W + 4), 2 * W * mk.shape[1]),
+        library_ms=None, tile=reduce_kernel.tile_len()),
+        f"K3 W-word reduce {mk.shape[1]} -> 2^24 (W={W})"))
+    counted.append((results[-1], lambda: reduce_kernel.reduce_by_key_words(
+        mk, mw, cap)))
+    _repeat_equal("K3 W-word", lambda: reduce_kernel.reduce_by_key_words(
+        mk, mw, cap))
+
+    # strain: W = 2..9 at boundary k, around every kernel's tile
+    n = 3 * sort_kernel.words_tile_len(2) + 17
+    for sk in workloads.WIDE_STRAIN_K:
+        stb = 2 * top_bases(sk) + 1
+        for name in workloads.WIDE_STRAIN:
+            # (not `keys`: the K1 call counted above reads that name)
+            skeys = workloads.wide_strain(name, sk, n, dev, gen)
+            _same((sort_kernel.sort_words(skeys, stb),),
+                  (sort_kernel.sort_words_plain(skeys),))
+            a, ac, b = workloads.wide_merge_inputs(skeys, gen)
+            _same(merge_kernel.merge_sorted_words(a, ac, b),
+                  merge_kernel.merge_sorted_words_plain(a, ac, b))
+            rk, rw = workloads.wide_reduce_inputs(skeys, gen)
+            for out_size in (n, 100):
+                g = reduce_kernel.reduce_by_key_words(rk, rw, out_size)
+                w = reduce_kernel.reduce_by_key_words_plain(rk, rw, out_size)
+                if int(g[2]) != int(w[2]):
+                    raise AssertionError(f"K3 W-word n_unique at k={sk} "
+                                         f"({name})")
+                _same(g[:2], w[:2])
+    # lengths around every tile at W = 2 (k = 41)
+    lengths = sorted({1, 2, *[t + d for t in (
+        sort_kernel.words_tile_len(2), merge_kernel.words_tile_len(2),
+        reduce_kernel.tile_len()) for d in (-1, 0, 1)]})
+    for m in lengths:
+        skeys = workloads.wide_keys(k, m, dev, gen)
+        _same((sort_kernel.sort_words(skeys, tb),),
+              (sort_kernel.sort_words_plain(skeys),))
+        a, ac, b = workloads.wide_merge_inputs(torch.cat(
+            [skeys, workloads.wide_keys(k, 2 * m, dev, gen)], dim=1), gen)
+        _same(merge_kernel.merge_sorted_words(a, ac, b),
+              merge_kernel.merge_sorted_words_plain(a, ac, b))
+        rk, rw = workloads.wide_reduce_inputs(skeys, gen)
+        g = reduce_kernel.reduce_by_key_words(rk, rw, m)
+        w = reduce_kernel.reduce_by_key_words_plain(rk, rw, m)
+        if int(g[2]) != int(w[2]):
+            raise AssertionError(f"K3 W-word n_unique at n = {m}")
+        _same(g[:2], w[:2])
+    print("K1/K2/K3 W-word: exact on " + ", ".join(workloads.WIDE_STRAIN)
+          + f" ({n} keys) at k = "
+          + ", ".join(map(str, workloads.WIDE_STRAIN_K))
+          + " (W = 2..9), and at n = " + ", ".join(map(str, lengths))
+          + f" (k = {k}); five runs of each at the path's shapes agree")
+    return results, counted
+
+
 def main_path(dev):
     """Counting at bench.py's scale through CodeStreamingCounter."""
     import torch
@@ -718,6 +889,89 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
           f"{join_ms * 1e6 / m:.4f} ns/query; search {search_ms:.3f} ms = "
           f"{search_ms * 1e6 / m:.4f} ns/query")
     return launches
+
+
+def wide_path(dev, k: int, n_batches: int, smi: str):
+    """Counting of the main path's reads at k > 31 through
+    WideCodeStreamingCounter (the first n_batches of workloads'
+    batches), cold and warm, against a reference over the same windows
+    that never touches the kernels or the counter: the plain W-word sort
+    (chained torch.sort) and reduce.  Returns the W-word kernels' launches
+    in the cold run."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import stats
+    from kat_tpu_torch.core.kmers import SENTINEL, extract_kmers_wide
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    _genome, batches = workloads.main_path_batches(dev, SEED)
+    batches = batches[:n_batches]
+    kernels = (sort_kernel.sort_words, merge_kernel.merge_sorted_words,
+               reduce_kernel.reduce_by_key_words)
+
+    def run():
+        sc = workloads.wide_counter(k, dev)
+        for b in batches:
+            sc.add_codes(b)
+        table = sc.finish()
+        hist = stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
+        torch.cuda.synchronize()
+        return sc.capacity, table, hist
+
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cap, table, hist = run()
+    cold = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    t0 = time.perf_counter()
+    run()
+    warm = time.perf_counter() - t0
+    n_windows = n_batches * workloads.MAIN_ROWS * (workloads.MAIN_LENGTH
+                                                   - k + 1)
+    W = table.n_words
+    print(f"wide path k={k} (W={W}): {n_windows} windows, cold {cold:.4f} s "
+          f"= {n_windows / cold:.1f} k-mers/s, warm {warm:.4f} s = "
+          f"{n_windows / warm:.1f} k-mers/s ({smi}); table "
+          f"{table.n_unique} distinct, capacity {cap}; launches "
+          f"sort/merge/reduce W-word {launches}")
+    if min(launches) < 1:
+        raise AssertionError(f"a W-word kernel was not launched: {launches}")
+
+    words = torch.cat([extract_kmers_wide(b, k)[0].reshape(W, -1)
+                       for b in batches], dim=1)
+    words = sort_kernel.sort_words_plain(words)
+    ref_keys, ref_counts, ref_n = reduce_kernel.reduce_by_key_words_plain(
+        words, (words[0] != SENTINEL).to(torch.int32), table.capacity)
+    del words
+    n = table.n_unique
+    if n != int(ref_n):
+        raise AssertionError(f"n_unique {n} != reference {int(ref_n)}")
+    if not (torch.equal(table.keys, ref_keys)
+            and torch.equal(table.counts, ref_counts)):
+        raise AssertionError(f"the k={k} table differs from the reference")
+    if not torch.equal(hist, stats.hist_from_counts(ref_counts, 1, 10001, 1,
+                                                    10001)):
+        raise AssertionError(f"the k={k} histogram differs from the "
+                             "reference")
+    print(f"wide path k={k}: table and histogram equal the reference")
+    return launches
+
+
+def profile_wide(k: int) -> None:
+    """The wide path's device time by kernel: benchmarks/profile_main.py
+    in a process of its own (its own torch.profiler window)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-m",
+                           "kat_tpu_torch.benchmarks.profile_main", "--k",
+                           str(k)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"profile_main --k {k} failed:\n{proc.stdout}"
+                             f"\n{proc.stderr}")
+    for line in proc.stdout.splitlines():
+        print(f"wide path profile: {line}")
 
 
 def bucketed_path(dev, n_reads: int = 196_608, genome_len: int = 1 << 23):
@@ -1057,6 +1311,136 @@ def cli_run(dev):
     return launches
 
 
+def _numpy_wide_windows(seq: np.ndarray, k: int):
+    """(canonical keys as W uint64 word arrays, valid) per k-window of an
+    ASCII array [.., L], with numpy alone: k rounds of a shift register
+    over the words (the forward key shifts left, the reverse complement
+    right), the port's word layout (31 bases a word, the top word the
+    rest)."""
+    from kat_tpu_torch.core.kmers import encode_ascii, top_bases, words_for_k
+
+    u = np.uint64
+    codes = encode_ascii(seq).astype(np.uint64)
+    n = seq.shape[-1] - k + 1
+    W, top = words_for_k(k), top_bases(k)
+    masks = [u((1 << (2 * top)) - 1)] + [u((1 << 62) - 1)] * (W - 1)
+    shape = seq.shape[:-1] + (n,)
+    fwd = [np.zeros(shape, np.uint64) for _ in range(W)]
+    rc = [np.zeros(shape, np.uint64) for _ in range(W)]
+    bad = np.zeros(shape, bool)
+    for j in range(k):
+        c = codes[..., j:j + n]
+        bad |= c >= 4
+        c = c & u(3)
+        for i in range(W):  # carry each word's top base into the next up
+            carry = fwd[i + 1] >> u(60) if i + 1 < W else c
+            fwd[i] = ((fwd[i] << u(2)) | carry) & masks[i]
+        for i in reversed(range(W)):  # and each word's low base down
+            carry = (rc[i - 1] & u(3)) << u(60) if i else \
+                (u(3) - c) << u(2 * (top - 1))
+            rc[i] = (rc[i] >> u(2)) | carry
+    less = np.zeros(shape, bool)
+    eq = np.ones(shape, bool)
+    for f, r in zip(fwd, rc):
+        less |= eq & (r < f)
+        eq &= r == f
+    return [np.where(less, r, f) for f, r in zip(fwd, rc)], ~bad
+
+
+def wide_cli_run(dev):
+    """`python -m kat_tpu_torch hist -m 41 -d` and `hist` of its .jf in
+    processes of their own, then `sect -m 41` through cli.main inside this
+    process between a reset and a reading of the W-word kernels' launch
+    counts; every artifact held against numpy.  Returns those counts."""
+    import contextlib
+    import io
+
+    from kat_tpu_torch import cli
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    k, n_reads, read_len = 41, 100_000, 150
+    rng = np.random.default_rng(SEED + 4)
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 20)]
+    off = rng.integers(0, genome.size - read_len, n_reads)
+    seqs = genome[off[:, None] + np.arange(read_len)]
+    noisy = rng.random(n_reads) < 0.01
+    seqs[noisy, rng.integers(0, read_len, noisy.sum())] = ord("N")
+    words, valid = _numpy_wide_windows(seqs, k)
+    flat = [w[valid] for w in words]
+    order = np.lexsort(flat[::-1])
+    flat = [w[order] for w in flat]
+    new = np.zeros(order.size, bool)
+    new[:1] = True
+    for w in flat:
+        new[1:] |= w[1:] != w[:-1]
+    starts = np.flatnonzero(new)
+    ucounts = np.diff(np.append(starts, order.size))
+    table = dict(zip(zip(*[w[starts].tolist() for w in flat]),
+                     ucounts.tolist()))
+    with tempfile.TemporaryDirectory() as tmp:
+        fq = os.path.join(tmp, "reads.fq")
+        with open(fq, "wb") as f:
+            qual = b"I" * read_len
+            for i in range(n_reads):
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
+        out = os.path.join(tmp, "out.hist")
+        dt = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
+        got = _read(out)
+        if got != _numpy_hist_text(ucounts, k, fq):
+            raise AssertionError("CLI hist -m 41 differs from numpy's")
+        print(f"wide CLI: hist -d -m {k} of {n_reads} x {read_len} bp reads "
+              f"equals numpy's; {int(valid.sum())} k-mers file-to-artifact "
+              f"in {dt:.4f} s (process start included)")
+        jf = f"{out}-hash.jf{k}"
+        out2 = os.path.join(tmp, "from_jf.hist")
+        dt = _run_cli(["hist", "-o", out2, jf])
+        if _read(out2).split("###")[1] != got.split("###")[1]:
+            raise AssertionError("hist of the dumped k=41 .jf differs")
+        print(f"wide CLI: hist of the dumped .jf ({os.path.getsize(jf)} "
+              f"bytes, {len(table)} records) equals the first, in {dt:.4f} s")
+
+        fa = os.path.join(tmp, "asm.fa")
+        contigs = _write_contigs(fa, genome, rng)
+        prefix = os.path.join(tmp, "sect")
+        kernels = (sort_kernel.sort_words, merge_kernel.merge_sorted_words,
+                   reduce_kernel.reduce_by_key_words)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as banner:
+            rc = cli.main(["sect", "-m", str(k), "-o", prefix, fa, fq])
+        dt = time.perf_counter() - t0
+        launches = [fn.launches for fn in kernels]
+        if rc != 0 or min(launches) < 1:
+            raise AssertionError(f"sect -m {k} returned {rc}, launched "
+                                 f"W-word sort/merge/reduce {launches}:\n"
+                                 f"{banner.getvalue()}")
+        cvg, stats = [], {}
+        for name, seq in contigs:
+            cvg.append(f">{name}\n")
+            if seq.size < k:
+                cvg.append("0\n")
+                stats[name] = ("0", "0.00000")
+                continue
+            cw, cv = _numpy_wide_windows(seq, k)
+            c = np.array([table.get(key, 0) if ok else 0 for key, ok in zip(
+                zip(*[w.tolist() for w in cw]), cv.tolist())], np.int64)
+            cvg.append(" ".join(map(str, c.tolist())) + "\n")
+            stats[name] = (str(int(np.sort(c)[c.size // 2])),
+                           f"{c.sum() / c.size:.5f}")
+        if _read(f"{prefix}-counts.cvg") != "".join(cvg):
+            raise AssertionError("sect -m 41 counts.cvg differs from numpy's")
+        rows = [ln.split("\t") for ln in
+                _read(f"{prefix}-stats.tsv").splitlines()[1:]]
+        if ({r[0]: (r[1], r[2]) for r in rows} != stats
+                or len(rows) != len(contigs)):
+            raise AssertionError("sect -m 41 stats.tsv differs from numpy's")
+    print(f"wide CLI: sect -m {k} of {len(contigs)} contigs equals numpy's "
+          f"counts, medians and means, in {dt:.4f} s (counting included); "
+          f"launches W-word sort/merge/reduce {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1079,15 +1463,25 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
-    kernels = check_kernels(dev, gen)
+    kernels, counted = check_kernels(dev, gen)
+    wide, wide_counted = check_wide_kernels(dev, gen)
+    count_inside(counted + wide_counted)
+    del counted, wide_counted
     launches, table, genome, ref_keys, ref_counts = main_path(dev)
     launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
     del table, genome, ref_keys, ref_counts
     for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
+    for entry, n, n95 in zip(wide, wide_path(dev, 41, 48, smi),
+                             wide_path(dev, 95, 8, smi), strict=True):
+        entry["launches"], entry["launches_k95"] = n, n95
+    profile_wide(41)
     sect_launches = cli_run(dev)
     for entry, n in zip(kernels, sect_launches, strict=True):
         entry["launches_sect"] = n
+    for entry, n in zip(wide, wide_cli_run(dev), strict=True):
+        entry["launches_sect"] = n
+    kernels += wide
 
     b_launches, group_chunks = bucketed_path(dev)
     k5, k6 = check_bucketed_kernels(dev, gen, group_chunks)

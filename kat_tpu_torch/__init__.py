@@ -5,17 +5,20 @@ counting and lookup hot paths in CUDA kernels written for NVIDIA Hopper
 (sm_90a).  The
 layout mirrors `kat_tpu`, module for module:
 
-    kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting,
-                            bulk lookups and window profiles
+    kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting
+                            (narrow and wide keys), bulk lookups and window
+                            profiles
     kat_tpu_torch.ops    -- sort / merge / reduce-by-key / compaction kernels
-                            + plain versions, and the sort-merge join
+                            (one int64 key or W words) + plain versions, and
+                            the sort-merge join
     kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme
                             headers, the .jf codec
     kat_tpu_torch.tools  -- the `kat hist` and `kat sect` workloads and input
                             handling
     kat_tpu_torch.cli    -- `kat`-compatible command line (hist, sect)
 
-Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel.
+Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel;
+wide keys (31 < k <= 255) are ceil(k / 31) int64 words of 31 bases.
 Nothing here imports JAX or `kat_tpu`.
 """
 

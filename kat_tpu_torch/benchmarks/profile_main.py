@@ -1,6 +1,6 @@
 """Where the device time of the counting path goes on the card.
 
-    python -m kat_tpu_torch.benchmarks.profile_main
+    python -m kat_tpu_torch.benchmarks.profile_main [--k K]
 
 Counts chip_smoke.py's main-path workload (benchmarks/workloads.py: k=27
 canonical, 48 batches of 4096 reads x 1024 bases from a 2^23-base random
@@ -9,7 +9,8 @@ from 2^20 slots) once to warm up and once under torch.profiler, and prints
 the wall time, the device time in all, the share of each hand-written
 kernel (a memset of a kernel's scratch counts with the kernel that runs
 just after it: K1's histogram, K3's tile pass), and the 15 costliest
-kernels.
+kernels.  With --k above 31 the same reads go through the wide counter
+(k = 41: 193,462,272 windows, W = 2 words a key) and its W-word kernels.
 Needs an NVIDIA card; the first line names it with its power limit.
 """
 
@@ -27,9 +28,15 @@ KERNEL_GROUPS = (("K1 sort", "(anonymous namespace)::radix_"),
                  ("K3 reduce", "(anonymous namespace)::reduce_"))
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
     from ..core import stats
     from . import workloads
+
+    parser = argparse.ArgumentParser(prog="profile_main")
+    parser.add_argument("--k", type=int, default=workloads.MAIN_K)
+    k = parser.parse_args(argv).k
 
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -44,7 +51,8 @@ def main() -> int:
 
     def run():
         nonlocal table
-        sc = workloads.main_path_counter(dev)
+        sc = (workloads.wide_counter(k, dev) if k > 31
+              else workloads.main_path_counter(dev))
         for b in batches:
             sc.add_codes(b)
         table = sc.finish()
@@ -58,8 +66,9 @@ def main() -> int:
     events = workloads.device_events(run)
     device_us = sum(us for _name, us in events)
     n_windows = (workloads.MAIN_BATCHES * workloads.MAIN_ROWS
-                 * (workloads.MAIN_LENGTH - workloads.MAIN_K + 1))
-    print(f"main path, warm: {n_windows} windows, {table.n_unique} distinct, "
+                 * (workloads.MAIN_LENGTH - k + 1))
+    print(f"main path k={k}, warm: {n_windows} windows, {table.n_unique} "
+          "distinct, "
           f"wall {wall * 1e3:.1f} ms unprofiled, device {device_us / 1e3:.1f} "
           "ms")
     names = [name.removeprefix("void ") for name, _us in events]

@@ -1,13 +1,15 @@
 """What the measurement scripts, chip_smoke.py and the card tests share:
 the card's published rates, the main path's input, the counting flush's
-shapes, the K2 and K3 inputs that strain a single pass, and a count of
-what one call runs on the card."""
+shapes (narrow and wide keys), the K2 and K3 inputs that strain a single
+pass, the W-word kernels' strain inputs, and a count of what one call runs
+on the card."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import kmers
 from ..core.kmers import SENTINEL
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -201,3 +203,106 @@ def merge_strain(name: str, tile: int, dev, gen):
     counts = torch.randint(1, 1000, (a.numel(),), dtype=torch.int32,
                            device=dev, generator=gen)
     return a, counts, b
+
+
+# the wide main path: the same reads at k = 41 (W = 2), 193,462,272 windows
+WIDE_K = 41
+# boundary k of every word count W = 2..9: the top word full (31 bases) or
+# nearly empty (one base), and k = 33 and 255
+WIDE_STRAIN_K = (33, 62, 63, 93, 94, 124, 125, 255)
+WIDE_STRAIN = ("random", "top_equal", "all_sentinel", "one_run")
+
+
+def wide_counter(k: int, dev):
+    """The counter the wide main path feeds its batches to."""
+    from ..core import wide
+
+    return wide.WideCodeStreamingCounter(
+        k, canonical=True, initial_capacity=1 << 20, flush_windows=1 << 26,
+        device=dev)
+
+
+def wide_keys(k: int, n: int, dev, gen, sent: float = 0.1,
+              top=None) -> torch.Tensor:
+    """[W, n] random wide keys of k bases (every word of its width), a
+    `sent` share of them SENTINEL; with `top` every top word is that."""
+    W, tb = kmers.words_for_k(k), 2 * kmers.top_bases(k)
+    words = [torch.full((n,), top, dtype=torch.int64, device=dev)
+             if top is not None else
+             torch.randint(0, 1 << tb, (n,), dtype=torch.int64, device=dev,
+                           generator=gen)]
+    words += [torch.randint(0, 1 << 62, (n,), dtype=torch.int64, device=dev,
+                            generator=gen) for _ in range(W - 1)]
+    keys = torch.stack(words)
+    keys[:, torch.rand(n, device=dev, generator=gen) < sent] = SENTINEL
+    return keys
+
+
+def wide_strain(name: str, k: int, n: int, dev, gen) -> torch.Tensor:
+    """[W, n] unsorted wide keys where a W-word kernel can go wrong: random
+    (10% SENTINEL), equal in the top word and different below (a pass over
+    the top word moves nothing, a compare must reach the lower words),
+    all SENTINEL, and one key (one run across every tile)."""
+    if name == "random":
+        return wide_keys(k, n, dev, gen)
+    if name == "top_equal":
+        return wide_keys(k, n, dev, gen, sent=0.05, top=1)
+    if name == "all_sentinel":
+        return wide_keys(k, n, dev, gen, sent=1.0)
+    if name == "one_run":
+        return wide_keys(k, 1, dev, gen, sent=0.0).expand(-1, n).contiguous()
+    raise KeyError(name)
+
+
+def wide_merge_inputs(keys: torch.Tensor, gen):
+    """(table keys, int32 counts, sorted fresh keys) for the W-word merge
+    from [W, n] keys: the first third's distinct keys with counts 1-999,
+    the rest sorted."""
+    from ..ops import reduce_kernel, sort_kernel
+
+    n = keys.shape[1]
+    a = sort_kernel.sort_words_plain(keys[:, :n // 3])
+    a, _c, nu = reduce_kernel.reduce_by_key_words_plain(
+        a, (a[0] != SENTINEL).to(torch.int32), a.shape[1])
+    a = a[:, :int(nu)].contiguous()
+    counts = torch.randint(1, 1000, (a.shape[1],), dtype=torch.int32,
+                           device=a.device, generator=gen)
+    return a, counts, sort_kernel.sort_words_plain(keys[:, n // 3:])
+
+
+def wide_reduce_inputs(keys: torch.Tensor, gen):
+    """(sorted keys, int32 weights) for the W-word reduce: weights 1-8,
+    0 at SENTINEL."""
+    from ..ops import sort_kernel
+
+    keys = sort_kernel.sort_words_plain(keys)
+    w = torch.randint(1, 9, (keys.shape[1],), dtype=torch.int32,
+                      device=keys.device, generator=gen)
+    return keys, torch.where(keys[0] == SENTINEL, 0, w).to(torch.int32)
+
+
+def wide_flush_shapes(k: int, dev, gen):
+    """The wide flush's shapes once the table has grown to 2^24 slots, as
+    flush_shapes gives them for one-word keys: (table keys [W, 2^24] with
+    ~2^23 distinct k-mers and SENTINEL padding, their counts, 2^26 sorted
+    fresh keys drawn from a 1.5 x 2^23 key universe with 10% SENTINEL,
+    and the 83,886,080-element merge of the two by the plain version)."""
+    from ..ops import merge_kernel, reduce_kernel, sort_kernel
+
+    cap, n_fresh = 1 << 24, 1 << 26
+    universe = wide_keys(k, 3 << 22, dev, gen, sent=0.0)
+    real = sort_kernel.sort_words_plain(universe[:, :1 << 23])
+    t_keys, _c, nu = reduce_kernel.reduce_by_key_words_plain(
+        real, torch.ones(real.shape[1], dtype=torch.int32, device=dev), cap)
+    del real
+    nu = int(nu)
+    t_counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+    t_counts[:nu] = torch.randint(1, 100, (nu,), dtype=torch.int32,
+                                  device=dev, generator=gen)
+    fresh = universe[:, torch.randint(0, universe.shape[1], (n_fresh,),
+                                      device=dev, generator=gen)]
+    fresh[:, torch.rand(n_fresh, device=dev, generator=gen) < 0.1] = \
+        SENTINEL
+    fresh = sort_kernel.sort_words_plain(fresh)
+    mk, mw = merge_kernel.merge_sorted_words_plain(t_keys, t_counts, fresh)
+    return t_keys, t_counts, fresh, mk, mw

@@ -88,6 +88,22 @@ class TableFullError(RuntimeError):
     pass
 
 
+# K1 and K3 keep counts in 30 bits of their status words, so a flush's
+# fresh windows and its merged stream (the table's real entries and the
+# fresh windows) must each stay under 2^30: with 2^26 windows a flush the
+# table is capped near 2^30 - 2^26 distinct keys.
+MAX_STREAM = 1 << 30
+
+
+def check_stream(n: int, what: str) -> None:
+    """Raise TableFullError for a stream K1 or K3 would refuse, before any
+    launch."""
+    if n >= MAX_STREAM:
+        raise TableFullError(
+            f"{what} holds {n} keys: the sort and reduce kernels take fewer "
+            f"than 2^30, which caps a table near 2^30 - 2^26 distinct keys")
+
+
 class StreamingCounter:
     """Streaming accumulator over extracted int64 keys, with capacity
     doubling.
@@ -154,6 +170,9 @@ class StreamingCounter:
                  else self._fresh[0])
         self._fresh = []
         self._fresh_n = 0
+        # before any launch; a growth replay merges the same stream
+        check_stream(fresh.numel(), "the fresh windows")
+        check_stream(self.table.n_unique + fresh.numel(), "the merged stream")
         fresh = sort_keys(fresh, self.key_bits)
         prev = self.table
         table = self._merge_reduce(prev, fresh, self.capacity)

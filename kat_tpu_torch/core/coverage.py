@@ -39,11 +39,12 @@ def window_counts(table, codes: torch.Tensor, k: int, canonical: bool,
              valid [.., W] bool).
     Queries are canonicalized when the hash was counted canonically
     (JellyfishHelper::getCount semantics, jellyfish_helper.cc:189-194); GC
-    is that of the forward k-mer.  `method` as in tables.lookup.
+    is that of the forward k-mer.  `method` as in tables.lookup; a wide
+    table (k > 31) takes the binary search.
     """
     keys, valid = tables.extract(codes, k, canonical=False)
     q = tables.canonicalize(keys, k) if canonical else keys
     counts = tables.lookup(table, q, method=method, key_bits=2 * k + 1)
     counts = torch.where(valid, counts, 0)
-    gc = torch.where(valid, tables.gc_count(keys).to(torch.int32), -1)
+    gc = torch.where(valid, tables.gc_count(keys, k).to(torch.int32), -1)
     return counts, gc, valid

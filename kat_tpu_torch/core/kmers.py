@@ -1,9 +1,9 @@
-"""2-bit k-mer encoding and vectorized sliding-window extraction (k <= 31).
+"""2-bit k-mer encoding and vectorized sliding-window extraction.
 
-Port of kat_tpu/core/kmers.py, narrow half.  A k-mer is ONE int64 value
-instead of kat_tpu's (hi, lo) uint32 pair: at k <= 31 it fits in the low 62
-bits, and this torch rejects `>>`, `<`, `bincount`, `searchsorted` and
-`scatter_add_` on unsigned tensors.
+Port of kat_tpu/core/kmers.py.  A narrow k-mer (k <= 31) is ONE int64 value
+instead of kat_tpu's (hi, lo) uint32 pair: it fits in the low 62 bits, and
+this torch rejects `>>`, `<`, `bincount`, `searchsorted` and `scatter_add_`
+on unsigned tensors.
 
 Packing convention (identical to jellyfish so .jf files round-trip):
   base codes A=0, C=1, G=2, T=3; the FIRST character of the k-mer occupies
@@ -15,6 +15,15 @@ Invalid windows (containing a non-ACGT base, or padding) get the sentinel
 key INT64_MAX, which sorts after every real k-mer.  kat_tpu's all-ones
 (hi, lo) sentinel would be -1 in int64 and sort FIRST; `to_planes` /
 `from_planes` convert between the two conventions.
+
+Wide keys (31 < k <= 255) are W = words_for_k(k) = ceil(k / 31) int64
+words of 31 bases (62 bits) each, most significant word first, held as one
+[W, ...] tensor.  The key is cut from the bottom, so the top word holds the
+first top_bases(k) bases.  SENTINEL is INT64_MAX in every word; a real word
+is < 2^62, so signed lexicographic order over the words is the numeric
+order of the 2k-bit key, as kat_tpu's big-first uint32 words give it
+(kat_tpu uses words_for_k of its own: `from_ref_words` / `to_ref_words`
+convert, through each key's integer value).
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import torch
 SENTINEL = (1 << 63) - 1
 
 MAX_K = 31  # the packed int64 path
+MAX_K_WIDE = 255  # wide keys: words_for_k(k) int64 words
+WORD_BASES = 31  # bases in one int64 word of a wide key
+_MASK62 = (1 << 62) - 1
 
 # 256-entry ASCII -> 2-bit code table; 4 = invalid (mirrors mer_dna::code
 # returning -1 for non-ACGT, mer_dna.hpp:382).
@@ -54,6 +66,27 @@ def key_mask(k: int) -> int:
     return (1 << (2 * k)) - 1
 
 
+def _fwd_rc(codes: torch.Tensor, k: int):
+    """(forward keys, reverse-complement keys, bad) of every k-window of
+    [..., L] codes, k <= 31; the keys of a bad window are garbage."""
+    L = codes.shape[-1]
+    W = L - k + 1
+    c = codes.to(torch.int64)
+    shape = codes.shape[:-1] + (W,)
+    fwd = torch.zeros(shape, dtype=torch.int64, device=codes.device)
+    rc = torch.zeros_like(fwd)
+    bad = torch.zeros(shape, dtype=torch.bool, device=codes.device)
+    # k strided views; the accumulators are updated in place so a batch
+    # holds three [.., W] buffers however large k is.
+    for j in range(k):
+        cj = c[..., j:j + W]
+        bad |= cj >= 4
+        cc = cj & 3
+        fwd |= cc << (2 * (k - 1 - j))
+        rc |= (cc ^ 3) << (2 * j)
+    return fwd, rc, bad
+
+
 def extract_kmers(codes: torch.Tensor, k: int, canonical: bool = True):
     """Extract all k-length windows from a batch of encoded sequences.
 
@@ -70,23 +103,9 @@ def extract_kmers(codes: torch.Tensor, k: int, canonical: bool = True):
     """
     spec_valid(k)
     L = codes.shape[-1]
-    W = L - k + 1
-    if W <= 0:
+    if L - k + 1 <= 0:
         raise ValueError(f"sequence length {L} shorter than k={k}")
-
-    c = codes.to(torch.int64)
-    shape = codes.shape[:-1] + (W,)
-    fwd = torch.zeros(shape, dtype=torch.int64, device=codes.device)
-    rc = torch.zeros_like(fwd)
-    bad = torch.zeros(shape, dtype=torch.bool, device=codes.device)
-    # k strided views; the accumulators are updated in place so a batch
-    # holds three [.., W] buffers however large k is.
-    for j in range(k):
-        cj = c[..., j:j + W]
-        bad |= cj >= 4
-        cc = cj & 3
-        fwd |= cc << (2 * (k - 1 - j))
-        rc |= (cc ^ 3) << (2 * j)
+    fwd, rc, bad = _fwd_rc(codes, k)
     keys = torch.minimum(fwd, rc) if canonical else fwd
     keys.masked_fill_(bad, SENTINEL)  # in place: keys is a fresh buffer
     return keys, ~bad
@@ -130,6 +149,108 @@ def gc_count(keys: torch.Tensor) -> torch.Tensor:
     y = y + (y >> 16)
     y = (y + (y >> 32)) & 0x7F
     return torch.where(keys == SENTINEL, torch.zeros_like(y), y)
+
+
+# ---------------------------------------------------------------------------
+# Wide keys: 31 < k <= 255, [W, ...] int64 words of 31 bases, most
+# significant first (mer_dna's arrays of 64-bit words, mer_dna.hpp).
+# ---------------------------------------------------------------------------
+
+def words_for_k(k: int) -> int:
+    """Int64 words of a key: ceil(k / 31), so 1 up to k = 31."""
+    if not 1 <= k <= MAX_K_WIDE:
+        raise ValueError(f"k={k} out of supported range [1, {MAX_K_WIDE}]")
+    return -(-k // WORD_BASES)
+
+
+def top_bases(k: int) -> int:
+    """Bases in the top word of a key: k - 31 (W - 1), in [1, 31]."""
+    return k - WORD_BASES * (words_for_k(k) - 1)
+
+
+def wide_spec_valid(k: int) -> None:
+    if not MAX_K < k <= MAX_K_WIDE:
+        raise ValueError(f"wide keys need {MAX_K} < k <= {MAX_K_WIDE}, "
+                         f"got k={k}")
+
+
+def extract_kmers_wide(codes: torch.Tensor, k: int, canonical: bool = True):
+    """extract_kmers for 31 < k <= 255.
+
+    Returns (words [W, ..., L-k+1] int64, valid [..., L-k+1] bool), W =
+    words_for_k(k); invalid windows carry SENTINEL in every word.
+
+    Every word of a window is a narrow key of the same read, so two narrow
+    extractions and slices replace k rounds over W words (kat_tpu's
+    extract_kmers_wide, kmers.py:192-233): forward word i >= 1 is the
+    31-mer at s + top + 31 (i - 1) and the top word the top-mer at s
+    (top = top_bases(k)); the reverse complement's word i >= 1 is the narrow
+    reverse complement of the 31-mer at s + 31 (W - 1 - i), its top word
+    that of the top-mer at s + 31 (W - 1)."""
+    wide_spec_valid(k)
+    L = codes.shape[-1]
+    n = L - k + 1
+    if n <= 0:
+        raise ValueError(f"sequence length {L} shorter than k={k}")
+    W = words_for_k(k)
+    top = top_bases(k)
+    f31, r31, bad31 = _fwd_rc(codes, WORD_BASES)
+    ft, rt, badt = (f31, r31, bad31) if top == WORD_BASES else \
+        _fwd_rc(codes, top)
+
+    def win(x, off):
+        return x[..., off:off + n]
+
+    fwd = [win(ft, 0)] + [win(f31, top + WORD_BASES * (i - 1))
+                          for i in range(1, W)]
+    rc = [win(rt, WORD_BASES * (W - 1))] + [
+        win(r31, WORD_BASES * (W - 1 - i)) for i in range(1, W)]
+    bad = win(badt, 0).clone()
+    for i in range(1, W):
+        bad |= win(bad31, top + WORD_BASES * (i - 1))
+    words = torch.stack(_lex_min(rc, fwd) if canonical else fwd)
+    words.masked_fill_(bad, SENTINEL)
+    return words, ~bad
+
+
+def _lex_min(a, b):
+    """Word lists of the element-wise lexicographic minimum of a and b."""
+    less = torch.zeros_like(a[0], dtype=torch.bool)
+    eq = torch.ones_like(less)
+    for x, y in zip(a, b):
+        less |= eq & (x < y)
+        eq &= x == y
+    return [torch.where(less, x, y) for x, y in zip(a, b)]
+
+
+def reverse_complement_words(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of [W, ...] wide keys (mer_dna.hpp:409).
+
+    Read backwards, the key is the narrow reverse complements of its words
+    from the bottom up (31 bases each, the top word's top_bases last); the
+    result re-cuts that sequence into a top word and 31-base words."""
+    W = words.shape[0]
+    top = top_bases(k)
+    d = WORD_BASES - top  # bases each output word takes from its upper piece
+    r = [reverse_complement(words[W - 1 - j], WORD_BASES)
+         for j in range(W - 1)] + [reverse_complement(words[0], top)]
+    out = [r[0] >> (2 * d)]
+    for j in range(1, W):
+        low = r[j] if j == W - 1 else r[j] >> (2 * d)
+        out.append(((r[j - 1] & ((1 << (2 * d)) - 1)) << (2 * top)) | low)
+    return torch.stack(out)
+
+
+def canonicalize_words(words: torch.Tensor, k: int) -> torch.Tensor:
+    """min(key, revcomp(key)) over [W, ...] wide keys, SENTINEL kept."""
+    c = torch.stack(_lex_min(list(reverse_complement_words(words, k)),
+                             list(words)))
+    return torch.where(words[0] == SENTINEL, words, c)
+
+
+def gc_count_words(words: torch.Tensor) -> torch.Tensor:
+    """G/C bases of [W, ...] wide keys (0 for SENTINEL), int64."""
+    return sum(gc_count(w) for w in words)
 
 
 # ---------------------------------------------------------------------------
@@ -205,3 +326,128 @@ def to_planes(keys) -> tuple[np.ndarray, np.ndarray]:
     u[np.asarray(keys) == SENTINEL] = np.uint64(0xFFFFFFFFFFFFFFFF)
     return ((u >> np.uint64(32)).astype(np.uint32),
             (u & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+# wide keys on the host: python ints, [W, n] int64 words, 64-bit limbs
+
+def words_to_int(row) -> int:
+    """One key's W words (most significant first) as its integer value."""
+    v = 0
+    for w in row:
+        v = (v << 62) | int(w)
+    return v
+
+
+def ints_to_words(keys, k: int) -> np.ndarray:
+    """Python-int keys (< 4^k) -> [W, n] int64 words."""
+    keys = [int(v) for v in keys]
+    W = words_for_k(k)
+    if any(v < 0 or v >> (2 * k) for v in keys):
+        raise ValueError(f"a key does not fit {2 * k} bits")
+    return np.stack([np.fromiter(((v >> (62 * (W - 1 - i))) & _MASK62
+                                  for v in keys), np.int64, len(keys))
+                     for i in range(W)]) if keys else \
+        np.zeros((W, 0), np.int64)
+
+
+def _words_to_limbs(words: np.ndarray, n_limbs: int) -> np.ndarray:
+    """[W, n] words -> [n, n_limbs] uint64 limbs of the key, least
+    significant limb first."""
+    W, n = words.shape
+    u = np.asarray(words).astype(np.uint64)
+    limbs = np.zeros((n, n_limbs), np.uint64)
+    for i in range(W):
+        b = W - 1 - i  # the word's place from the bottom: bits 62b..62b+61
+        for j in range(n_limbs):
+            off = 62 * b - 64 * j
+            if 0 <= off < 64:
+                limbs[:, j] |= u[i] << np.uint64(off)
+            elif -62 < off < 0:
+                limbs[:, j] |= u[i] >> np.uint64(-off)
+    return limbs
+
+
+def _limbs_to_words(limbs: np.ndarray, W: int) -> np.ndarray:
+    """[n, L] uint64 limbs (least significant first) -> [W, n] int64 words
+    of the low 62 W bits."""
+    n, L = limbs.shape
+    out = np.zeros((W, n), np.int64)
+    for i in range(W):
+        j, s = divmod(62 * (W - 1 - i), 64)
+        v = limbs[:, j] >> np.uint64(s) if j < L else np.zeros(n, np.uint64)
+        if s > 2 and j + 1 < L:
+            v |= limbs[:, j + 1] << np.uint64(64 - s)
+        out[i] = (v & np.uint64(_MASK62)).astype(np.int64)
+    return out
+
+
+def words_to_bytes(words: np.ndarray, n_bytes: int) -> np.ndarray:
+    """[W, n] words -> [n, n_bytes] uint8: each key little-endian, as the
+    .jf records hold it."""
+    n_limbs = -(-n_bytes // 8)
+    limbs = _words_to_limbs(words, n_limbs).astype("<u8")
+    return limbs.view(np.uint8).reshape(-1, 8 * n_limbs)[:, :n_bytes]
+
+
+def bytes_to_words(b: np.ndarray, k: int) -> np.ndarray:
+    """[n, n_bytes] uint8 little-endian keys -> [W, n] int64 words."""
+    n, n_bytes = b.shape
+    n_limbs = -(-n_bytes // 8)
+    buf = np.zeros((n, 8 * n_limbs), np.uint8)
+    buf[:, :n_bytes] = b
+    return _limbs_to_words(buf.view("<u8").astype(np.uint64),
+                           words_for_k(k))
+
+
+def words_to_ints(words: np.ndarray) -> list[int]:
+    """[W, n] words -> python-int keys."""
+    W, n = words.shape
+    n_bytes = 8 * -(-62 * W // 64)
+    raw = words_to_bytes(words, n_bytes).tobytes()
+    return [int.from_bytes(raw[i * n_bytes:(i + 1) * n_bytes], "little")
+            for i in range(n)]
+
+
+def ref_words_for_k(k: int) -> int:
+    """kat_tpu's uint32 word count of a key (kat_tpu/core/kmers.py:171):
+    3 for k <= 47, 2 (k // 32 + 1) beyond."""
+    if not MAX_K < k <= MAX_K_WIDE:
+        raise ValueError(f"k={k} is not a wide k")
+    return 3 if k <= 47 else 2 * (k // 32 + 1)
+
+
+def from_ref_words(ref, k: int) -> np.ndarray:
+    """kat_tpu's big-first uint32 words ([n, nw] or a sequence of nw [n]
+    planes) -> [W, n] int64 words; its all-ones sentinel becomes SENTINEL
+    in every word."""
+    ref = np.stack([np.asarray(p, np.uint32) for p in ref]) \
+        if isinstance(ref, (tuple, list)) else np.asarray(ref, np.uint32).T
+    nw, n = ref.shape
+    planes = ref.astype(np.uint64)
+    if nw % 2:
+        planes = np.concatenate([np.zeros((1, n), np.uint64), planes])
+    pairs = [(planes[i] << np.uint64(32)) | planes[i + 1]
+             for i in range(0, len(planes), 2)]
+    limbs = np.stack(pairs[::-1], axis=1)  # least significant first
+    out = _limbs_to_words(limbs, words_for_k(k))
+    out[:, (ref == np.uint32(0xFFFFFFFF)).all(0)] = SENTINEL
+    return out
+
+
+def to_ref_words(words, k: int) -> np.ndarray:
+    """[W, n] int64 words (tensor or array) -> kat_tpu's [n, nw] big-first
+    uint32 words, SENTINEL mapped to all ones."""
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    words = np.asarray(words, np.int64)
+    nw = ref_words_for_k(k)
+    n_limbs = -(-nw // 2)
+    limbs = _words_to_limbs(words, n_limbs)
+    halves = np.empty((words.shape[1], 2 * n_limbs), np.uint32)
+    for j in range(n_limbs):  # big-first: the top limb's high half leads
+        halves[:, 2 * (n_limbs - 1 - j)] = (limbs[:, j] >> np.uint64(32))
+        halves[:, 2 * (n_limbs - 1 - j) + 1] = limbs[:, j] & np.uint64(
+            0xFFFFFFFF)
+    out = halves[:, 2 * n_limbs - nw:]
+    out[words[0] == SENTINEL] = np.uint32(0xFFFFFFFF)
+    return np.ascontiguousarray(out)

@@ -17,9 +17,11 @@ def hist_from_counts(counts: torch.Tensor, base: int, ceil: int, inc: int,
     """Occurrence histogram with KAT's bucket rules (histogram.cc:188-196):
     val < base -> bucket 0; val > ceil -> last bucket; else (val-base)/inc.
     Padding entries (count 0 in a table) are excluded — jellyfish hashes
-    never store zero counts.  Returns int64 [nb_buckets] on counts' device.
+    never store zero counts.  int32 counts are read as unsigned, as
+    kat_tpu's uint32 counts: a count of 2^31 or more lands in the last
+    bucket.  Returns int64 [nb_buckets] on counts' device.
     """
-    c = counts.to(torch.int64)
+    c = counts.to(torch.int64) & 0xFFFFFFFF
     bucket = torch.where(c < base, 0,
                          torch.where(c > ceil, nb_buckets - 1,
                                      (c - base) // inc))

@@ -2,9 +2,11 @@
 (with the choice between the sort-merge join and the binary search), table
 compaction, and the key helpers of the window profiles.
 
-Port of kat_tpu/core/tables.py, narrow half: a table is a CountTable of
-int64 keys (k <= 31).  kat_tpu's wide tables (k 32-255) are not ported yet
-(ROADMAP.md §1 item 12); what would take one raises.
+Port of kat_tpu/core/tables.py: a table is a narrow CountTable of int64
+keys (k <= 31) or a WideTable of [W, capacity] int64 words (31 < k <= 255,
+core/wide.py).  Wide lookups take the binary search (wide.lookup_wide):
+on the card the search beat the join in every cell measured, so the join's
+multi-word forms are not ported.
 """
 
 from __future__ import annotations
@@ -12,16 +14,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import counting, kmers
+from . import counting, kmers, wide
 
 # The join's streaming passes cost O(capacity + m); below this many queries
 # the per-query binary search is the cheaper route whatever the table.
 JOIN_MIN_QUERIES = 1 << 16
 
 
+def is_wide(table) -> bool:
+    return isinstance(table, wide.WideTable)
+
+
 def real_mask(table) -> torch.Tensor:
     """True for slots holding a real key (non-sentinel)."""
-    return table.keys != kmers.SENTINEL
+    keys = table.keys[0] if is_wide(table) else table.keys
+    return keys != kmers.SENTINEL
 
 
 def _join_policy(m: int, cap: int, device: torch.device) -> bool:
@@ -35,7 +42,8 @@ def _join_policy(m: int, cap: int, device: torch.device) -> bool:
 
 def lookup(table, qkeys: torch.Tensor, assume_sorted: bool = False,
            method: str | None = None, key_bits: int = 63) -> torch.Tensor:
-    """Counts (int32, 0 where absent) for int64 query keys of any shape.
+    """Counts (int32, 0 where absent) for int64 query keys of any shape
+    ([W, ...] words for a wide table, which always takes the search).
 
     method: "join" (ops/join.counts_join), "search" (counting.lookup), or
     None to choose by `_join_policy`.  Both give identical counts.
@@ -47,6 +55,10 @@ def lookup(table, qkeys: torch.Tensor, assume_sorted: bool = False,
     if method not in (None, "join", "search"):
         raise ValueError(f"method={method!r}: expected None, 'join' or "
                          "'search'")
+    if is_wide(table):
+        if method == "join":
+            raise ValueError("wide tables take the search, not the join")
+        return wide.lookup_wide(table, qkeys)
     if method is None:
         method = "join" if _join_policy(qkeys.numel(), table.capacity,
                                         table.keys.device) else "search"
@@ -85,30 +97,40 @@ def compact(table, min_capacity: int = 1 << 17):
     tgt = max(min_capacity, 1 << max(0, int(np.ceil(np.log2(max(n, 1))))))
     if tgt >= table.capacity:
         return table
+    if is_wide(table):
+        return wide.WideTable(table.keys[:, :tgt].contiguous(),
+                              table.counts[:tgt], n)
     return counting.CountTable(table.keys[:tgt], table.counts[:tgt], n)
 
 
 def canonicalize(qkeys: torch.Tensor, k: int) -> torch.Tensor:
-    """min(key, revcomp) per key (sentinel-preserving)."""
+    """min(key, revcomp) per key (sentinel-preserving); [W, ...] words for
+    k > 31."""
+    if k > kmers.MAX_K:
+        return kmers.canonicalize_words(qkeys, k)
     return kmers.canonicalize(qkeys, k)
 
 
-def gc_count(qkeys: torch.Tensor) -> torch.Tensor:
+def gc_count(qkeys: torch.Tensor, k: int) -> torch.Tensor:
+    """G/C bases per key (0 for SENTINEL); [W, ...] words for k > 31."""
+    if k > kmers.MAX_K:
+        return kmers.gc_count_words(qkeys)
     return kmers.gc_count(qkeys)
 
 
 def extract(codes: torch.Tensor, k: int, canonical: bool):
-    """(keys, valid) for any supported k."""
+    """(keys, valid) for any supported k: int64 keys for k <= 31, [W, ...]
+    words beyond."""
     if k > kmers.MAX_K:
-        raise NotImplementedError(
-            f"k={k} > {kmers.MAX_K} (wide keys) not ported yet: "
-            "ROADMAP.md §1 item 12")
+        return kmers.extract_kmers_wide(codes, k, canonical)
     return kmers.extract_kmers(codes, k, canonical)
 
 
 def gc_of_keys(table) -> torch.Tensor:
     """GC count per table slot (0 at sentinel slots)."""
-    return gc_count(table.keys)
+    if is_wide(table):
+        return kmers.gc_count_words(table.keys)
+    return kmers.gc_count(table.keys)
 
 
 def where_real(table, values: torch.Tensor, fill=0) -> torch.Tensor:

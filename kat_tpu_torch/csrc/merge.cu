@@ -229,6 +229,180 @@ int launch_merge(const int64_t* a, PlanesIn ap, int64_t na, const int64_t* b,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Wide keys: W int64 words a key, plane q of a stream at ptr + q * stride.
+//
+// Replaces the same TPU merge with W key planes and a count plane: the
+// table merge of the wide flush (kat_tpu/core/wide.py:228).  The same two
+// launches as the one-word merge, the compares lexicographic over the
+// words (most significant first, ties take a).  What bounds it: device
+// memory, 8W + 4 bytes in and out per element.  A block stages the W planes
+// of both slices (one plane's 16-byte loads in flight at a time) and a's
+// counts; each thread finds its start on the merge path and merges its
+// ITEMS outputs, recording each output's source (a or b, index) in shared
+// memory; then each plane goes out from the staged slices in output order,
+// 8-byte stores (a plane of [W][n] outputs is 8-byte aligned), consecutive
+// threads on consecutive outputs.  The tile shrinks with W so that the
+// staged planes stay under ~82 KB (two blocks an SM): 3072 outputs at W = 2,
+// 2048 at W <= 4, 1024 beyond.
+
+constexpr int MW_THREADS = 256;
+
+template <int W>
+struct MergeWords {
+  static constexpr int ITEMS = W <= 2 ? 12 : W <= 4 ? 8 : 4;
+  static constexpr int TILE = MW_THREADS * ITEMS;
+};
+
+// a[ia] <= b[ib], lexicographically over W planes in device memory
+template <int W>
+__device__ __forceinline__ bool words_le(const int64_t* a, int64_t sa,
+                                         int64_t ia, const int64_t* b,
+                                         int64_t sb, int64_t ib) {
+#pragma unroll
+  for (int q = 0; q < W; q++) {
+    const int64_t x = a[q * sa + ia], y = b[q * sb + ib];
+    if (x != y) return x < y;
+  }
+  return true;
+}
+
+template <int W>
+__global__ void __launch_bounds__(256)
+merge_words_partition(const int64_t* __restrict__ a, int64_t sa, int64_t na,
+                      const int64_t* __restrict__ b, int64_t sb, int64_t nb,
+                      int64_t tiles, int64_t* __restrict__ splits) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t > tiles) return;
+  const int64_t diag = min(t * MergeWords<W>::TILE, na + nb);
+  int64_t lo = diag > nb ? diag - nb : 0;
+  int64_t hi = diag < na ? diag : na;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (words_le<W>(a, sa, mid, b, sb, diag - 1 - mid)) lo = mid + 1;
+    else hi = mid;
+  }
+  splits[t] = lo;
+}
+
+template <int W>
+__global__ void __launch_bounds__(MW_THREADS)
+merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
+                  const int32_t* __restrict__ aw, int64_t na,
+                  const int64_t* __restrict__ b, int64_t sb, int64_t nb,
+                  const int64_t* __restrict__ splits,
+                  int64_t* __restrict__ out, int64_t so,
+                  int32_t* __restrict__ out_w) {
+  constexpr int ITEMS = MergeWords<W>::ITEMS;
+  constexpr int TILE = MergeWords<W>::TILE;
+  constexpr int SLOTS = TILE + 4;  // a plane's staged slices, both sides
+  static_assert(TILE <= 1 << 16, "a source index must fit 16 bits");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);          // [W][SLOTS]
+  int32_t* sw = reinterpret_cast<int32_t*>(sk + W * SLOTS);  // [TILE + 8]
+  uint32_t* ssrc = reinterpret_cast<uint32_t*>(sw + TILE + 8);  // [TILE]
+  const int tid = threadIdx.x;
+  const int64_t d0 = (int64_t)blockIdx.x * TILE;
+  const int64_t i0 = splits[blockIdx.x];
+  const int len = (int)(min(d0 + TILE, na + nb) - d0);
+  const int la = (int)(splits[blockIdx.x + 1] - i0);
+  const int lb = len - la;
+  const int64_t j0 = d0 - i0;
+
+  // 1. stage every plane of a[i0, i0 + la) and b[j0, j0 + lb), and a's
+  //    counts; plane q's a element i sits at sk[q * SLOTS + fa[q] + i]
+  int fa[W], fb[W];
+#pragma unroll
+  for (int q = 0; q < W; q++) {
+    kat::Chunks<int64_t, MW_THREADS, ITEMS / 2 + 1> ck;
+    ck.load(a + q * sa + i0, la, b + q * sb + j0, lb);
+    ck.store(sk + q * SLOTS);
+    fa[q] = q * SLOTS + ck.first(0);
+    fb[q] = q * SLOTS + ck.first(1);
+  }
+  int fw;
+  {
+    kat::Chunks<int32_t, MW_THREADS, ITEMS / 4 + 1> cw;
+    cw.load(aw + i0, la);
+    cw.store(sw);
+    fw = cw.first(0);
+  }
+  __syncthreads();
+  auto a_le_b = [&](int i, int j) {
+#pragma unroll
+    for (int q = 0; q < W; q++) {
+      const int64_t x = sk[fa[q] + i], y = sk[fb[q] + j];
+      if (x != y) return x < y;
+    }
+    return true;
+  };
+
+  // 2. this thread's outputs start at local diagonal dt; merge them
+  const int dt = min(tid * ITEMS, len);
+  int lo = max(0, dt - lb);
+  int hi = min(dt, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a_le_b(mid, dt - 1 - mid)) lo = mid + 1;
+    else hi = mid;
+  }
+  int ia = lo, ib = dt - lo;
+#pragma unroll
+  for (int e = 0; e < ITEMS; e++) {
+    if (dt + e >= len) break;
+    const bool take_a = ia < la && (ib >= lb || a_le_b(ia, ib));
+    ssrc[dt + e] = take_a ? (uint32_t)ia++ : FROM_B | (uint32_t)ib++;
+  }
+  __syncthreads();
+
+  // 3. every plane, then the weights, out in output order
+#pragma unroll
+  for (int q = 0; q < W; q++) {
+    for (int j = tid; j < len; j += MW_THREADS) {
+      const uint32_t s = ssrc[j];
+      const int i = (int)(s & (FROM_B - 1));
+      out[q * so + d0 + j] = sk[(s & FROM_B ? fb[q] : fa[q]) + i];
+    }
+  }
+  for (int j = tid; j < len; j += MW_THREADS) {
+    const uint32_t s = ssrc[j];
+    const int i = (int)(s & (FROM_B - 1));
+    out_w[d0 + j] = s & FROM_B ? sk[fb[0] + i] != KAT_SENTINEL : sw[fw + i];
+  }
+}
+
+template <int W>
+int launch_merge_words(const int64_t* a, int64_t sa, const int32_t* aw,
+                       int64_t na, const int64_t* b, int64_t sb, int64_t nb,
+                       int64_t* out, int64_t so, int32_t* out_w,
+                       int64_t* splits, cudaStream_t stream) {
+  const int64_t n = na + nb;
+  if (n <= 0) return 0;
+  constexpr int TILE = MergeWords<W>::TILE;
+  constexpr int SMEM = W * (TILE + 4) * 8 + (TILE + 8) * 4 + TILE * 4;
+  static int sms_of[kat::MAX_DEVICES] = {};
+  int sms;
+  const cudaError_t err =
+      kat::prepare(merge_words_tiles<W>, SMEM, sms_of, &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = (n + TILE - 1) / TILE;
+  merge_words_partition<W><<<(unsigned)((tiles + 256) / 256), 256, 0,
+                             stream>>>(a, sa, na, b, sb, nb, tiles, splits);
+  KAT_CHECK_LAUNCH();
+  merge_words_tiles<W><<<(unsigned)tiles, MW_THREADS, SMEM, stream>>>(
+      a, sa, aw, na, b, sb, nb, splits, out, so, out_w);
+  KAT_CHECK_LAUNCH();
+  return 0;
+}
+
+int words_tile(int words) {
+  switch (words) {
+    case 2: return MergeWords<2>::TILE;
+    case 3: case 4: return MergeWords<4>::TILE;
+    default: return MergeWords<9>::TILE;
+  }
+}
+
 }  // namespace
 
 // Outputs a thread block of the merge takes.
@@ -277,4 +451,43 @@ extern "C" int kat_merge_sorted_payload(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Outputs a thread block of kat_merge_sorted_words takes for `words` words.
+extern "C" int kat_merge_sorted_words_tile(int words) {
+  return words_tile(words);
+}
+
+// int64 scratch words a W-word merge of n outputs needs: the tile splits.
+extern "C" int64_t kat_merge_sorted_words_scratch(int64_t n, int words) {
+  return (n + words_tile(words) - 1) / words_tile(words) + 1;
+}
+
+// out[:, 0:na+nb) = stable merge of (a, aw) with (b, b != SENTINEL) over
+// `words` (2-9) key planes: plane q of a at a + q * sa, of b at b + q * sb,
+// of out at out + q * so; ties take a.
+extern "C" int kat_merge_sorted_words(const int64_t* a, int64_t sa,
+                                      const int32_t* aw, int64_t na,
+                                      const int64_t* b, int64_t sb,
+                                      int64_t nb, int words, int64_t* out,
+                                      int64_t so, int32_t* out_w,
+                                      int64_t* scratch, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+#define KAT_MERGE_WORDS(W)                                                 \
+  case W:                                                                  \
+    return launch_merge_words<W>(a, sa, aw, na, b, sb, nb, out, so, out_w, \
+                                 scratch, stream);
+  switch (words) {
+    KAT_MERGE_WORDS(2)
+    KAT_MERGE_WORDS(3)
+    KAT_MERGE_WORDS(4)
+    KAT_MERGE_WORDS(5)
+    KAT_MERGE_WORDS(6)
+    KAT_MERGE_WORDS(7)
+    KAT_MERGE_WORDS(8)
+    KAT_MERGE_WORDS(9)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KAT_MERGE_WORDS
 }

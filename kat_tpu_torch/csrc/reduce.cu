@@ -319,6 +319,203 @@ reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide keys: a sorted stream of W int64 words a key, [W][n] planes.
+//
+// Replaces the same TPU kernel with W key planes: the reduce of the wide
+// flush and of wide tables built off it (kat_tpu/core/wide.py:232, :62).
+// The one-word kernel's single pass, tile and look-back, with the key
+// planes taken one at a time so that neither shared memory nor registers
+// grow with W: each plane of the tile (and the next tile's first key) is
+// staged in the same padded buffer, and each thread ORs into one bit mask
+// where its keys differ from the next ones (a run ends where ANY word
+// differs) and notes which are SENTINEL (word 0).  Runs leave through
+// shared memory in rank order as before, as a count and the run end's
+// position in the tile; each plane of their keys is then gathered from the
+// tile, which the flag pass just read (L2), and stored in rank order.
+// What bounds it: device memory, 8W + 4 bytes a stream element in, the same
+// per output slot out.
+
+// Blocks an SM the W-word tile pass is built for.  3 (the one-word pass's
+// occupancy) holds it to 80 registers with 40 bytes spilled; 2 lets it
+// take 100 and spill nothing, and measured 10% faster at the k = 41
+// flush's shape (benchmarks/sweep_wide_kernels.py --blocks).
+#ifndef KAT_RD_WORDS_BLOCKS
+#define KAT_RD_WORDS_BLOCKS 2
+#endif
+
+template <int W>
+__global__ void __launch_bounds__(THREADS, KAT_RD_WORDS_BLOCKS)
+reduce_words_tiles(const int64_t* __restrict__ keys,
+                   const int32_t* __restrict__ w, int64_t n, int64_t tiles,
+                   int64_t* __restrict__ out_keys,
+                   int32_t* __restrict__ out_counts, int64_t out_size,
+                   uint32_t* next_tile, uint64_t* status, int64_t* n_unique) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);
+  int32_t* sw = reinterpret_cast<int32_t*>(sk + KEY_SLOTS);
+  uint16_t* spos = reinterpret_cast<uint16_t*>(smem);  // over sk, at the end
+  __shared__ TileShared sh;
+  static_assert(TILE <= 1 << 16, "a position in the tile must fit 16 bits");
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  kat::take_tile(next_tile, &sh.tile);
+  __syncthreads();
+  const int64_t tile = sh.tile;
+  const int64_t base = tile * TILE;
+  const int valid = (int)min((int64_t)TILE, n - base);
+  const int klen = (int)min((int64_t)TILE + 1, n - base);
+  const int j0 = tid * ITEMS;
+  const int64_t* mk = sk + tid * KEY_STRIDE;  // key j0 + e at mk[e]
+  const int32_t* mw = sw + tid * W_STRIDE;
+
+  // 1. the weights; then plane by plane, where each key differs from the
+  //    next, and (plane 0) which keys are SENTINEL
+  {
+    kat::Chunks<int32_t, THREADS, ITEMS / 4 + 1> cw;
+    cw.load(w + base, valid);
+    cw.store(sw, valid, WeightSlot());
+  }
+  uint32_t diff = 0, sent = 0;
+#pragma unroll 1
+  for (int q = 0; q < W; q++) {
+    if (q > 0) __syncthreads();  // every thread is done with the last plane
+    {
+      kat::Chunks<int64_t, THREADS, ITEMS / 2 + 1> ck;
+      ck.load(keys + q * n + base, klen);
+      ck.store(sk, klen, KeySlot());
+    }
+    __syncthreads();
+    int64_t k[ITEMS + 1];
+#pragma unroll
+    for (int v = 0; v < ITEMS / 2; v++) {
+      const longlong2 p = reinterpret_cast<const longlong2*>(mk)[v];
+      k[2 * v] = p.x;
+      k[2 * v + 1] = p.y;
+    }
+    k[ITEMS] = mk[KEY_STRIDE];  // key j0 + ITEMS: the next thread's first
+#pragma unroll
+    for (int e = 0; e < ITEMS; e++) {
+      diff |= (uint32_t)(k[e] != k[e + 1]) << e;
+      if (q == 0) sent |= (uint32_t)(k[e] == KAT_SENTINEL) << e;
+    }
+  }
+
+  // 2. this thread's run ends and aggregate
+  uint32_t ends = 0, emits = 0;
+  Seg mine = {0u, 0u};
+#pragma unroll
+  for (int v = 0; v < ITEMS / 4; v++) {
+    const int4 qv = reinterpret_cast<const int4*>(mw)[v];
+    const int32_t wq[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const int e = 4 * v + i;
+      if (j0 + e < valid) {
+        mine.sum += (uint32_t)wq[i];
+        if (base + j0 + e == n - 1 || (diff >> e & 1u)) {
+          ends |= 1u << e;
+          mine.runs |= CLOSED;
+          mine.sum = 0;
+          if (!(sent >> e & 1u)) {
+            emits |= 1u << e;
+            mine.runs++;
+          }
+        }
+      }
+    }
+  }
+
+  // 3. scans, publish, look back: as reduce_tiles
+  const Seg inc = warp_inclusive(mine);
+  if (lane == 31) sh.warp_pre[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    Seg t = lane < WARPS ? sh.warp_pre[lane] : SegStatus::identity();
+    t = warp_inclusive(t);
+    const Seg total = SegStatus::shfl(t, WARPS - 1);
+    Seg before = SegStatus::identity();
+    if (tile > 0) {
+      if (lane == 0)
+        kat::st_relaxed(status + tile,
+                        pack(total.runs & CLOSED ? AGG_CLOSED : AGG_OPEN,
+                             total));
+      before = kat::look_back<SegStatus, 1, 32>(status + tile, tile, 1);
+    }
+    if (lane == 0) {
+      kat::st_relaxed(status + tile,
+                      pack(PREFIX, seg_combine(before, total)));
+      if (tile == tiles - 1)
+        *n_unique = (int64_t)((before.runs & RUNS_MASK) +
+                              (total.runs & RUNS_MASK));
+      sh.before = before;
+      sh.total = total;
+    }
+    Seg ex = shfl_up(t, 1);
+    if (lane == 0) ex = SegStatus::identity();
+    if (lane < WARPS) sh.warp_pre[lane] = seg_combine(before, ex);
+  }
+  __syncthreads();
+
+  // 4. each run once, in rank order: its count and its end's position in
+  //    the tile through shared memory, then each plane of the keys
+  Seg ex = shfl_up(inc, 1);
+  if (lane == 0) ex = SegStatus::identity();
+  const Seg start = seg_combine(sh.warp_pre[warp], ex);
+  const uint32_t r0 = sh.before.runs & RUNS_MASK;
+  const uint32_t count = sh.total.runs & RUNS_MASK;
+  uint32_t r = (start.runs & RUNS_MASK) - r0;
+  uint32_t s = start.sum;
+  int32_t wt[ITEMS];
+#pragma unroll
+  for (int v = 0; v < ITEMS / 4; v++) {
+    const int4 qv = reinterpret_cast<const int4*>(mw)[v];
+    wt[4 * v] = qv.x;
+    wt[4 * v + 1] = qv.y;
+    wt[4 * v + 2] = qv.z;
+    wt[4 * v + 3] = qv.w;
+  }
+  __syncthreads();  // every thread has read the weights and sh
+#pragma unroll
+  for (int e = 0; e < ITEMS; e++) {
+    s += (uint32_t)wt[e];
+    if (ends >> e & 1u) {
+      if (emits >> e & 1u) {
+        spos[r] = (uint16_t)(j0 + e);
+        sw[r] = (int32_t)s;
+        r++;
+      }
+      s = 0;
+    }
+  }
+  __syncthreads();
+  const int64_t room = out_size - (int64_t)r0;
+  const int m = (int)min((int64_t)count, max(room, (int64_t)0));
+  for (int i = tid; i < m; i += THREADS) out_counts[r0 + i] = sw[i];
+#pragma unroll 1
+  for (int q = 0; q < W; q++) {
+    const int64_t* src = keys + q * n + base;
+    int64_t* dst = out_keys + q * out_size + r0;
+    for (int i = tid; i < m; i += THREADS) dst[i] = src[spos[i]];
+  }
+}
+
+// Slots [min(n_unique, out_size), out_size) of every plane get SENTINEL,
+// and of the counts 0.
+__global__ void __launch_bounds__(256)
+reduce_pad_words(int64_t* __restrict__ out_keys, int words,
+                 int32_t* __restrict__ out_counts, int64_t out_size,
+                 const int64_t* __restrict__ n_unique) {
+  const int64_t first = min(*n_unique, out_size);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t s = first + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       s < out_size; s += stride) {
+    for (int q = 0; q < words; q++) out_keys[q * out_size + s] = KAT_SENTINEL;
+    out_counts[s] = 0;
+  }
+}
+
 int64_t tiles_for(int64_t n) { return (n + TILE - 1) / TILE; }
 
 }  // namespace
@@ -368,6 +565,54 @@ extern "C" int kat_reduce_by_key(const int64_t* keys, const int32_t* w,
         std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
     reduce_pad<<<(unsigned)blocks, 256, 0, stream>>>(out_keys, out_counts,
                                                      out_size, n_unique);
+    KAT_CHECK_LAUNCH();
+  }
+  return 0;
+}
+
+// reduce_by_key over `words` (2-9) key planes keys[q * n + i]; outputs
+// [words][out_size] keys and [out_size] counts; scratch as
+// kat_reduce_by_key_scratch(n).  Requires n < 2^30.
+extern "C" int kat_reduce_by_key_words(const int64_t* keys, int words,
+                                       const int32_t* w, int64_t n,
+                                       int64_t* out_keys, int32_t* out_counts,
+                                       int64_t out_size, int64_t* scratch,
+                                       int64_t* n_unique, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  using Kernel = void (*)(const int64_t*, const int32_t*, int64_t, int64_t,
+                          int64_t*, int32_t*, int64_t, uint32_t*, uint64_t*,
+                          int64_t*);
+  static const Kernel kernels[] = {
+      reduce_words_tiles<2>, reduce_words_tiles<3>, reduce_words_tiles<4>,
+      reduce_words_tiles<5>, reduce_words_tiles<6>, reduce_words_tiles<7>,
+      reduce_words_tiles<8>, reduce_words_tiles<9>};
+  if (words < 2 || words > 9) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernels[words - 2];
+  static int sms_of[8][kat::MAX_DEVICES] = {};
+  int sms;
+  cudaError_t err = kat::prepare(kernel, SMEM, sms_of[words - 2], &sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = tiles_for(n);
+  if (tiles == 0) {
+    err = cudaMemsetAsync(n_unique, 0, sizeof(int64_t), stream);
+  } else {
+    err = cudaMemsetAsync(scratch, 0,
+                          kat_reduce_by_key_scratch(n) * sizeof(int64_t),
+                          stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (tiles > 0) {
+    kernel<<<(unsigned)tiles, THREADS, SMEM, stream>>>(
+        keys, w, n, tiles, out_keys, out_counts, out_size,
+        reinterpret_cast<uint32_t*>(scratch),
+        reinterpret_cast<uint64_t*>(scratch + 1), n_unique);
+    KAT_CHECK_LAUNCH();
+  }
+  if (out_size > 0) {
+    const int64_t blocks =
+        std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
+    reduce_pad_words<<<(unsigned)blocks, 256, 0, stream>>>(
+        out_keys, words, out_counts, out_size, n_unique);
     KAT_CHECK_LAUNCH();
   }
   return 0;

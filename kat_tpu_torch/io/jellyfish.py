@@ -19,8 +19,9 @@ header for compatibility with readers that expect one.
 
 Copy of kat_tpu/io/jellyfish.py (numpy only), so that files written by the
 two packages are byte-identical: the header's "exe_path" and default
-"cmdline" keep kat_tpu's strings.  The writer for wide keys (k > 32) is not
-ported yet (ROADMAP.md §1 item 12).
+"cmdline" keep kat_tpu's strings.  Wide keys (k > 32) are written from
+numpy byte planes instead of kat_tpu's Python loop over the records, and
+`read_jf_words` reads them straight into the port's [W, n] int64 words.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..core import kmers
 
 
 @dataclass
@@ -89,13 +92,8 @@ def read_header(path: str) -> tuple[JfHeader, int]:
     return hdr, 9 + hlen
 
 
-def read_jf(path: str) -> tuple[JfHeader, np.ndarray | list, np.ndarray]:
-    """Load a .jf file -> (header, keys, u32 counts).
-
-    keys is a np.uint64 array for key_len <= 64 (k <= 32) and a list of
-    python ints for wider keys (up to key_len 512, k <= 255 — the wide
-    engine path).
-    """
+def _records(path: str):
+    """(header, [n, record_len] uint8 records, u32 counts) of a .jf."""
     hdr, off = read_header(path)
     if hdr.key_len > 512:
         raise ValueError(f"key_len {hdr.key_len} > 512 unsupported")
@@ -112,7 +110,18 @@ def read_jf(path: str) -> tuple[JfHeader, np.ndarray | list, np.ndarray]:
     for b in range(hdr.counter_len):
         counts |= mat[:, hdr.key_bytes + b].astype(np.uint64) << np.uint64(8 * b)
     counts = np.minimum(counts, 0xFFFFFFFF).astype(np.uint32)
+    return hdr, mat, counts
 
+
+def read_jf(path: str) -> tuple[JfHeader, np.ndarray | list, np.ndarray]:
+    """Load a .jf file -> (header, keys, u32 counts).
+
+    keys is a np.uint64 array for key_len <= 64 (k <= 32) and a list of
+    python ints for wider keys (up to key_len 512, k <= 255 — the wide
+    engine path).
+    """
+    hdr, mat, counts = _records(path)
+    n = mat.shape[0]
     if hdr.key_len <= 64:
         keys = np.zeros(n, np.uint64)
         for b in range(hdr.key_bytes):
@@ -136,6 +145,15 @@ def read_jf(path: str) -> tuple[JfHeader, np.ndarray | list, np.ndarray]:
     return hdr, keys, counts
 
 
+def read_jf_words(path: str) -> tuple[JfHeader, np.ndarray, np.ndarray]:
+    """Load a .jf file of wide keys (k > 31) -> (header, [W, n] int64
+    words as core/kmers.py lays them out, u32 counts), vectorized."""
+    hdr, mat, counts = _records(path)
+    kmers.wide_spec_valid(hdr.mer_len)
+    return hdr, kmers.bytes_to_words(mat[:, :hdr.key_bytes], hdr.mer_len), \
+        counts
+
+
 def _std_reprobes(max_reprobe: int = 126) -> list[int]:
     # Quadratic reprobe schedule (large_hash_array defaults): 1, then
     # triangular numbers 1, 3, 6, 10, ...
@@ -157,13 +175,16 @@ def write_jf(path: str, keys, counts: np.ndarray, mer_len: int,
              cmdline: list[str] | None = None) -> None:
     """Write (keys, counts) as a jellyfish-compatible binary/sorted hash.
 
-    keys: np.uint64 array (k <= 32) or a sequence of python ints (wide
-    keys, k <= 255)."""
+    keys: np.uint64 array (k <= 32), a sequence of python ints (wide
+    keys, k <= 255), or [W, n] int64 words of wide keys (core/kmers.py's
+    layout)."""
+    if isinstance(keys, np.ndarray) and keys.ndim == 2:
+        return _write_jf_wide(path, keys, counts, mer_len, canonical,
+                              counter_len, cmdline)
     wide_keys = not isinstance(keys, np.ndarray) or keys.dtype == object
     if wide_keys:
-        pairs = sorted(zip([int(x) for x in keys],
-                           np.asarray(counts, np.uint64).tolist()))
-        return _write_jf_wide(path, pairs, mer_len, canonical, counter_len,
+        return _write_jf_wide(path, kmers.ints_to_words(keys, mer_len),
+                              counts, mer_len, canonical, counter_len,
                               cmdline)
     keys = np.asarray(keys, np.uint64)
     counts = np.asarray(counts, np.uint64)
@@ -173,38 +194,7 @@ def write_jf(path: str, keys, counts: np.ndarray, mer_len: int,
 
     key_len = 2 * mer_len
     n = len(keys)
-    lsize = max(1, int(np.ceil(np.log2(max(2 * n, 2)))))
-    size = 1 << lsize
-
-    hdr = {
-        "alignment": 8,
-        "canonical": bool(canonical),
-        "cmdline": cmdline or ["kat_tpu"],
-        "counter_len": counter_len,
-        "exe_path": "kat_tpu",
-        "format": "binary/sorted",
-        "hostname": socket.gethostname(),
-        "key_len": key_len,
-        "matrix1": {
-            "c": key_len,
-            "columns": _random_matrix(lsize, key_len),
-            "r": lsize,
-        },
-        "max_reprobe": 126,
-        "pwd": os.getcwd(),
-        "reprobes": _std_reprobes(126),
-        "size": size,
-        "time": time.ctime(),
-        "user": getpass.getuser(),
-        "val_len": 7,
-    }
-    txt = json.dumps(hdr, sort_keys=True, separators=(",", ":")).encode()
-    # Pad so records start 8-byte aligned (observed in reference dumps).
-    hlen = len(txt)
-    total = 9 + hlen
-    pad = (-total) % 8
-    hlen += pad
-    blob = f"{hlen:09d}".encode() + txt + b"\x00" * pad
+    blob = _header_blob(mer_len, canonical, counter_len, n, cmdline)
 
     key_bytes = key_len // 8 + (1 if key_len % 8 else 0)
     max_val = (1 << (8 * counter_len)) - 1
@@ -222,9 +212,62 @@ def write_jf(path: str, keys, counts: np.ndarray, mer_len: int,
         f.write(rec.tobytes())
 
 
-def _write_jf_wide(path: str, pairs: list[tuple[int, int]], mer_len: int,
+def _header_blob(mer_len: int, canonical: bool, counter_len: int, n: int,
+                 cmdline: list[str] | None) -> bytes:
+    key_len = 2 * mer_len
+    lsize = max(1, int(np.ceil(np.log2(max(2 * n, 2)))))
+    hdr = {
+        "alignment": 8,
+        "canonical": bool(canonical),
+        "cmdline": cmdline or ["kat_tpu"],
+        "counter_len": counter_len,
+        "exe_path": "kat_tpu",
+        "format": "binary/sorted",
+        "hostname": socket.gethostname(),
+        "key_len": key_len,
+        "matrix1": {"c": key_len,
+                    "columns": _random_matrix(lsize, key_len),
+                    "r": lsize},
+        "max_reprobe": 126,
+        "pwd": os.getcwd(),
+        "reprobes": _std_reprobes(126),
+        "size": 1 << lsize,
+        "time": time.ctime(),
+        "user": getpass.getuser(),
+        "val_len": 7,
+    }
+    txt = json.dumps(hdr, sort_keys=True, separators=(",", ":")).encode()
+    # Pad so records start 8-byte aligned (observed in reference dumps).
+    hlen = len(txt)
+    pad = (-(9 + hlen)) % 8
+    hlen += pad
+    return f"{hlen:09d}".encode() + txt + b"\x00" * pad
+
+
+def _write_jf_wide(path: str, words: np.ndarray, counts, mer_len: int,
                    canonical: bool, counter_len: int,
                    cmdline: list[str] | None) -> None:
-    raise NotImplementedError(
-        f"writing a .jf with wide keys (k={mer_len}) is not ported yet: "
-        "ROADMAP.md §1 item 12")
+    """Write wide keys given as [W, n] int64 words: records in ascending
+    (key, count) order, each key little-endian in ceil(2k / 8) bytes and
+    its count saturating, as kat_tpu/io/jellyfish.py:251-265 writes them
+    one by one; here from numpy byte planes."""
+    key_len = 2 * mer_len
+    key_bytes = key_len // 8 + (1 if key_len % 8 else 0)
+    max_val = (1 << (8 * counter_len)) - 1
+    words = np.asarray(words, np.int64)
+    counts = np.minimum(np.asarray(counts, np.uint64), np.uint64(max_val))
+    if words.shape[0] != kmers.words_for_k(mer_len) or \
+            words.shape[1] != counts.size:
+        raise ValueError(f"expected [{kmers.words_for_k(mer_len)}, "
+                         f"{counts.size}] words, got {words.shape}")
+    order = np.lexsort((counts, *words[::-1]))
+    rec = np.empty((counts.size, key_bytes + counter_len), np.uint8)
+    rec[:, :key_bytes] = kmers.words_to_bytes(words[:, order], key_bytes)
+    c = counts[order]
+    for b in range(counter_len):
+        rec[:, key_bytes + b] = ((c >> np.uint64(8 * b))
+                                 & np.uint64(0xFF)).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(_header_blob(mer_len, canonical, counter_len, counts.size,
+                             cmdline))
+        f.write(rec.tobytes())

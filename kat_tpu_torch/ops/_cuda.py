@@ -40,17 +40,25 @@ _SIGNATURES = {
     "kat_radix_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P],
     "kat_radix_sort_pairs_scratch": [_I64, _INT],
     "kat_radix_sort_pairs_tile": [],
+    "kat_radix_sort_words": [_P, _P, _P, _P, _I64, _INT, _INT, _P],
+    "kat_radix_sort_words_scratch": [_I64, _INT, _INT],
+    "kat_radix_sort_words_tile": [_INT],
     "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                                  _INT, _P, _P, _P, _P, _P, _P],
     "kat_merge_sorted_scratch": [_I64],
     "kat_merge_sorted_tile": [],
+    "kat_merge_sorted_words": [_P, _I64, _P, _I64, _P, _I64, _I64, _INT, _P,
+                               _I64, _P, _P, _P],
+    "kat_merge_sorted_words_scratch": [_I64, _INT],
+    "kat_merge_sorted_words_tile": [_INT],
     "kat_compact_flagged": [_P, _P, _P, _INT, _P, _I64, _P, _P, _P, _I64, _P,
                             _P, _P],
     "kat_compact_flagged_scratch": [_I64],
     "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "kat_reduce_by_key_scratch": [_I64],
     "kat_reduce_by_key_tile": [],
+    "kat_reduce_by_key_words": [_P, _INT, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "kat_sort_chunks": [_P, _P, _I64, _INT, _P],
     "kat_merge_runs": [_P, _P, _P, _I64, _I64, _P],
     "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],
@@ -166,6 +174,24 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+MAX_WORDS = 9  # words of a wide key at k = 255
+
+
+def require_words(keys: torch.Tensor, name: str,
+                  device: torch.device | None = None) -> None:
+    """What the W-word kernels take: int64 [W, n] keys, 2 <= W <= 9, each
+    word's plane contiguous (planes may lie apart: a table's prefix)."""
+    if keys.dtype != torch.int64:
+        raise TypeError(f"{name}: expected torch.int64, got {keys.dtype}")
+    if keys.dim() != 2 or not 2 <= keys.shape[0] <= MAX_WORDS:
+        raise ValueError(f"{name}: expected [W, n] words with 2 <= W <= "
+                         f"{MAX_WORDS}, got {tuple(keys.shape)}")
+    if keys.shape[1] > 1 and keys.stride(1) != 1:
+        raise ValueError(f"{name}: each word's plane must be contiguous")
+    if device is not None and keys.device != device:
+        raise ValueError(f"{name}: on {keys.device}, expected {device}")
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:

@@ -1,6 +1,7 @@
 """K2: merge of two sorted key streams: the count table with the sorted
-fresh keys (`merge_sorted`, the counting flush), or two streams that each
-carry 1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join).
+fresh keys (`merge_sorted`, the counting flush; `merge_sorted_words` for
+wide keys of W int64 words, the wide flush), or two streams that each carry
+1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join).
 
 Counterpart of kat_tpu/ops/merge_kernel.py::merge_sorted_kernel (the
 final-phase mode of kat_tpu's bitonic `_window_kernel`).  On a CUDA tensor
@@ -17,6 +18,7 @@ import torch
 
 from ..core.kmers import SENTINEL
 from . import _cuda
+from .sort_kernel import words_order_plain
 
 
 def tile_len() -> int:
@@ -117,3 +119,56 @@ def merge_sorted_payload(a_keys, a_planes, b_keys, b_planes):
 
 
 merge_sorted_payload.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def words_tile_len(n_words: int) -> int:
+    """Outputs one thread block of the card's W-word merge takes."""
+    return int(_cuda.LIBRARY.get().kat_merge_sorted_words_tile(n_words))
+
+
+def merge_sorted_words_plain(a_keys: torch.Tensor, a_counts: torch.Tensor,
+                             b_keys: torch.Tensor):
+    """Plain PyTorch version of `merge_sorted_words`: concatenate, then the
+    plain W-word sort, whose permutation carries the weights."""
+    keys = torch.cat([a_keys, b_keys], dim=1)
+    w = torch.cat([a_counts, (b_keys[0] != SENTINEL).to(torch.int32)])
+    perm = words_order_plain(keys)
+    return keys[:, perm], w[perm]
+
+
+def merge_sorted_words(a_keys: torch.Tensor, a_counts: torch.Tensor,
+                       b_keys: torch.Tensor):
+    """Stable merge of a sorted W-word table ([W, na] int64 keys, int32
+    counts) with sorted fresh [W, nb] keys, whose weight is (key !=
+    SENTINEL); ties take the table first.  The table's planes may lie
+    apart (its prefix of real entries).
+
+    Returns (keys [W, na + nb] int64, weights [na + nb] int32)."""
+    _cuda.require_words(a_keys, "a_keys")
+    _cuda.require_words(b_keys, "b_keys", a_keys.device)
+    _cuda.require(a_counts, "a_counts", torch.int32, a_keys.device)
+    if b_keys.shape[0] != a_keys.shape[0]:
+        raise ValueError("a_keys and b_keys differ in words")
+    if a_counts.numel() != a_keys.shape[1]:
+        raise ValueError("a_keys and a_counts differ in length")
+    if not _cuda.on_cuda(a_keys, "merge_sorted_words"):
+        return merge_sorted_words_plain(a_keys, a_counts, b_keys)
+    W, na = a_keys.shape
+    nb = b_keys.shape[1]
+    dev = a_keys.device
+    out_keys = torch.empty((W, na + nb), dtype=torch.int64, device=dev)
+    out_w = torch.empty(na + nb, dtype=torch.int32, device=dev)
+    if na + nb == 0:
+        return out_keys, out_w
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_merge_sorted_words_scratch", na + nb, W),
+        dtype=torch.int64, device=dev)
+    _cuda.launch("kat_merge_sorted_words", dev, a_keys.data_ptr(),
+                 a_keys.stride(0), a_counts.data_ptr(), na, b_keys.data_ptr(),
+                 b_keys.stride(0), nb, W, out_keys.data_ptr(),
+                 out_keys.stride(0), out_w.data_ptr(), scratch.data_ptr())
+    merge_sorted_words.launches += 1
+    return out_keys, out_w
+
+
+merge_sorted_words.launches = 0  # kernel launches, read by chip_smoke.py

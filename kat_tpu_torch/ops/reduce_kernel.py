@@ -1,5 +1,6 @@
 """K3: reduce-by-key of a sorted (key, weight) stream, compacted to the
-front, and K4: stable compaction of the flagged elements of int32 planes.
+front (`reduce_by_key`; `reduce_by_key_words` for wide keys of W int64
+words), and K4: stable compaction of the flagged elements of int32 planes.
 
 Counterparts of kat_tpu/ops/reduce_kernel.py::reduce_compact_sorted and
 ::compact_flagged.  On a CUDA tensor `reduce_by_key` launches the
@@ -76,6 +77,69 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
 
 
 reduce_by_key.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def reduce_by_key_words_plain(keys: torch.Tensor, w: torch.Tensor,
+                              out_size: int):
+    """Plain PyTorch version of `reduce_by_key_words`: a run starts where
+    any word differs from the key before; an int64 `index_add_` over run
+    numbers sums it; sentinel runs dropped, then padded/truncated."""
+    W, n = keys.shape
+    new = torch.ones(n, dtype=torch.bool, device=keys.device)
+    if n > 1:
+        new[1:] = (keys[:, 1:] != keys[:, :-1]).any(0)
+    run = new.cumsum(0) - 1
+    sums = torch.zeros(int(new.sum()), dtype=torch.int64, device=keys.device)
+    sums.index_add_(0, run, w.to(torch.int64))
+    runs = keys[:, new]
+    real = runs[0] != SENTINEL
+    runs, sums = runs[:, real], sums[real]
+    m = min(runs.shape[1], out_size)
+    out_keys = torch.full((W, out_size), SENTINEL, dtype=torch.int64,
+                          device=keys.device)
+    out_counts = torch.zeros(out_size, dtype=torch.int32, device=keys.device)
+    out_keys[:, :m] = runs[:, :m]
+    out_counts[:m] = sums[:m].to(torch.int32)
+    return out_keys, out_counts, torch.tensor(
+        runs.shape[1], dtype=torch.int64, device=keys.device)
+
+
+def reduce_by_key_words(keys: torch.Tensor, w: torch.Tensor, out_size: int):
+    """`reduce_by_key` for a sorted stream of [W, n] int64 wide keys: a run
+    ends where any word differs from the next key.
+
+    Returns (keys [W, out_size] int64, counts [out_size] int32, n_unique):
+    each non-sentinel run's key and summed weight in stream order, padded
+    with SENTINEL / 0, and the true number of such runs (a 0-d int64
+    tensor) even when it exceeds out_size."""
+    _cuda.require_words(keys, "keys")
+    _cuda.require(w, "w", torch.int32, keys.device)
+    if w.numel() != keys.shape[1]:
+        raise ValueError("keys and w differ in length")
+    if out_size < 0:
+        raise ValueError(f"out_size={out_size} < 0")
+    # the kernel's status words count runs in 30 bits
+    if keys.shape[1] >= 1 << 30:
+        raise ValueError(f"reduce_by_key_words: n={keys.shape[1]} must be "
+                         "< 2^30")
+    if not _cuda.on_cuda(keys, "reduce_by_key_words"):
+        return reduce_by_key_words_plain(keys, w, out_size)
+    keys = keys.contiguous()
+    W, n = keys.shape
+    dev = keys.device
+    out_keys = torch.empty((W, out_size), dtype=torch.int64, device=dev)
+    out_counts = torch.empty(out_size, dtype=torch.int32, device=dev)
+    n_unique = torch.empty(1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(_cuda.scratch_len("kat_reduce_by_key_scratch", n),
+                          dtype=torch.int64, device=dev)
+    _cuda.launch("kat_reduce_by_key_words", dev, keys.data_ptr(), W,
+                 w.data_ptr(), n, out_keys.data_ptr(), out_counts.data_ptr(),
+                 out_size, scratch.data_ptr(), n_unique.data_ptr())
+    reduce_by_key_words.launches += 1
+    return out_keys, out_counts, n_unique[0]
+
+
+reduce_by_key_words.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 def compact_flagged_plain(planes, flag: torch.Tensor, out_size: int):

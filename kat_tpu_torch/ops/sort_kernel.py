@@ -1,12 +1,15 @@
 """K1: sort of int64 k-mer keys, alone (the fresh windows of the counting
-flush) or carrying one int32 value each (the queries of the sort-merge join).
+flush) or carrying one int32 value each (the queries of the sort-merge join),
+and of wide keys of W int64 words (`sort_words`, the fresh windows of the
+wide counting flush, core/wide.py).
 K5: independent sort of every aligned chunk, and K6: merge of sorted runs
 (both of the minimizer-bucketed flush, core/bucketed.py).
 
 Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
 mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
-`bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys` and
-`sort_pairs` launch the one-sweep LSD radix sort of csrc/sort.cu,
+`bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys`,
+`sort_pairs` and `sort_words` launch the one-sweep LSD radix sort of
+csrc/sort.cu,
 `sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
 `merge_runs` the merge-path tree of csrc/merge_runs.cu; on a CPU tensor they
 take the plain versions (`*_plain`).  No padding to a power of two: the radix sort and the
@@ -186,3 +189,73 @@ def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
 
 
 merge_runs.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def words_order_plain(keys: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts [W, n] keys stably: W stable torch.sort
+    calls from the least significant word up, each through the last's
+    order."""
+    perm = None
+    for w in reversed(range(keys.shape[0])):
+        col = keys[w] if perm is None else keys[w][perm]
+        idx = torch.sort(col, stable=True).indices
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
+def sort_words_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `sort_words`."""
+    return keys[:, words_order_plain(keys)]
+
+
+def words_passes(n_words: int, top_bits: int) -> int:
+    """8-bit digit passes of the W-word sort: 8 over each lower word (62
+    bits), ceil(top_bits / 8) over the top word."""
+    return 8 * (n_words - 1) + (top_bits + 7) // 8
+
+
+def words_tile_len(n_words: int) -> int:
+    """Keys one thread block of the card's W-word sort takes, as the
+    compiled library reports it for W words."""
+    return int(_cuda.LIBRARY.get().kat_radix_sort_words_tile(n_words))
+
+
+def words_pass_floor_bytes(n: int, n_words: int, top_bits: int) -> int:
+    """Bytes the card's W-word sort must move by its pass structure: one
+    read of every word for the histograms, then one read and one write of
+    every word of every key per pass."""
+    return n * 8 * n_words * (1 + 2 * words_passes(n_words, top_bits))
+
+
+def sort_words(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
+    """Ascending lexicographic sort of [W, n] int64 wide keys (word 0 most
+    significant), returned as a new contiguous [W, n] tensor.
+
+    top_bits: every non-sentinel key's top word is < 2^(top_bits-1), so
+    that the sentinel (INT64_MAX in every word) sorts last; counting passes
+    2 top_bases(k) + 1.  Lower words are < 2^62."""
+    _cuda.require_words(keys, "sort_words")
+    if not 1 <= top_bits <= 63:
+        raise ValueError(f"top_bits={top_bits} outside [1, 63]")
+    # the kernel's status words keep a count in 30 bits
+    if keys.shape[1] >= 1 << 30:
+        raise ValueError(f"sort_words: n={keys.shape[1]} must be < 2^30")
+    if not _cuda.on_cuda(keys, "sort_words"):
+        return sort_words_plain(keys)
+    keys = keys.contiguous()
+    W, n = keys.shape
+    out = torch.empty_like(keys)
+    if n == 0:
+        return out
+    alt = torch.empty_like(keys)
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_radix_sort_words_scratch", n, W, top_bits),
+        dtype=torch.int32, device=keys.device)
+    _cuda.launch("kat_radix_sort_words", keys.device, keys.data_ptr(),
+                 out.data_ptr(), alt.data_ptr(), scratch.data_ptr(), n, W,
+                 top_bits)
+    sort_words.launches += 1
+    return out
+
+
+sort_words.launches = 0  # kernel launches, read by chip_smoke.py

@@ -3,12 +3,13 @@
 COUNT-vs-LOAD dispatch, 5' trim lists, hash dumping, and the window
 lookups of the sequence tools.
 
-Port of kat_tpu/tools/common.py for k <= 31 on one device: COUNT through
-CodeStreamingCounter (`flush="classic"`, the default) or through the
-minimizer-bucketed flush of core/bucketed.py (`flush="bucketed"`, the
-counterpart of kat_tpu's KAT_TPU_MINIMIZER switch; it raises where its
-conditions fail and never turns into the classic flush by itself), LOAD
-from a .jf.  kat_tpu's mesh and wide-key branches are not ported.
+Port of kat_tpu/tools/common.py on one device: COUNT through
+CodeStreamingCounter (`flush="classic"`, the default; for 31 < k <= 255
+core/wide.WideCodeStreamingCounter) or through the minimizer-bucketed flush
+of core/bucketed.py (`flush="bucketed"`, the counterpart of kat_tpu's
+KAT_TPU_MINIMIZER switch; it raises where its conditions fail and never
+turns into the classic flush by itself), LOAD from a .jf (narrow or wide
+keys).  kat_tpu's mesh branches are not ported.
 """
 
 from __future__ import annotations
@@ -23,11 +24,10 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_HASH_SIZE, DEFAULT_MER_LEN
-from ..core import counting, kmers
+from ..core import counting, kmers, wide
 from ..io import fastx, jellyfish
 from ..utils.timer import stage
 
-_WIDE_TODO = "(wide keys) not ported yet: ROADMAP.md §1 item 12"
 FLUSHES = ("classic", "bucketed")
 
 
@@ -128,7 +128,7 @@ class Input:
     dump_hash: bool = False
     disable_grow: bool = False
     mode: InputMode = InputMode.COUNT
-    table: counting.CountTable | None = None
+    table: counting.CountTable | wide.WideTable | None = None
     header: jellyfish.JfHeader | None = None
     device: torch.device | None = None
     flush: str = "classic"
@@ -170,10 +170,7 @@ class Input:
 
     # -- counting --
     def count(self, quiet: bool = False) -> None:
-        if self.mer_len > kmers.MAX_K:
-            raise NotImplementedError(
-                f"k={self.mer_len} > {kmers.MAX_K} {_WIDE_TODO}")
-        kmers.spec_valid(self.mer_len)
+        kmers.words_for_k(self.mer_len)  # raises outside [1, 255]
         if self.flush not in FLUSHES:
             raise ValueError(f"flush={self.flush!r}: expected one of "
                              f"{FLUSHES}")
@@ -197,9 +194,11 @@ class Input:
             else:
                 # Flushes are sized by window count (1<<26, as kat_tpu's
                 # kernel path), whatever batch geometry the reader emits.
-                sc = counting.CodeStreamingCounter(
-                    self.mer_len, self.canonical, flush_windows=1 << 26,
-                    **caps)
+                counter = (wide.WideCodeStreamingCounter
+                           if self.mer_len > kmers.MAX_K
+                           else counting.CodeStreamingCounter)
+                sc = counter(self.mer_len, self.canonical,
+                             flush_windows=1 << 26, **caps)
                 for batch in self._code_batches():
                     sc.add_codes(batch)
                 self.table = sc.finish()
@@ -295,17 +294,18 @@ class Input:
 
     def load(self, quiet: bool = False) -> None:
         with stage("Loading hashes into memory", quiet=quiet):
-            hdr, keys, counts = jellyfish.read_jf(self.paths[0])
+            wide_keys = jellyfish.read_header(
+                self.paths[0])[0].mer_len > kmers.MAX_K
+            hdr, keys, counts = (jellyfish.read_jf_words if wide_keys
+                                 else jellyfish.read_jf)(self.paths[0])
             self.header = hdr
             self.canonical = hdr.canonical
             self.mer_len = hdr.mer_len
-            if hdr.mer_len > kmers.MAX_K:
-                raise NotImplementedError(
-                    f"{self.paths[0]}: k={hdr.mer_len} > {kmers.MAX_K} "
-                    f"{_WIDE_TODO}")
-            self.table = counting.table_from_numpy(
-                keys, counts, capacity=_next_pow2(max(len(keys), 1)),
-                device=self._device())
+            build = (wide.table_from_words if wide_keys
+                     else counting.table_from_numpy)
+            self.table = build(keys, counts,
+                               capacity=_next_pow2(max(len(counts), 1)),
+                               device=self._device())
 
     def validate_mer_len(self, mer_len: int) -> None:
         if self.mode == InputMode.LOAD and self.header is not None:
@@ -326,7 +326,11 @@ class Input:
             with stage(f"Dumping hash to {out_path}", quiet=quiet):
                 if os.path.lexists(out_path):
                     os.remove(out_path)
-                keys, counts = counting.table_to_numpy(self.host_table())
+                table = self.host_table()
+                keys, counts = (
+                    wide.table_words_to_numpy(table)
+                    if isinstance(table, wide.WideTable)
+                    else counting.table_to_numpy(table))
                 jellyfish.write_jf(out_path, keys, counts, self.mer_len,
                                    self.canonical, cmdline=list(sys.argv))
         else:

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
-payload forms of K1 and K2, K5 chunk sort, K6 run merge and K7's round
-classes) against their plain PyTorch versions on the card, exactly (integer
-keys and counts: tolerance 0).
+payload forms of K1 and K2, the W-word forms of K1, K2 and K3, K5 chunk
+sort, K6 run merge and K7's round classes) against their plain PyTorch
+versions on the card, exactly (integer keys and counts: tolerance 0).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -23,17 +23,22 @@ from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
 from kat_tpu_torch.ops.merge_kernel import (merge_sorted, merge_sorted_payload,
                                             merge_sorted_payload_plain,
-                                            merge_sorted_plain)
+                                            merge_sorted_plain,
+                                            merge_sorted_words,
+                                            merge_sorted_words_plain)
 from kat_tpu_torch.ops.merge_kernel import tile_len as merge_tile_len
 from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              compact_flagged_plain,
                                              reduce_by_key,
-                                             reduce_by_key_plain)
+                                             reduce_by_key_plain,
+                                             reduce_by_key_words,
+                                             reduce_by_key_words_plain)
 from kat_tpu_torch.ops.reduce_kernel import tile_len as reduce_tile_len
 from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
                                            sort_chunks, sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
                                            sort_pairs, sort_pairs_plain,
+                                           sort_words, sort_words_plain,
                                            tile_len)
 
 pytestmark = pytest.mark.cuda
@@ -780,3 +785,111 @@ def test_flush_kernels_repeat(dev, what):
         again = run()
         for x, y in zip(first, again, strict=True):
             assert torch.equal(x, y)
+
+
+# --- the W-word forms of K1, K2 and K3 (wide keys, 31 < k <= 255) ---
+
+WIDE_N = 3 * TILE + 17  # straddles every W-word kernel's tile
+
+
+def _wide_case(dev, name, k):
+    g = torch.Generator(device=dev)
+    g.manual_seed(k)
+    return workloads.wide_strain(name, k, WIDE_N, dev, g), g
+
+
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_sort_words_matches_plain(dev, name, k):
+    """K1 W-word at W = 2..9, the top word full or one base wide."""
+    from kat_tpu_torch.core.kmers import top_bases
+
+    keys, _g = _wide_case(dev, name, k)
+    got = sort_words(keys, 2 * top_bases(k) + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort_words_plain(keys))
+
+
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_merge_words_matches_plain(dev, name, k):
+    """K2 W-word; the table is the prefix of a wider buffer, as the flush
+    passes its real entries (planes that lie apart)."""
+    keys, g = _wide_case(dev, name, k)
+    a, ac, b = workloads.wide_merge_inputs(keys, g)
+    buf = torch.full((a.shape[0], a.shape[1] + 1000), SENTINEL,
+                     dtype=torch.int64, device=dev)
+    buf[:, :a.shape[1]] = a
+    got = merge_sorted_words(buf[:, :a.shape[1]], ac, b)
+    torch.cuda.synchronize()
+    want = merge_sorted_words_plain(a, ac, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_reduce_words_matches_plain(dev, name, k):
+    """K3 W-word into room for every run, and into too few slots (the true
+    n_unique must come back)."""
+    keys, g = _wide_case(dev, name, k)
+    sk, w = workloads.wide_reduce_inputs(keys, g)
+    for out_size in (WIDE_N, 100):
+        got = reduce_by_key_words(sk, w, out_size)
+        want = reduce_by_key_words_plain(sk, w, out_size)
+        torch.cuda.synchronize()
+        assert int(got[2]) == int(want[2])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 3071, 3073, 4095,
+                               4097, 8191, 8192, 8193])
+@pytest.mark.parametrize("k", [41, 255])
+def test_words_kernels_at_tile_edges(dev, k, n):
+    """The three W-word kernels at lengths around their tiles (the merge's
+    1024-3072 outputs, the reduce's 4096, the sort's 8192) and at one or
+    two keys, W = 2 and 9."""
+    from kat_tpu_torch.core.kmers import top_bases
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    keys = workloads.wide_keys(k, n, dev, g)
+    assert torch.equal(sort_words(keys, 2 * top_bases(k) + 1),
+                       sort_words_plain(keys))
+    both = torch.cat([keys, workloads.wide_keys(k, 2 * n, dev, g)], dim=1)
+    a, ac, b = workloads.wide_merge_inputs(both, g)
+    got = merge_sorted_words(a, ac, b)
+    want = merge_sorted_words_plain(a, ac, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sk, w = workloads.wide_reduce_inputs(keys, g)
+    got = reduce_by_key_words(sk, w, n)
+    want = reduce_by_key_words_plain(sk, w, n)
+    torch.cuda.synchronize()
+    assert int(got[2]) == int(want[2])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wide_counter_on_the_card(dev):
+    """WideCodeStreamingCounter on the card equals the same counter on the
+    CPU (plain versions), with growth replays, and launched each W-word
+    kernel."""
+    from kat_tpu_torch.core import wide
+
+    rng = np.random.default_rng(3)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    batches = [genome[rng.integers(0, 19_000, 64)[:, None] + np.arange(900)]
+               for _ in range(6)]
+    fns = (sort_words, merge_sorted_words, reduce_by_key_words)
+    tables = []
+    for where in (dev, torch.device("cpu")):
+        for fn in fns:
+            fn.launches = 0
+        sc = wide.WideCodeStreamingCounter(95, initial_capacity=1 << 12,
+                                           flush_batches=2, device=where)
+        for b in batches:
+            sc.add_codes(b)
+        tables.append(sc.finish())
+        if where == dev:
+            assert min(fn.launches for fn in fns) >= 1
+    assert tables[0].n_unique == tables[1].n_unique
+    assert torch.equal(tables[0].keys.cpu(), tables[1].keys)
+    assert torch.equal(tables[0].counts.cpu(), tables[1].counts)

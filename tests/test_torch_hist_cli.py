@@ -75,14 +75,17 @@ def test_cli_hist_matches_jax(tmp_path, capsys):
 
 
 def test_unported_modes_raise(tmp_path):
-    """Wide keys (k > 31) are what `hist` still refuses, counted or
-    loaded."""
+    """What `hist` still refuses: the bucketed flush at a wide k (outside
+    its range), a k past 255, and a .jf of keys past 256 bases."""
     fq = _write_fastq(tmp_path / "reads.fq", seed=10, n_reads=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["--device", "cpu", "hist", "-m", "33", "-o",
+    with pytest.raises(ValueError, match="bucketed"):
+        tcli.main(["--device", "cpu", "--flush", "bucketed", "hist", "-m",
+                   "33", "-o", str(tmp_path / "b.hist"), fq])
+    with pytest.raises(ValueError, match="255"):
+        tcli.main(["--device", "cpu", "hist", "-m", "256", "-o",
                    str(tmp_path / "w.hist"), fq])
-    jf = tmp_path / "x.jf33"
-    jellyfish.write_jf(str(jf), [1 << 65, 7], np.array([2, 1]), 33, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    jf = tmp_path / "x.jf257"
+    jellyfish.write_jf(str(jf), [1 << 65, 7], np.array([2, 1]), 257, True)
+    with pytest.raises(ValueError, match="key_len 514"):
         tcli.main(["--device", "cpu", "hist", "-o", str(tmp_path / "l.hist"),
                    str(jf)])

@@ -7,9 +7,12 @@ import pytest
 import torch
 
 from kat_tpu.core import counting as jc
+from kat_tpu.core import wide as jwide
 from kat_tpu.io import jellyfish as jjf
 from kat_tpu.tools import common as jcommon
 from kat_tpu_torch.core import counting as tc
+from kat_tpu_torch.core import kmers
+from kat_tpu_torch.core import wide as twide
 from kat_tpu_torch.io import jellyfish as tjf
 from kat_tpu_torch.tools import common as tcommon
 
@@ -72,10 +75,28 @@ def test_read_header_rejects_other_files(tmp_path):
         tjf.read_header(str(p))
 
 
-def test_wide_writer_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tjf.write_jf(str(tmp_path / "w.jf"), [1 << 70], np.array([1]), 40,
-                     True)
+def test_wide_writer_raises(tmp_path, pinned):
+    """The wide writer (python-int keys, or [W, n] int64 words) writes
+    kat_tpu's bytes, counts saturating, records in key order whatever the
+    input order; it raises, as kat_tpu's does, on a key too wide for k."""
+    rng = np.random.default_rng(40)
+    keys = sorted({int.from_bytes(rng.bytes(10), "little") >> 1
+                   for _ in range(300)}, key=lambda v: v % 97)
+    counts = rng.integers(1, 70000, len(keys)).astype(np.uint32)
+    want, got, got_w = (tmp_path / n for n in ("j.jf", "t.jf", "w.jf"))
+    for counter_len in (4, 2):
+        jjf.write_jf(str(want), keys, counts, 40, True, counter_len)
+        tjf.write_jf(str(got), keys, counts, 40, True, counter_len)
+        tjf.write_jf(str(got_w), kmers.ints_to_words(keys, 40), counts, 40,
+                     True, counter_len)
+        assert got.read_bytes() == want.read_bytes()
+        assert got_w.read_bytes() == want.read_bytes()
+    hdr, words, c = tjf.read_jf_words(str(got))
+    assert hdr.mer_len == 40 and kmers.words_to_ints(words) == sorted(keys)
+    with pytest.raises(OverflowError):
+        jjf.write_jf(str(want), [1 << 80], np.array([1]), 40, True)
+    with pytest.raises(ValueError, match="does not fit"):
+        tjf.write_jf(str(got), [1 << 80], np.array([1]), 40, True)
 
 
 def test_input_load_matches_jax(tmp_path):
@@ -131,9 +152,24 @@ def test_input_dump_matches_jax(tmp_path, pinned):
 
 
 def test_input_load_of_wide_keys_raises(tmp_path):
+    """LOAD of a .jf of wide keys builds kat_tpu's table; a .jf whose keys
+    are wider than the reader takes (k > 256) raises."""
     path = str(tmp_path / "wide.jf40")
-    jjf.write_jf(path, [1 << 70, 5], np.array([1, 2]), 40, True)
-    inp = tcommon.Input(paths=[path], device=CPU)
+    jjf.write_jf(path, [1 << 70, 5, 3 << 60], np.array([1, 2, 7]), 40, True)
+    ji = jcommon.Input(paths=[path])
+    ti = tcommon.Input(paths=[path], device=CPU)
+    for inp in (ji, ti):
+        inp.validate()
+        inp.count_or_load(quiet=True)
+    assert ti.mer_len == ji.mer_len == 40
+    assert ti.table.capacity == ji.table.capacity == 4
+    jkeys, jv = jwide.table_to_numpy(ji.table)
+    tkeys, tv = twide.table_to_numpy(ti.table)
+    assert tkeys == jkeys == [5, 3 << 60, 1 << 70]
+    np.testing.assert_array_equal(tv, jv)
+    too_wide = str(tmp_path / "w.jf257")
+    jjf.write_jf(too_wide, [1 << 65], np.array([1]), 257, True)
+    inp = tcommon.Input(paths=[too_wide], device=CPU)
     inp.validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="key_len 514"):
         inp.count_or_load(quiet=True)

@@ -164,5 +164,8 @@ def test_table_helpers():
     assert gc.shape == (64,) and int(gc[40:].sum()) == 0
     filled = tables.where_real(tt, torch.full((64,), 5), fill=-1)
     assert filled[:40].tolist() == [5] * 40 and filled[40:].tolist() == [-1] * 24
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tables.extract(torch.zeros((1, 64), dtype=torch.uint8), 33, True)
+    words, valid = tables.extract(torch.zeros((1, 64), dtype=torch.uint8),
+                                  33, True)
+    assert words.shape == (2, 1, 32) and bool(valid.all())
+    with pytest.raises(ValueError, match="255"):
+        tables.extract(torch.zeros((1, 300), dtype=torch.uint8), 256, True)
