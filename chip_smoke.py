@@ -8,10 +8,11 @@
 2. checks each kernel (K1 sort, K2 merge, K3 reduce of the counting path;
    K4 compact, K1 with a value and K2 with payload planes of the lookup
    path; K5 chunk sort and K6 run merge of the bucketed flush; K7's round
-   classes) against its plain PyTorch version on the card at its path's
-   shapes, exactly (integer keys and counts: tolerance 0), with its time,
-   the plain version's, its bound and, where one PyTorch call computes the
-   same function, that call's time.  K1, alone and with a value, is also
+   classes; the binned sums of hist, gcp and comp) against its plain
+   PyTorch version on the card at its path's shapes, exactly (integer
+   keys and counts: tolerance 0), with its time, the plain version's, its
+   bound and, where one PyTorch call computes the same function, that
+   call's time.  K1, alone and with a value, is also
    held against its plain version on the inputs that strain its look-back
    (all keys equal, all SENTINEL, 90% one key, sorted, and lengths around
    its tile), its full-size sort is run five times with equal outputs, the
@@ -31,6 +32,15 @@
    top words, all SENTINEL, one run) at k = 33, 62, 63, 93, 94, 124, 125
    and 255 (W = 2..9); their kernels and memsets inside one call are
    counted in the same profiled window as the others;
+2c. checks the binned-sums kernel (csrc/binned.cu, the binned form of
+   kat_tpu's K1 + K3) against its plain version at the main path's shapes:
+   2^24 slots binned into the histogram's 10,001 bins, gcp's 28,028, and
+   comp's 1,002,001 with three masks at the reads-against-assembly skew
+   and uniform; and K2 with two payload planes and the two K4 compactions
+   of the fused dual probe at its shape (two 2^24-slot tables), the probe
+   as a whole against two binary searches; each timed beside its library
+   call, five runs with equal outputs, counted in the same profiled
+   window;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -42,6 +52,13 @@
    coverage.window_counts; the counts must come from the sort-merge join,
    equal the binary-search route and a reference built from torch.unique's
    table, and each lookup kernel must have been launched by that run;
+4a. runs gcp_matrix over that table (against the plain binned sum of
+   torch.unique's table) and comp of that reads table against the
+   genome's own k = 27 k-mers, and with a third input, a second read draw
+   of 24 batches (Comp.compare_tables, default bins and scales, the dual
+   probe engaged), cold and warm, held against numpy over the tables' keys
+   and counts; the binned-sums, K2-with-payload and K4 launches of each
+   run are read;
 4b. drives wide-key counting through WideCodeStreamingCounter on the main
    path's reads at k = 41 (193,462,272 windows, table grown from 2^20 to
    2^24 slots, W = 2) and on 8 of its batches at k = 95 (W = 4, a top word
@@ -58,10 +75,13 @@
    just before and read just after, every kernel must have been launched,
    the lookup kernels once per length bucket that the join policy takes,
    and those buckets must hold most of the windows; the artifacts are held
-   against numpy;
+   against numpy; then `gcp`, `comp` of the reads against the contigs
+   (with `-d`), with a third read set, and of the two dumped .jf through
+   cli.main, every artifact against numpy;
 6b. the same at k = 41: `hist -m 41 -d` and `hist` of its .jf as
    processes, `sect -m 41` through cli.main with the W-word kernels'
-   launch counts read around it; every artifact against numpy.
+   launch counts read around it, `gcp -m 41` and `comp -m 41`; every
+   artifact against numpy.
 
 7. drives the minimizer-bucketed flush at full width: the main path's read
    model (k=27 canonical, 196,608 reads of 1024 bases from the 2^23-base
@@ -507,6 +527,133 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
     return results, counted
 
 
+BINNED_REPLACES = ("kat_tpu/ops/sort_kernel.py:182 + "
+                   "kat_tpu/ops/reduce_kernel.py:147")
+
+
+def check_binned_kernels(dev, gen):
+    """The binned-sums kernel against its plain version at the main path's
+    shapes (workloads.binned_inputs: the histogram's 10,001 bins, gcp's
+    28,028, comp's 1,002,001 with three masks at the reads-against-assembly
+    skew and uniform), five runs of each with equal outputs.  Returns the
+    entries and their (entry, call) pairs."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.ops import binned_kernel as bk
+
+    results, counted = [], []
+    for shape in workloads.BINNED_SHAPES:
+        bins, masks, total = workloads.binned_inputs(shape, dev, gen)
+        got = bk.binned_sums(bins, masks, total)
+        err = _max_abs_err(got, bk.binned_sums_plain(bins, masks, total))
+        _repeat_equal(f"binned sums ({shape})",
+                      lambda: (bk.binned_sums(bins, masks, total),))
+        # the library call per mask: torch.bincount of the masked bins
+        lib_bins = [torch.where(m, bins.to(torch.int64), total)
+                    for m in masks]
+        m_planes = masks.shape[0]
+        results.append(_report(dict(
+            name=f"binned_sums[{shape}]", route="cuda",
+            source="kat_tpu_torch/csrc/binned.cu", replaces=BINNED_REPLACES,
+            max_abs_err=err,
+            ms=_timed_ms(lambda: bk.binned_sums(bins, masks, total), 10),
+            plain_ms=_timed_ms(
+                lambda: bk.binned_sums_plain(bins, masks, total), 5),
+            # one add per set mask element; a read of the bins and masks,
+            # a write of every bin
+            **_bound(_nbytes(bins, masks, got), int(masks.sum())),
+            library_ms=_timed_ms(lambda: [
+                torch.bincount(b, minlength=total + 1) for b in lib_bins],
+                5),
+            bins=total, masks=m_planes,
+            # the skew: the share of the adds that the 32 fullest bins take
+            top32_share=float(got.flatten().topk(32).values.sum()
+                              / max(1, int(masks.sum())))),
+            f"binned sums [{shape}] 2^24 x {m_planes} mask(s) -> {total} "
+            "bins"))
+        counted.append((results[-1],
+                        lambda bins=bins, masks=masks, total=total:
+                        bk.binned_sums(bins, masks, total)))
+        del got, lib_bins
+    print(f"binned sums: a block holds {bk.window_len()} shared counters")
+    return results, counted
+
+
+def check_dual_probe_kernels(dev, gen):
+    """K2 with two payload planes and the two K4 compactions of the fused
+    dual probe (ops/join.counts_join_dual) against their plain versions at
+    its shape: two 2^24-slot tables (workloads.dual_probe_shapes); the
+    probe as a whole against two binary searches.  Returns the entries
+    and their (entry, call) pairs."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import counting
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.ops import join, merge_kernel, reduce_kernel
+
+    a, ap, b, bp = workloads.dual_probe_shapes(dev, gen)
+    na, nb = a.numel(), b.numel()
+    mk, mp = merge_kernel.merge_sorted_payload(a, ap, b, bp)
+    pk, pp = merge_kernel.merge_sorted_payload_plain(a, ap, b, bp)
+    err = _same((mk, *mp), (pk, *pp))
+    del pk, pp
+    _repeat_equal("K2 with two planes", lambda: (lambda k, p: (k, *p))(
+        *merge_kernel.merge_sorted_payload(a, ap, b, bp)))
+    results = [_report(dict(
+        name="merge_path_payload[dual]", route="cuda",
+        source="kat_tpu_torch/csrc/merge.cu",
+        replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_payload(a, ap, b, bp),
+                     5),
+        plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_payload_plain(
+            a, ap, b, bp), 3),
+        **_bound(_nbytes(a, *ap, b, *bp, mk, *mp), mk.numel()),
+        library_ms=None, tile=merge_kernel.tile_len()),
+        "K2 merge 2^24 + 2^24 slots, 2 planes (the dual probe)")]
+    counted = [(results[-1], lambda: merge_kernel.merge_sorted_payload(
+        a, ap, b, bp))]
+
+    # the two compactions as counts_join_dual drives them
+    mcnt, msrc = mp
+    same_next = torch.zeros(na + nb, dtype=torch.bool, device=dev)
+    same_next[:-1] = mk[1:] == mk[:-1]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    from_next = torch.where(same_next, mcnt.roll(-1), zero)
+    from_prev = torch.where(same_next.roll(1), mcnt.roll(1), zero)
+    fa, fb = msrc == 1, msrc == 2
+
+    def both(fn):
+        return (*fn((from_next,), fa, na), *fn((from_prev,), fb, nb))
+
+    got = both(reduce_kernel.compact_flagged)
+    err = _same(got, both(reduce_kernel.compact_flagged_plain))
+    results.append(_report(dict(
+        name="compact_flagged[dual]", route="cuda",
+        source="kat_tpu_torch/csrc/compact.cu",
+        replaces="kat_tpu/ops/reduce_kernel.py:285", max_abs_err=err,
+        ms=_timed_ms(lambda: both(reduce_kernel.compact_flagged), 5),
+        plain_ms=_timed_ms(lambda: both(reduce_kernel.compact_flagged_plain),
+                           5),
+        **_bound(2 * _nbytes(from_next, fa) + (na + nb) * 4, 2 * (na + nb)),
+        library_ms=_timed_ms(lambda: (torch.masked_select(from_next, fa),
+                                      torch.masked_select(from_prev, fb)), 5)),
+        "K4 the dual probe's two compactions of 2^25 -> 2^24"))
+    counted.append((results[-1], lambda: both(reduce_kernel.compact_flagged)))
+
+    ta = counting.CountTable(a, ap[0], int((a != SENTINEL).sum()))
+    tb = counting.CountTable(b, bp[0], int((b != SENTINEL).sum()))
+    got_a, got_b = join.counts_join_dual(a, ap[0], b, bp[0])
+    if not (torch.equal(got_a, counting.lookup(tb, a))
+            and torch.equal(got_b, counting.lookup(ta, b))):
+        raise AssertionError("the dual probe differs from two searches")
+    n_shared = int((got_a > 0).sum())
+    print(f"dual probe: {n_shared} keys shared of {ta.n_unique} and "
+          f"{tb.n_unique}; equal to two binary searches")
+    return results, counted
+
+
 def check_bucketed_kernels(dev, gen, group_chunks: int):
     """K5 and K6 against their plain versions at the bucketed flush's
     shapes: one flush of MAX_CHUNKS chunks of 2^SLOTS_LOG key' slots, and
@@ -755,7 +902,8 @@ def main_path(dev):
     from kat_tpu_torch.benchmarks import workloads
     from kat_tpu_torch.core import counting, stats
     from kat_tpu_torch.core.kmers import SENTINEL, extract_kmers
-    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.ops import (binned_kernel, merge_kernel,
+                                   reduce_kernel, sort_kernel)
 
     k, rows, length, n_batches = (workloads.MAIN_K, workloads.MAIN_ROWS,
                                   workloads.MAIN_LENGTH,
@@ -771,7 +919,7 @@ def main_path(dev):
     torch.cuda.reset_peak_memory_stats(dev)
 
     kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
-               reduce_kernel.reduce_by_key)
+               reduce_kernel.reduce_by_key, binned_kernel.binned_sums)
     for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -788,8 +936,8 @@ def main_path(dev):
     n_windows = n_batches * rows * (length - k + 1)
     print(f"main path: {n_windows} windows k={k} in {dt:.4f} s = "
           f"{n_windows / dt:.1f} k-mers/s; table {table.n_unique} distinct, "
-          f"capacity {sc.capacity}; launches sort/merge/reduce {launches}; "
-          f"peak memory {peak} B")
+          f"capacity {sc.capacity}; launches sort/merge/reduce/binned "
+          f"{launches}; peak memory {peak} B")
     if min(launches) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if sc.capacity != 1 << 24:
@@ -888,6 +1036,194 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
           f"{m / wc_ms * 1e3:.1f} windows/s; join {join_ms:.3f} ms = "
           f"{join_ms * 1e6 / m:.4f} ns/query; search {search_ms:.3f} ms = "
           f"{search_ms * 1e6 / m:.4f} ns/query")
+    return launches
+
+
+def gcp_path(dev, table, ref_keys, ref_counts):
+    """stats.gcp_matrix over the table main_path built (k = 27, 2^24
+    slots), against the plain binned sum over torch.unique's table on the
+    same card.  Returns the binned-sums kernel's launches in that call."""
+    import torch
+
+    from kat_tpu_torch.core import stats
+    from kat_tpu_torch.core.kmers import gc_count
+    from kat_tpu_torch.ops import binned_kernel
+
+    k, cvg_bins = 27, 1000
+    binned_kernel.binned_sums.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = stats.gcp_matrix(table, k, cvg_bins)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = binned_kernel.binned_sums.launches
+    flat = gc_count(ref_keys) * (cvg_bins + 1) + ref_counts.clamp_max(
+        cvg_bins)
+    want = binned_kernel.binned_sums_plain(
+        flat.to(torch.int32), torch.ones((1, flat.numel()), dtype=torch.bool,
+                                         device=dev),
+        (k + 1) * (cvg_bins + 1)).reshape(k + 1, cvg_bins + 1)
+    _max_abs_err(got, want)
+    if launches != 1:
+        raise AssertionError(f"gcp_matrix launched the binned-sums kernel "
+                             f"{launches} times")
+    ms = _timed_ms(lambda: stats.gcp_matrix(table, k, cvg_bins), 5)
+    print(f"gcp path: {table.n_unique} distinct k-mers at capacity "
+          f"{table.capacity} in {dt:.4f} s cold, {ms:.3f} ms warm = "
+          f"{table.capacity / ms * 1e3:.1f} slots/s; equal to the plain "
+          f"binned sum of torch.unique's table; the fullest cell holds "
+          f"{int(got.max())}")
+    return launches
+
+
+def _numpy_lookup(keys: np.ndarray, counts: np.ndarray, q: np.ndarray):
+    """counts of sorted unique `keys` at the queries, 0 where absent."""
+    if keys.size == 0:
+        return np.zeros(q.shape, np.int64)
+    pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+    return np.where(keys[pos] == q, counts[pos], 0).astype(np.int64)
+
+
+def _numpy_comp(k1, c1, k2, c2, k3=None, c3=None, bins: int = 1001):
+    """kat comp's counters, spectra and matrices at unit scales and
+    bins x bins, with numpy alone, from canonical tables' sorted keys and
+    counts (the cross probes need no canonicalization then)."""
+    h2 = _numpy_lookup(k2, c2, k1)
+    h1b = _numpy_lookup(k1, c1, k2)
+    c1, c2 = c1.astype(np.int64), c2.astype(np.int64)
+    top = bins - 1
+    s1, s2, sb = (np.minimum(x, top) for x in (c1, h2, c2))
+    shared = h2 > 0
+    only2 = h1b == 0
+
+    def count(b, mask=None, size=bins):
+        return np.bincount(b if mask is None else b[mask],
+                           minlength=size).astype(np.uint64)
+
+    out = dict(counters=dict(
+        hash1_total=int(c1.sum()), hash1_distinct=int(c1.size),
+        hash1_only_total=int(c1[~shared].sum()),
+        hash1_only_distinct=int((~shared).sum()),
+        shared_hash1_total=int(c1[shared].sum()),
+        shared_hash2_total=int(h2[shared].sum()),
+        shared_distinct=int(shared.sum()),
+        hash2_total=int(c2.sum()), hash2_distinct=int(c2.size),
+        hash2_only_total=int(c2[only2].sum()),
+        hash2_only_distinct=int(only2.sum())))
+    main = count(s1 * bins + s2, size=bins * bins).reshape(bins, bins)
+    main[0] += count(sb, only2)
+    out.update(main=main, spectrum1=count(s1),
+               shared_spectrum1=count(s1, shared), spectrum2=count(sb),
+               shared_spectrum2=count(s2, shared))
+    if k3 is not None:
+        h3 = _numpy_lookup(k3, c3, k1)
+        s3 = np.minimum(h3, top)
+        flat = s1 * bins + s3
+        for name, m in (("ends", s2 == s3), ("mixed", (s2 != s3) & (h3 > 0)),
+                        ("middle", (s2 != s3) & (h3 == 0))):
+            out[name] = count(flat, m, bins * bins).reshape(bins, bins)
+        out["counters"].update(hash3_total=int(c3.astype(np.int64).sum()),
+                               hash3_distinct=int(c3.size))
+    else:
+        out["counters"].update(hash3_total=0, hash3_distinct=0)
+    return out
+
+
+def _check_comp(c, want: dict, what: str) -> None:
+    """A Comp's results against _numpy_comp's."""
+    if c.counters != want["counters"]:
+        raise AssertionError(f"{what}: counters {c.counters} != numpy's "
+                             f"{want['counters']}")
+    got = dict(main=c.main_mx.data, spectrum1=c.spectrum1,
+               shared_spectrum1=c.shared_spectrum1, spectrum2=c.spectrum2,
+               shared_spectrum2=c.shared_spectrum2)
+    if c.three_inputs:
+        got.update(ends=c.ends_mx.data, mixed=c.mixed_mx.data,
+                   middle=c.middle_mx.data)
+    for name, g in got.items():
+        if not np.array_equal(g, want[name]):
+            raise AssertionError(f"{what}: {name} differs from numpy's")
+
+
+def comp_path(dev, table, genome, smi: str):
+    """kat comp of reads against an assembly, how most users run it (the
+    spectra-cn check): hash1 the main path's reads table, hash2 the
+    genome's own k = 27 k-mers (its first 2^23 windows cut into rows as the
+    sequence encoder cuts a contig), and with three inputs hash3 a second
+    read draw of 24 batches at another seed; default bins and scales, so
+    the fused dual probe engages.  Through Comp.compare_tables (what
+    `execute` runs once the inputs are counted), timed cold and warm, held
+    against numpy over the tables' keys and counts.  Returns the launches
+    of the binned-sums kernel, K2 with payload planes and K4 in the
+    two-input and the three-input run."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import counting, tables
+    from kat_tpu_torch.ops import binned_kernel, merge_kernel, reduce_kernel
+    from kat_tpu_torch.tools.comp import Comp
+
+    k = workloads.MAIN_K
+    sc = counting.CodeStreamingCounter(k, initial_capacity=1 << 20,
+                                       flush_windows=1 << 26, device=dev)
+    sc.add_codes(workloads.contig_rows(genome, k))
+    t2 = sc.finish()
+    sc = workloads.main_path_counter(dev)
+    for b in workloads.read_draw(genome, SEED + 5,
+                                 workloads.COMP_THIRD_BATCHES):
+        sc.add_codes(b)
+    t3 = sc.finish()
+    del sc
+    t1c, t2c = tables.compact(table), tables.compact(t2)
+    if not (tables._join_policy(t1c.capacity, t2c.capacity, dev)
+            and tables._join_policy(t2c.capacity, t1c.capacity, dev)):
+        raise AssertionError("the dual probe's join policy did not engage")
+
+    kernels = (binned_kernel.binned_sums, merge_kernel.merge_sorted_payload,
+               reduce_kernel.compact_flagged)
+
+    def run(three: bool):
+        c = Comp([], [])
+        c.quiet = True
+        c.set_mer_len(k)
+        if three:
+            c.set_third_input([])
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.compare_tables(table, t2, t3 if three else None)
+        torch.cuda.synchronize()
+        return c, time.perf_counter() - t0, [fn.launches for fn in kernels]
+
+    host = [counting.table_to_numpy(t) for t in (table, t2, t3)]
+    host = [(keys.astype(np.int64), counts) for keys, counts in host]
+    launches = {}
+    for three in (False, True):
+        what = "three inputs" if three else "two inputs"
+        c, cold, n = run(three)
+        _c, warm, _n = run(three)
+        launches[what] = n
+        want = _numpy_comp(*host[0], *host[1],
+                           *(host[2] if three else (None, None)))
+        _check_comp(c, want, f"comp path, {what}")
+        n_kmers = table.n_unique + t2.n_unique + (t3.n_unique if three
+                                                  else 0)
+        print(f"comp path, {what}: {n_kmers} distinct k-mers compared "
+              f"(hash1 {table.n_unique}, hash2 {t2.n_unique}"
+              + (f", hash3 {t3.n_unique}" if three else "")
+              + f") in {cold:.4f} s cold = {n_kmers / cold:.1f} k-mers/s, "
+              f"{warm:.4f} s warm = {n_kmers / warm:.1f} k-mers/s ({smi}); "
+              f"{c.counters['shared_distinct']} shared; launches "
+              f"binned/merge_payload/compact {n}; equal to numpy's")
+    two, three = launches["two inputs"], launches["three inputs"]
+    # two inputs: pass 1 and pass 2 bin once each, the dual probe merges
+    # once and compacts twice; three: pass 1 also bins the three matrices
+    # and looks hash3 up through the join (sorted probes: one merge, one
+    # compaction)
+    if two != [2, 1, 2] or three != [3, 2, 3]:
+        raise AssertionError(f"comp launched binned/merge_payload/compact "
+                             f"{two} (two inputs), {three} (three)")
     return launches
 
 
@@ -1301,6 +1637,7 @@ def cli_run(dev):
                                  "numpy's")
         if not os.path.getsize(f"{prefix}-contamination.mx"):
             raise AssertionError("sect wrote no contamination matrix")
+        cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng)
     n_bases = sum(seq.size for _, seq in contigs)
     print(f"CLI: sect of {len(contigs)} contigs ({n_bases} bases, longest "
           f"{max(s.size for _, s in contigs)}) against the reads equals "
@@ -1309,6 +1646,150 @@ def cli_run(dev):
           f"sort/merge/reduce/sort_pairs/merge_payload/compact {launches}; "
           f"{n_join} buckets with {w_join} of {w_all} windows took the join")
     return launches
+
+
+def _popcount(x: np.ndarray) -> np.ndarray:
+    """Set bits per uint64 (SWAR), with numpy alone."""
+    u = np.uint64
+    x = x - ((x >> u(1)) & u(0x5555555555555555))
+    x = (x & u(0x3333333333333333)) + ((x >> u(2)) & u(0x3333333333333333))
+    x = (x + (x >> u(4))) & u(0x0F0F0F0F0F0F0F0F)
+    return ((x * u(0x0101010101010101)) >> u(56)).astype(np.int64)
+
+
+def _numpy_gc(word: np.ndarray) -> np.ndarray:
+    """G/C bases of 2-bit packed words (C = 01, G = 10: the bits differ)."""
+    return _popcount((word ^ (word >> np.uint64(1)))
+                     & np.uint64(0x5555555555555555))
+
+
+def _numpy_gcp(gc: np.ndarray, counts: np.ndarray, k: int,
+               cvg_bins: int = 1000) -> np.ndarray:
+    """The printed rows (GC 0..k-1) of gcp's matrix at unit scale."""
+    cols = np.minimum(counts.astype(np.int64), cvg_bins)
+    mx = np.bincount(gc * (cvg_bins + 1) + cols,
+                     minlength=(k + 1) * (cvg_bins + 1))
+    return mx.reshape(k + 1, cvg_bins + 1)[:k]
+
+
+def _read_mx(path: str) -> np.ndarray:
+    """The matrix rows of a .mx artifact."""
+    rows = [ln.split(" ") for ln in _read(path).splitlines()
+            if ln and not ln.startswith("#")]
+    return np.array(rows, np.int64)
+
+
+def _read_counters(path: str, three: bool) -> dict:
+    """The counters a comp .stats artifact prints, by name."""
+    import re
+
+    text = _read(path).split("Distance between")[0]
+    vals = [int(v) for v in re.findall(r"^ - [^\n]*?: (\d+)$", text,
+                                       re.M)]
+    names = ["hash1_total", "hash2_total"] + (["hash3_total"] if three
+                                              else [])
+    names += ["hash1_distinct", "hash2_distinct"] + (
+        ["hash3_distinct"] if three else [])
+    names += ["hash1_only_total", "hash2_only_total", "hash1_only_distinct",
+              "hash2_only_distinct", "shared_hash1_total",
+              "shared_hash2_total", "shared_distinct"]
+    if len(vals) != len(names):
+        raise AssertionError(f"{path}: {len(vals)} counters, expected "
+                             f"{len(names)}")
+    return dict(zip(names, vals))
+
+
+def _check_comp_files(prefix: str, want: dict, three: bool,
+                      what: str) -> None:
+    """comp's artifacts against _numpy_comp's results."""
+    counters = dict(want["counters"])
+    if not three:
+        del counters["hash3_total"], counters["hash3_distinct"]
+    if _read_counters(f"{prefix}.stats", three) != counters:
+        raise AssertionError(f"{what}: .stats counters differ from numpy's")
+    for name in ("main", "ends", "mixed", "middle") if three else ("main",):
+        if not np.array_equal(_read_mx(f"{prefix}-{name}.mx"),
+                              want[name].astype(np.int64)):
+            raise AssertionError(f"{what}: -{name}.mx differs from numpy's")
+
+
+def _write_fastq(path: str, seqs: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        qual = b"I" * seqs.shape[1]
+        for i in range(seqs.shape[0]):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
+
+
+def _cli_in_process(args: list[str], what: str) -> float:
+    """cli.main(args) on the card, its banner swallowed; returns seconds."""
+    import contextlib
+    import io
+
+    from kat_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = cli.main(args)
+    dt = time.perf_counter() - t0
+    if rc != 0 or "Plot and peak analysis skipped" not in out.getvalue():
+        raise AssertionError(f"{what} returned {rc}:\n{out.getvalue()}")
+    return dt
+
+
+def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng):
+    """`gcp` and `comp` (two inputs, three, and of the two .jf that `comp
+    -d` dumps) of the CLI read set through cli.main, every artifact against
+    numpy; the binned-sums kernel's launches read around each run."""
+    from kat_tpu_torch.ops import binned_kernel
+
+    kernel = binned_kernel.binned_sums
+    kernel.launches = 0
+    gp = os.path.join(tmp, "gcp")
+    dt = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp")
+    if not np.array_equal(_read_mx(f"{gp}.mx"),
+                          _numpy_gcp(_numpy_gc(uniq), ucounts, k)):
+        raise AssertionError("CLI gcp differs from numpy's matrix")
+    print(f"CLI: gcp of the reads equals numpy's in {dt:.4f} s (counting "
+          f"included); binned-sums launches {kernel.launches}")
+
+    ckeys = np.concatenate([w[v] for w, v in (
+        _numpy_windows(seq, k) for _n, seq in contigs if seq.size >= k)])
+    k2, c2 = np.unique(ckeys, return_counts=True)
+    off = rng.integers(0, genome.size - 150, 60_000)
+    fq3 = os.path.join(tmp, "reads3.fq")
+    seqs3 = genome[off[:, None] + np.arange(150)]
+    _write_fastq(fq3, seqs3)
+    w3, v3 = _numpy_windows(seqs3, k)
+    k3, c3 = np.unique(w3[v3], return_counts=True)
+    for three in (False, True):
+        what = "three inputs" if three else "two inputs"
+        cp = os.path.join(tmp, f"comp{int(three)}")
+        kernel.launches = 0
+        dt = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa]
+                             + ([fq3] if three else ["-d"]), f"comp, {what}")
+        launches = kernel.launches
+        _check_comp_files(cp, _numpy_comp(uniq, ucounts, k2, c2,
+                                          *((k3, c3) if three
+                                            else (None, None))),
+                          three, f"CLI comp, {what}")
+        print(f"CLI: comp of the reads against the contigs, {what}, "
+              f"equals numpy's in {dt:.4f} s (counting included); "
+              f"binned-sums launches {launches}")
+        if launches < 2 + three:
+            raise AssertionError(f"comp, {what}: {launches} binned-sums "
+                                 "launches")
+    cp = os.path.join(tmp, "comp0")
+    cj = os.path.join(tmp, "comp_jf")
+    dt = _cli_in_process(["comp", "-o", cj, f"{cp}-hash1.jf{k}",
+                          f"{cp}-hash2.jf{k}"], "comp of two .jf")
+    if (_read(f"{cj}-main.mx").split("###")[1]
+            != _read(f"{cp}-main.mx").split("###")[1]
+            or _read(f"{cj}.stats").split("Total K-mers in")[1]
+            != _read(f"{cp}.stats").split("Total K-mers in")[1]):
+        raise AssertionError("comp of the dumped .jf differs from comp of "
+                             "the reads")
+    print(f"CLI: comp of the two dumped .jf equals comp of the files, in "
+          f"{dt:.4f} s")
 
 
 def _numpy_wide_windows(seq: np.ndarray, k: int):
@@ -1435,10 +1916,58 @@ def wide_cli_run(dev):
         if ({r[0]: (r[1], r[2]) for r in rows} != stats
                 or len(rows) != len(contigs)):
             raise AssertionError("sect -m 41 stats.tsv differs from numpy's")
+        wide_cli_gcp_comp(tmp, fq, fa, contigs, table, k)
     print(f"wide CLI: sect -m {k} of {len(contigs)} contigs equals numpy's "
           f"counts, medians and means, in {dt:.4f} s (counting included); "
           f"launches W-word sort/merge/reduce {launches}")
     return launches
+
+
+def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int):
+    """`gcp -m 41` and `comp -m 41` of the reads against the contigs through
+    cli.main, against numpy over the k-mers as word tuples (`table`: the
+    reads' counts by key)."""
+    from kat_tpu_torch.ops import binned_kernel
+
+    kernel = binned_kernel.binned_sums
+    keys = list(table)
+    counts = np.array([table[t] for t in keys], np.int64)
+    gc = sum(_numpy_gc(np.array(w, np.uint64)) for w in zip(*keys))
+    kernel.launches = 0
+    gp = os.path.join(tmp, "gcp")
+    dt = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp -m 41")
+    if not np.array_equal(_read_mx(f"{gp}.mx"), _numpy_gcp(gc, counts, k)):
+        raise AssertionError("CLI gcp -m 41 differs from numpy's matrix")
+    print(f"wide CLI: gcp -m {k} equals numpy's in {dt:.4f} s (counting "
+          f"included); binned-sums launches {kernel.launches}")
+
+    cont = {}
+    for _name, seq in contigs:
+        if seq.size < k:
+            continue
+        cw, cv = _numpy_wide_windows(seq, k)
+        for key, ok in zip(zip(*[w.tolist() for w in cw]), cv.tolist()):
+            if ok:
+                cont[key] = cont.get(key, 0) + 1
+    ids: dict = {}  # a key tuple's integer name: one order for both tables
+
+    def side(d):
+        kid = np.array([ids.setdefault(t, len(ids)) for t in d], np.int64)
+        c = np.array(list(d.values()), np.int64)
+        order = np.argsort(kid)
+        return kid[order], c[order]
+
+    want = _numpy_comp(*side(table), *side(cont))
+    cp = os.path.join(tmp, "comp")
+    kernel.launches = 0
+    dt = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa],
+                         "comp -m 41")
+    _check_comp_files(cp, want, False, "CLI comp -m 41")
+    print(f"wide CLI: comp -m {k} of the reads against the contigs equals "
+          f"numpy's in {dt:.4f} s (counting included); binned-sums "
+          f"launches {kernel.launches}")
+    if kernel.launches < 2:
+        raise AssertionError("comp -m 41 did not run the binned-sums kernel")
 
 
 def main() -> int:
@@ -1465,11 +1994,21 @@ def main() -> int:
 
     kernels, counted = check_kernels(dev, gen)
     wide, wide_counted = check_wide_kernels(dev, gen)
-    count_inside(counted + wide_counted)
-    del counted, wide_counted
+    binned, binned_counted = check_binned_kernels(dev, gen)
+    dual, dual_counted = check_dual_probe_kernels(dev, gen)
+    count_inside(counted + wide_counted + binned_counted + dual_counted)
+    del counted, wide_counted, binned_counted, dual_counted
     launches, table, genome, ref_keys, ref_counts = main_path(dev)
+    binned[0]["launches"] = launches.pop()  # hist_from_counts
     launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
-    del table, genome, ref_keys, ref_counts
+    binned[1]["launches"] = gcp_path(dev, table, ref_keys, ref_counts)
+    del ref_keys, ref_counts
+    comp = comp_path(dev, table, genome, smi)
+    del table, genome
+    for entry in binned[2:]:
+        entry["launches"] = comp["three inputs"][0]
+    for entry, n in zip(dual, comp["two inputs"][1:], strict=True):
+        entry["launches"] = n
     for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
     for entry, n, n95 in zip(wide, wide_path(dev, 41, 48, smi),
@@ -1489,7 +2028,7 @@ def main() -> int:
     # K3, K2 with payload planes and K1 with a value also carry this path
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
-    kernels += [k5, k6, check_rounds_kernel(dev)]
+    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,16 +6,17 @@ counting and lookup hot paths in CUDA kernels written for NVIDIA Hopper
 layout mirrors `kat_tpu`, module for module:
 
     kat_tpu_torch.core   -- 2-bit k-mer packing, window extraction, counting
-                            (narrow and wide keys), bulk lookups and window
-                            profiles
-    kat_tpu_torch.ops    -- sort / merge / reduce-by-key / compaction kernels
-                            (one int64 key or W words) + plain versions, and
-                            the sort-merge join
+                            (narrow and wide keys), bulk lookups, window
+                            profiles, binned sums and comp's passes
+    kat_tpu_torch.ops    -- sort / merge / reduce-by-key / compaction /
+                            binned-sums kernels (one int64 key or W words)
+                            + plain versions, and the sort-merge join
     kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme
                             headers, the .jf codec
-    kat_tpu_torch.tools  -- the `kat hist` and `kat sect` workloads and input
-                            handling
-    kat_tpu_torch.cli    -- `kat`-compatible command line (hist, sect)
+    kat_tpu_torch.tools  -- the `kat hist`, `gcp`, `comp` and `sect`
+                            workloads and input handling
+    kat_tpu_torch.cli    -- `kat`-compatible command line (hist, gcp, comp,
+                            sect)
 
 Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel;
 wide keys (31 < k <= 255) are ceil(k / 31) int64 words of 31 bases.

@@ -7,7 +7,7 @@ canonical, 48 batches of 4096 reads x 1024 bases from a 2^23-base random
 genome, staged on the card, 196,214,784 windows in 3 flushes, table grown
 from 2^20 slots) once to warm up and once under torch.profiler, and prints
 the wall time, the device time in all, the share of each hand-written
-kernel (a memset of a kernel's scratch counts with the kernel that runs
+kernel (the histogram's binned sums among them; a memset of a kernel's scratch counts with the kernel that runs
 just after it: K1's histogram, K3's tile pass), and the 15 costliest
 kernels.  With --k above 31 the same reads go through the wide counter
 (k = 41: 193,462,272 windows, W = 2 words a key) and its W-word kernels.
@@ -25,7 +25,8 @@ import torch
 # how the kernels of csrc/ begin in the profiler's names (after "void ")
 KERNEL_GROUPS = (("K1 sort", "(anonymous namespace)::radix_"),
                  ("K2 merge", "(anonymous namespace)::merge_"),
-                 ("K3 reduce", "(anonymous namespace)::reduce_"))
+                 ("K3 reduce", "(anonymous namespace)::reduce_"),
+                 ("binned sums", "(anonymous namespace)::binned_"))
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,8 +1,9 @@
 """What the measurement scripts, chip_smoke.py and the card tests share:
-the card's published rates, the main path's input, the counting flush's
-shapes (narrow and wide keys), the K2 and K3 inputs that strain a single
-pass, the W-word kernels' strain inputs, and a count of what one call runs
-on the card."""
+the card's published rates, the main path's input (and comp's second read
+set and assembly of its genome), the counting flush's shapes (narrow and
+wide keys), the binned sums' and the dual probe's shapes, the K2 and K3
+inputs that strain a single pass, the W-word kernels' strain inputs, and a
+count of what one call runs on the card."""
 
 from __future__ import annotations
 
@@ -30,6 +31,92 @@ def main_path_batches(dev, seed: int):
     offsets = torch.from_numpy(rng.integers(
         0, MAIN_GENOME_LEN, (MAIN_BATCHES, MAIN_ROWS))).to(dev)
     return genome, [reads[offsets[i]] for i in range(MAIN_BATCHES)]
+
+
+def read_draw(genome: torch.Tensor, seed: int, n_batches: int):
+    """Another read set of the same genome: n_batches of MAIN_ROWS reads of
+    MAIN_LENGTH bases at offsets drawn from `seed` (comp's third input)."""
+    rng = np.random.default_rng(seed)
+    reads = genome.unfold(0, MAIN_LENGTH, 1)
+    offsets = torch.from_numpy(rng.integers(
+        0, MAIN_GENOME_LEN, (n_batches, MAIN_ROWS))).to(genome.device)
+    return [reads[offsets[i]] for i in range(n_batches)]
+
+
+def contig_rows(genome: torch.Tensor, k: int, row: int = 1 << 16):
+    """The genome's first MAIN_GENOME_LEN windows as one contig, cut into
+    rows of `row` windows that overlap by k - 1 bases, as the sequence
+    encoder cuts a long contig: every window once (comp's assembly)."""
+    return genome[:MAIN_GENOME_LEN + k - 1].unfold(0, row + k - 1, row)
+
+
+COMP_THIRD_BATCHES = 24  # comp's third input: half the main path's depth
+BINNED_SHAPES = ("hist", "gcp", "comp", "comp_uniform")
+
+
+def binned_inputs(name: str, dev, gen):
+    """(bins int32 [n], masks bool [M, n], total_bins) of a binned sum at
+    the main path's table size, 2^24 slots with 8,389,530 real ones whose
+    counts are Poisson at the reads' depth (196,214,784 windows over them,
+    about 23.4): the histogram's (10,001 bins, one mask), gcp's (28 GC
+    rows x 1001 coverage columns at k = 27, one mask), and comp pass 1's
+    three matrices with three inputs (1001 x 1001 bins; rows by the reads'
+    count, columns by the second read set's at half the depth; masks ends,
+    mixed and middle against an assembly where each k-mer occurs once),
+    at that skew and with uniform bins."""
+    cap, n_real = 1 << 24, 8_389_530
+    real = torch.zeros(cap, dtype=torch.bool, device=dev)
+    real[:n_real] = True
+    depth = 196_214_784 / n_real
+
+    def counts(mean):
+        c = torch.poisson(torch.full((cap,), mean, device=dev),
+                          generator=gen).to(torch.int64)
+        return torch.where(real, c, 0)
+
+    c1 = counts(depth)
+    if name == "hist":
+        bins = torch.where(c1 < 1, 0, torch.where(c1 > 10_001, 10_000,
+                                                   c1 - 1))
+        return bins.to(torch.int32), (c1 > 0)[None], 10_001
+    if name == "gcp":
+        gc = torch.randint(0, 2, (27, cap), device=dev, generator=gen).sum(0)
+        bins = gc * 1001 + c1.clamp_max(1000)
+        return bins.to(torch.int32), (c1 > 0)[None], 28 * 1001
+    s3 = counts(depth / 2).clamp_max(1000)
+    s2 = torch.where(real, 1, 0)
+    masks = torch.stack([real & (s2 == s3), real & (s2 != s3) & (s3 > 0),
+                         real & (s2 != s3) & (s3 == 0)])
+    total = 1001 * 1001
+    if name == "comp":
+        bins = c1.clamp_max(1000) * 1001 + s3
+    else:
+        bins = torch.randint(0, total, (cap,), device=dev, generator=gen)
+    return bins.to(torch.int32), masks, total
+
+
+def dual_probe_shapes(dev, gen):
+    """The fused dual probe's inputs: two 2^24-slot tables of ~2^23
+    distinct 54-bit keys each from one 1.5 x 2^23 key universe (so about
+    half of each table's keys are shared), counts 1-99, each carrying its
+    count and its source (1 or 2) as the merge's payload planes."""
+    cap = 1 << 24
+    universe = torch.randint(0, 1 << 54, (3 << 22,), dtype=torch.int64,
+                             device=dev, generator=gen)
+    out = []
+    for src in (1, 2):
+        pick = torch.randperm(universe.numel(), device=dev,
+                              generator=gen)[:1 << 23]
+        real = torch.unique(universe[pick])
+        keys = torch.full((cap,), SENTINEL, dtype=torch.int64, device=dev)
+        keys[:real.numel()] = real
+        counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+        counts[:real.numel()] = torch.randint(
+            1, 100, (real.numel(),), dtype=torch.int32, device=dev,
+            generator=gen)
+        out += [keys, (counts, torch.full((cap,), src, dtype=torch.int32,
+                                          device=dev))]
+    return tuple(out)
 
 
 def main_path_counter(dev):

@@ -1,9 +1,10 @@
 """`kat`-compatible command line (reference src/kat.cc mode dispatch).
 
-Port of kat_tpu/cli.py with the `hist` and `sect` modes, same flags and
-defaults, plus a top-level `--device` (the card unless the CPU is asked for)
-and `--flush` (the classic counting flush unless the minimizer-bucketed one
-is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
+Port of kat_tpu/cli.py with the `hist`, `gcp`, `comp` and `sect` modes,
+same flags and defaults, plus a top-level `--device` (the card unless the
+CPU is asked for) and `--flush` (the classic counting flush unless the
+minimizer-bucketed one is asked for: the counterpart of kat_tpu's
+KAT_TPU_MINIMIZER switch).
 Usage: python -m kat_tpu_torch [--device {cuda,cpu}]
        [--flush {classic,bucketed}] <mode> [options] ...
 """
@@ -89,8 +90,132 @@ def _run_hist(args) -> int:
         h.verbose = args.verbose
         h.execute()
         h.save()
-        print("Plot and peak analysis skipped: not ported yet "
-              "(ROADMAP.md §1 item 11).")
+        _plots_skipped()
+    return 0
+
+
+def _plots_skipped() -> None:
+    """kat_tpu plots and analyses peaks after hist, gcp and comp
+    (kat_tpu/cli.py:104-111,150-154,224-249); the port has neither yet."""
+    print("Plot and peak analysis skipped: not ported yet "
+          "(ROADMAP.md §1 item 4).")
+
+
+def _add_gcp(sub):
+    p = sub.add_parser(
+        "gcp", add_help=True,
+        description="K-mer GC Processor: matrix of GC count x k-mer "
+                    "frequency over all distinct k-mers.")
+    _common_count_flags(p, "kat-gcp")
+    p.add_argument("-x", "--cvg_scale", type=float, default=1.0,
+                   help="Scaling factor for coverage bins.")
+    p.add_argument("-y", "--cvg_bins", type=int, default=1000,
+                   help="Number of bins for the cvg data.")
+    p.add_argument("-p", "--output_type", default="png")
+    p.add_argument("inputs", nargs="+")
+    p.set_defaults(func=_run_gcp)
+
+
+def _run_gcp(args) -> int:
+    from .tools.common import glob_files, parse_trim_list
+    from .tools.gcp import Gcp
+
+    print("Running KAT in GCP mode")
+    print("------------------------")
+    print()
+    with total("KAT GCP"):
+        g = Gcp(glob_files(args.inputs))
+        g.output_prefix = args.output_prefix
+        g.input.device = _device(args)
+        g.input.flush = args.flush
+        g.cvg_scale = args.cvg_scale
+        g.cvg_bins = args.cvg_bins
+        g.input.trim5 = parse_trim_list(args.trim5)
+        g.input.canonical = not args.non_canonical
+        g.input.mer_len = args.mer_len
+        g.input.hash_size = args.hash_size
+        g.input.dump_hash = args.dump_hash
+        g.execute()
+        g.save()
+        _plots_skipped()
+    return 0
+
+
+def _add_comp(sub):
+    p = sub.add_parser(
+        "comp", add_help=False,
+        description="K-mer comparison tool: shared k-mer matrix between two "
+                    "(or three) inputs.")
+    p.add_argument("--help", action="help")
+    p.add_argument("-o", "--output_prefix", default="kat-comp")
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("-x", "--d1_scale", type=float, default=1.0)
+    p.add_argument("-y", "--d2_scale", type=float, default=1.0)
+    p.add_argument("-i", "--d1_bins", type=int, default=1001)
+    p.add_argument("-j", "--d2_bins", type=int, default=1001)
+    p.add_argument("--d1_5ptrim", default="0")
+    p.add_argument("--d2_5ptrim", default="0")
+    p.add_argument("-N", "--non_canonical_1", action="store_true")
+    p.add_argument("-O", "--non_canonical_2", action="store_true")
+    p.add_argument("-P", "--non_canonical_3", action="store_true")
+    p.add_argument("-m", "--mer_len", type=int, default=DEFAULT_MER_LEN)
+    p.add_argument("-H", "--hash_size_1", type=int, default=DEFAULT_HASH_SIZE)
+    p.add_argument("-I", "--hash_size_2", type=int, default=DEFAULT_HASH_SIZE)
+    p.add_argument("-J", "--hash_size_3", type=int, default=DEFAULT_HASH_SIZE)
+    p.add_argument("-d", "--dump_hashes", action="store_true")
+    p.add_argument("-g", "--disable_hash_grow", action="store_true")
+    # -n picks kat_tpu's density plot over spectra-cn: no plots here yet
+    p.add_argument("-n", "--density_plot", action="store_true")
+    p.add_argument("-p", "--output_type", default="png")
+    p.add_argument("-h", "--output_hists", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("input_1")
+    p.add_argument("input_2")
+    p.add_argument("input_3", nargs="?", default=None)
+    p.set_defaults(func=_run_comp)
+
+
+def _run_comp(args) -> int:
+    from .tools.comp import Comp
+    from .tools.common import glob_files, parse_trim_list
+
+    print("Running KAT in COMP mode")
+    print("------------------------")
+    print()
+    with total("KAT COMP"):
+        c = Comp(glob_files(args.input_1), glob_files(args.input_2))
+        if args.input_3:
+            c.set_third_input(glob_files(args.input_3))
+        device = _device(args)
+        for inp in c.inputs:
+            inp.device = device
+            inp.flush = args.flush
+        c.output_prefix = args.output_prefix
+        c.d1_scale = args.d1_scale
+        c.d2_scale = args.d2_scale
+        c.d1_bins = args.d1_bins
+        c.d2_bins = args.d2_bins
+        c.inputs[0].trim5 = parse_trim_list(args.d1_5ptrim)
+        c.inputs[1].trim5 = parse_trim_list(args.d2_5ptrim)
+        c.set_mer_len(args.mer_len)
+        c.inputs[0].canonical = not args.non_canonical_1
+        c.inputs[1].canonical = not args.non_canonical_2
+        c.inputs[2].canonical = not args.non_canonical_3
+        c.inputs[0].hash_size = args.hash_size_1
+        c.inputs[1].hash_size = args.hash_size_2
+        c.inputs[2].hash_size = args.hash_size_3
+        c.dump_hashes = args.dump_hashes
+        c.disable_hash_grow = args.disable_hash_grow
+        c.output_hists = args.output_hists
+        c.verbose = args.verbose
+        c.execute()
+        c.save()
+        print()
+        print("Summary statistics")
+        print("------------------")
+        print()
+        c.print_counters(sys.stdout)
+        _plots_skipped()
     return 0
 
 
@@ -167,7 +292,7 @@ def main(argv: list[str] | None = None) -> int:
         prog="kat", add_help=False,
         description="The K-mer Analysis Toolkit (KAT), PyTorch/CUDA port. "
                     "The first argument should be the tool/mode you wish to "
-                    "use: hist, sect.")
+                    "use: hist, gcp, comp, sect.")
     parser.add_argument("--version", action="version",
                         version=f"kat {__version__} (kat_tpu_torch)")
     parser.add_argument("--help", action="help")
@@ -183,8 +308,8 @@ def main(argv: list[str] | None = None) -> int:
                              "(canonical, 13 < k <= 29, files only; an "
                              "error otherwise).")
     sub = parser.add_subparsers(dest="mode")
-    _add_hist(sub)
-    _add_sect(sub)
+    for adder in (_add_hist, _add_gcp, _add_comp, _add_sect):
+        adder(sub)
     args = parser.parse_args(argv)
     if args.mode is None:
         parser.print_help()

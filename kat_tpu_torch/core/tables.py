@@ -76,7 +76,10 @@ def lookup_dual(t_a, t_b):
 
     Returns (b_counts_for_a_keys, a_counts_for_b_keys) aligned with each
     table's capacity, or None when the join policy would not engage for
-    either direction (callers fall back to two independent lookups)."""
+    either direction, and always for wide tables, whose lookups take the
+    search (callers fall back to two independent lookups)."""
+    if is_wide(t_a) or is_wide(t_b):
+        return None
     dev = t_a.keys.device
     if not (_join_policy(t_a.capacity, t_b.capacity, dev)
             and _join_policy(t_b.capacity, t_a.capacity, dev)):

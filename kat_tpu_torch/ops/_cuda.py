@@ -59,6 +59,8 @@ _SIGNATURES = {
     "kat_reduce_by_key_scratch": [_I64],
     "kat_reduce_by_key_tile": [],
     "kat_reduce_by_key_words": [_P, _INT, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "kat_binned_sums": [_P, _P, _INT, _I64, _P, _INT, _P, _P],
+    "kat_binned_sums_window": [],
     "kat_sort_chunks": [_P, _P, _I64, _INT, _P],
     "kat_merge_runs": [_P, _P, _P, _I64, _I64, _P],
     "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],

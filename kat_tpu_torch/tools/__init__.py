@@ -1,1 +1,2 @@
-"""KAT workloads: hist, sect, plus shared input handling (common.py)."""
+"""KAT workloads: hist, gcp, comp, sect, plus shared input handling
+(common.py)."""

@@ -1,1 +1,1 @@
-"""Cross-cutting utilities: stage timers."""
+"""Cross-cutting utilities: stage timers, C++ stream number formatting."""

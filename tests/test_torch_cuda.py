@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
 payload forms of K1 and K2, the W-word forms of K1, K2 and K3, K5 chunk
-sort, K6 run merge and K7's round classes) against their plain PyTorch
-versions on the card, exactly (integer keys and counts: tolerance 0).
+sort, K6 run merge, K7's round classes and the binned sums) against their
+plain PyTorch versions on the card, exactly (integer keys and counts:
+tolerance 0).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -893,3 +894,139 @@ def test_wide_counter_on_the_card(dev):
     assert tables[0].n_unique == tables[1].n_unique
     assert torch.equal(tables[0].keys.cpu(), tables[1].keys)
     assert torch.equal(tables[0].counts.cpu(), tables[1].counts)
+
+
+# -- binned sums (csrc/binned.cu), the binned form of K1 + K3 --
+
+def _binned_case(name, rng, dev):
+    """(bins int32, masks [M, n], total_bins) on the card."""
+    if name == "empty":
+        n, total, m = 0, 10_001, 2
+    elif name == "ragged":  # not a multiple of the block or the warp
+        n, total, m = 3 * 512 + 17, 10_001, 1
+    elif name == "one_bin":
+        n, total, m = 1 << 20, 28_028, 1
+    elif name == "comp_three_masks":
+        n, total, m = 1 << 22, 1_002_001, 3
+    else:  # "all_masks_zero"
+        n, total, m = 100_003, 1_002_001, 3
+    if name == "one_bin":
+        bins = np.full(n, 24 * 1001 + 1, np.int32)
+    elif name == "comp_three_masks":
+        # reads against an assembly: nearly all in a few dozen cells, the
+        # rest spread over the matrix (outside the shared window too)
+        hot = rng.poisson(24, n) * 1001 + 1
+        bins = np.where(rng.random(n) < 0.95, np.minimum(hot, total - 1),
+                        rng.integers(0, total, n)).astype(np.int32)
+    else:
+        bins = rng.integers(0, total, n).astype(np.int32)
+    if name == "all_masks_zero":
+        masks = np.zeros((m, n), bool)
+    elif name == "comp_three_masks":  # three disjoint masks, as comp's
+        pick = rng.integers(0, 4, n)
+        masks = np.stack([pick == i for i in range(m)])
+    else:
+        masks = rng.random((m, n)) < 0.7
+    return (torch.from_numpy(bins).to(dev), torch.from_numpy(masks).to(dev),
+            total)
+
+
+@pytest.mark.parametrize("name", ["empty", "ragged", "one_bin",
+                                  "comp_three_masks", "all_masks_zero"])
+def test_binned_sums_matches_plain(dev, name):
+    from kat_tpu_torch.ops.binned_kernel import (binned_sums,
+                                                 binned_sums_plain)
+
+    bins, masks, total = _binned_case(name, np.random.default_rng(7), dev)
+    before = binned_sums.launches
+    got = binned_sums(bins, masks, total)
+    want = binned_sums_plain(bins, masks, total)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (masks.shape[0], total)
+    assert torch.equal(got, want)
+    assert binned_sums.launches == before + (1 if bins.numel() else 0)
+    assert int(got.sum()) == int(masks.sum())
+    if name == "one_bin":
+        assert int(got[0, 24 * 1001 + 1]) == bins.numel() - int(
+            (~masks[0]).sum())
+
+
+def test_binned_sums_uint8_masks_and_repeats(dev):
+    """uint8 masks count any non-zero value once; five runs agree."""
+    from kat_tpu_torch.ops.binned_kernel import (binned_sums,
+                                                 binned_sums_plain)
+
+    rng = np.random.default_rng(3)
+    n, total = (1 << 21) + 5, 10_001
+    bins = torch.from_numpy(np.minimum(rng.poisson(20, n), total - 1)
+                            .astype(np.int32)).to(dev)
+    masks = torch.from_numpy(rng.integers(0, 4, (2, n)).astype(np.uint8)).to(
+        dev)
+    want = binned_sums_plain(bins, masks, total)
+    for _ in range(5):
+        assert torch.equal(binned_sums(bins, masks, total), want)
+
+
+@pytest.mark.parametrize("reqs", [
+    ((1001, 1001, 0), (1001, 1001, 1), (1, 1001 * 1001, 0)),
+    ((1001, 1001, 0), (1, 1001, 1), (1001, 1001, 2)),
+    ((7, 50_000, 2),)], ids=["comp_pass1", "comp_pass2", "one_request"])
+def test_packed_sums_matches_plain(dev, reqs):
+    from kat_tpu_torch.ops.binned_kernel import packed_sums, packed_sums_plain
+
+    rng = np.random.default_rng(len(reqs))
+    n = (1 << 22) + 333
+    s1 = np.minimum(rng.poisson(24, n), 1000)
+    s2 = np.minimum(rng.poisson(1, n), 1000)
+    packed = torch.from_numpy((s1 * 1001 + s2).astype(np.int32)).to(dev)
+    masks = torch.from_numpy(rng.random((3, n)) < 0.6).to(dev)
+    got = packed_sums(packed, masks, reqs)
+    want = packed_sums_plain(packed, masks, reqs)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+
+
+def test_stats_and_tools_launch_the_binned_kernel(dev, tmp_path):
+    """hist_from_counts and gcp_matrix on a card table, and comp of two
+    read sets through cli.main, run the binned-sums kernel (comp also the
+    fused dual probe) and equal the CPU run."""
+    from kat_tpu_torch import cli
+    from kat_tpu_torch.core import stats
+    from kat_tpu_torch.ops.binned_kernel import binned_sums
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 50_000).astype(np.uint8)
+    sc = counting.CodeStreamingCounter(27, device=dev)
+    sc.add_codes(genome[rng.integers(0, 49_000, 512)[:, None]
+                        + np.arange(800)])
+    table = sc.finish()
+    cpu = counting.CountTable(table.keys.cpu(), table.counts.cpu(),
+                              table.n_unique)
+    before = binned_sums.launches
+    h = stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
+    g = stats.gcp_matrix(table, 27, 1000, 1.0)
+    assert binned_sums.launches == before + 2
+    assert torch.equal(h.cpu(), stats.hist_from_counts(cpu.counts, 1, 10001,
+                                                       1, 10001))
+    assert torch.equal(g.cpu(), stats.gcp_matrix(cpu, 27, 1000, 1.0))
+
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    paths = []
+    for i, n in enumerate((2000, 1200)):
+        p = tmp_path / f"r{i}.fq"
+        with open(p, "wb") as f:
+            for j, o in enumerate(rng.integers(0, 49_000, n)):
+                s = alphabet[genome[o:o + 100]].tobytes()
+                f.write(b"@r%d\n%s\n+\n%s\n" % (j, s, b"I" * 100))
+        paths.append(str(p))
+    counters = (binned_sums, merge_sorted_payload, compact_flagged)
+    before = [f.launches for f in counters]
+    assert cli.main(["comp", "-o", str(tmp_path / "card"), *paths]) == 0
+    # pass 1 and pass 2 bin; the fused dual probe merges once, compacts
+    # twice
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1, 2]
+    assert cli.main(["--device", "cpu", "comp", "-o", str(tmp_path / "cpu"),
+                     *paths]) == 0
+    for suffix in ("-main.mx", ".stats"):
+        assert (tmp_path / f"card{suffix}").read_bytes() == \
+            (tmp_path / f"cpu{suffix}").read_bytes()

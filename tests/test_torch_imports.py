@@ -47,3 +47,12 @@ def test_the_bucketed_slice_is_walked():
     rel = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"kat_tpu_torch/core/minimizer.py", "kat_tpu_torch/core/bucketed.py",
             "kat_tpu_torch/benchmarks/profile_rounds.py"} <= rel
+
+
+def test_the_gcp_comp_slice_is_walked():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"kat_tpu_torch/ops/binned_kernel.py",
+            "kat_tpu_torch/core/comp_engine.py",
+            "kat_tpu_torch/core/distance.py", "kat_tpu_torch/utils/fmt.py",
+            "kat_tpu_torch/tools/gcp.py",
+            "kat_tpu_torch/tools/comp.py"} <= rel
