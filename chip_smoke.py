@@ -41,6 +41,12 @@
    as a whole against two binary searches; each timed beside its library
    call, five runs with equal outputs, counted in the same profiled
    window;
+2d. checks the wide join's two kernel forms: K1 W-word carrying a
+   value (2^23 pairs at W = 2 and 4) and K2 W-word with one payload plane
+   a side (a 2^24-slot table + 2^23 sorted queries) and two (two 2^24-slot
+   tables, the wide dual probe, also held as a whole against two
+   searches), five runs each, then on strain inputs at W = 2..9 and at
+   lengths around their tiles; counted in the same profiled window;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -49,9 +55,10 @@
 4. drives the lookup path at full width against that table: the k=27
    windows of the same genome, 128 rows of 65,562 codes (2^23 windows,
    1% of bases substituted, a few invalid), through
-   coverage.window_counts; the counts must come from the sort-merge join,
-   equal the binary-search route and a reference built from torch.unique's
-   table, and each lookup kernel must have been launched by that run;
+   coverage.window_counts, by the policy's route (the binary search for a
+   narrow table) and by the sort-merge join, whose three kernels must each
+   have been launched by that run; both equal a reference built from
+   torch.unique's table;
 4a. runs gcp_matrix over that table (against the plain binned sum of
    torch.unique's table) and comp of that reads table against the
    genome's own k = 27 k-mers, and with a third input, a second read draw
@@ -67,6 +74,13 @@
    each W-word kernel must have been launched by each run; then prints the
    k = 41 path's device time by kernel (benchmarks/profile_main.py --k 41
    in a process of its own);
+4c. runs `cold` of the genome as 1024 contigs of 8192 bases
+   against that table (tools.cold.Cold), and `filter kmer -c 5 -d 100`
+   over it (tools.filter_kmer.FilterKmer), against numpy; then, after the
+   wide path below, the same at k = 41, the k = 41 lookup path (2^23
+   windows through the wide join, whose three kernels must each launch
+   once, equal to the search) and `comp -m 41` through the wide dual probe
+   (Comp.compare_tables against numpy);
 5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
    against numpy) and `hist` from the dumped .jf (same histogram);
 6. runs `sect` of 200 contigs against those reads through the command
@@ -78,10 +92,13 @@
    against numpy; then `gcp`, `comp` of the reads against the contigs
    (with `-d`), with a third read set, and of the two dumped .jf through
    cli.main, every artifact against numpy;
+   `cold`, `filter kmer -c 5 -d 100` and `filter seq --stats` through
+   cli.main against numpy;
 6b. the same at k = 41: `hist -m 41 -d` and `hist` of its .jf as
-   processes, `sect -m 41` through cli.main with the W-word kernels'
-   launch counts read around it, `gcp -m 41` and `comp -m 41`; every
-   artifact against numpy.
+   processes, `sect -m 41` through cli.main with the W-word kernels' and
+   the wide join's launch counts read around it (the wide join once per
+   length bucket the policy takes), `gcp -m 41`, `comp -m 41`, `cold`,
+   `filter kmer` and `filter seq`; every artifact against numpy.
 
 7. drives the minimizer-bucketed flush at full width: the main path's read
    model (k=27 canonical, 196,608 reads of 1024 bases from the 2^23-base
@@ -94,7 +111,18 @@
    record fill and the groups per flush; then checks and times K5 at one
    flush's shape and K6 at the largest hot group that run saw, and runs
    K7's microbenchmark, whose costliest class is also held against its
-   plain version at the full round count.
+   plain version at the full round count.  Then `filter seq --stats -s`
+   of that FASTA against its genome's k-mers at k = 27 and 41
+   (tools.filter_seq.FilterSeq): the .stats file's bases and k-mers for
+   every read, its hits for all low-complexity reads and every 64th other
+   one against numpy, the kept and discarded counts against the ratios
+   and the records written;
+8. the route sweep (benchmarks/sweep_lookup.route_table: join
+   against search for 1, 2 and 4 words, 2^20 and 2^24 slots, 2^16-2^23
+   queries, and the dual probe), and one count past 2^30 distinct keys:
+   2^30 + 2^26 keys of an affine bijection, each fed twice in flushes of
+   2^26 through StreamingCounter (the merged stream reduced in pieces);
+   n_unique, every count 2, ascending keys and the keys' sum checked.
 
 Any failure raises (exit code != 0).  Without a CUDA device it fails at
 once and prints no result.  The last two lines are the kernels' JSON and
@@ -895,6 +923,233 @@ def check_wide_kernels(dev, gen):
     return results, counted
 
 
+def _wide_table_keys(k: int, cap: int, universe, n_real: int, dev, gen):
+    """[W, cap] sorted distinct keys (SENTINEL padding) of n_real keys
+    drawn from `universe` ([W, n] words), their counts 1-99, and the
+    number of real slots; built by the plain W-word sort and reduce."""
+    import torch
+
+    from kat_tpu_torch.ops import reduce_kernel, sort_kernel
+
+    pick = torch.randperm(universe.shape[1], device=dev,
+                          generator=gen)[:n_real]
+    real = sort_kernel.sort_words_plain(universe[:, pick])
+    keys, _c, nu = reduce_kernel.reduce_by_key_words_plain(
+        real, torch.ones(real.shape[1], dtype=torch.int32, device=dev), cap)
+    nu = int(nu)
+    counts = torch.zeros(cap, dtype=torch.int32, device=dev)
+    counts[:nu] = torch.randint(1, 100, (nu,), dtype=torch.int32, device=dev,
+                                generator=gen)
+    return keys, counts, nu
+
+
+def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
+    """K1 W-word with a value and K2 W-word with payload planes, the wide
+    join's two new kernel forms, against their plain versions at the
+    join's shapes: the query sort of 2^23 wide keys at W = 2 (k = 41) and
+    W = 4 (k = 95), each carrying its position, a third of them keys of the
+    table, 10% SENTINEL; the merge of a 2^24-slot table (~2^23 real keys)
+    with those sorted queries, one plane a side (the join, W = 2); the
+    merge of two such tables sharing about half their keys, two planes a
+    side (the dual probe, W = 2), and the dual probe as a whole against two
+    binary searches.  Five runs of each with equal outputs; then every form
+    on workloads.WIDE_STRAIN at the boundary k of W = 2..9 and at lengths
+    around the tiles.  Returns the entries and their (entry, call)
+    pairs."""
+    import math
+
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
+    from kat_tpu_torch.core import wide
+    from kat_tpu_torch.core.kmers import top_bases
+    from kat_tpu_torch.ops import join, merge_kernel, sort_kernel
+
+    results, counted = [], []
+    universe = workloads.wide_keys(41, 3 * cap // 4, dev, gen, sent=0.0)
+    t_keys, t_counts, n_real = _wide_table_keys(41, cap, universe, cap // 2,
+                                                dev, gen)
+    joined = None
+    for k in (41, 95):
+        tb = 2 * top_bases(k) + 1
+        q = workloads.wide_keys(k, m, dev, gen)
+        W = q.shape[0]
+        if k == 41:  # a third of the queries hit the table
+            hit = torch.randint(0, n_real, (len(range(0, m, 3)),),
+                                device=dev, generator=gen)
+            q[:, ::3] = t_keys[:, hit]
+        idx = torch.arange(m, dtype=torch.int32, device=dev)
+        got = sort_kernel.sort_words_pairs(q, idx, tb)
+        err = _same(got, sort_kernel.sort_words_pairs_plain(q, idx))
+        _repeat_equal(f"K1 W-word with a value (W={W})",
+                      lambda q=q, idx=idx, tb=tb:
+                      sort_kernel.sort_words_pairs(q, idx, tb))
+        entry = _report(dict(
+            name=f"radix_sort_words_pairs[W={W}]", route="cuda",
+            source="kat_tpu_torch/csrc/sort.cu",
+            replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+            ms=_timed_ms(lambda q=q, idx=idx, tb=tb:
+                         sort_kernel.sort_words_pairs(q, idx, tb), 5),
+            # chained stable torch.sort calls and gathers: no one PyTorch
+            # call sorts W-word keys
+            plain_ms=_timed_ms(lambda q=q, idx=idx:
+                               sort_kernel.sort_words_pairs_plain(q, idx), 3),
+            **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
+            library_ms=None, passes=sort_kernel.words_passes(W, tb),
+            tile=sort_kernel.words_tile_len(W),
+            floor_ms=sort_kernel.words_pass_floor_bytes(m, W, tb, True)
+            / HBM_BYTES_PER_S * 1e3),
+            f"K1 W-word sort 2^{m.bit_length() - 1} (key, value) pairs, "
+            f"k={k} (W={W})")
+        counted.append((entry, lambda q=q, idx=idx, tb=tb:
+                        sort_kernel.sort_words_pairs(q, idx, tb)))
+        if k == 41:  # the kernel's entry; W = 4 rides in it
+            entry["name"] = "radix_sort_words_pairs"
+            results.append(entry)
+            joined = got
+        else:
+            results[0]["w4"] = entry
+        del got, q, idx
+
+    # K2 W-word, one plane: the table carrying -1, the sorted queries
+    # their positions, as the wide join merges them
+    sq, sidx = joined
+    ap = (torch.full((cap,), -1, dtype=torch.int32, device=dev),)
+    bp = (sidx,)
+    mk, mp = merge_kernel.merge_sorted_words_payload(t_keys, ap, sq, bp)
+    err = _same((mk, *mp), (lambda k_, p_: (k_, *p_))(
+        *merge_kernel.merge_sorted_words_payload_plain(t_keys, ap, sq, bp)))
+    _repeat_equal("K2 W-word with a plane", lambda: (lambda k_, p_: (
+        k_, *p_))(*merge_kernel.merge_sorted_words_payload(t_keys, ap, sq,
+                                                           bp)))
+    W = t_keys.shape[0]
+    results.append(_report(dict(
+        name="merge_path_words_payload", route="cuda",
+        source="kat_tpu_torch/csrc/merge.cu",
+        replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload(
+            t_keys, ap, sq, bp), 5),
+        plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload_plain(
+            t_keys, ap, sq, bp), 3),
+        **_bound(_nbytes(t_keys, *ap, sq, *bp, mk, *mp), W * mk.shape[1]),
+        library_ms=None, tile=merge_kernel.words_tile_len(W)),
+        f"K2 W-word merge 2^{cap.bit_length() - 1} table + "
+        f"2^{m.bit_length() - 1} queries, 1 plane (W=2)"))
+    counted.append((results[-1], lambda a_=t_keys, ap_=ap, b_=sq, bp_=bp:
+                    merge_kernel.merge_sorted_words_payload(a_, ap_, b_,
+                                                            bp_)))
+    del mk, mp, joined
+
+    # K2 W-word, two planes: two tables, each carrying its counts and its
+    # source, as the wide dual probe merges them
+    b_keys, b_counts, _nb = _wide_table_keys(41, cap, universe, cap // 2,
+                                             dev, gen)
+    del universe
+    ap = (t_counts, torch.full((cap,), 1, dtype=torch.int32, device=dev))
+    bp = (b_counts, torch.full((cap,), 2, dtype=torch.int32, device=dev))
+    mk, mp = merge_kernel.merge_sorted_words_payload(t_keys, ap, b_keys, bp)
+    err = _same((mk, *mp), (lambda k_, p_: (k_, *p_))(
+        *merge_kernel.merge_sorted_words_payload_plain(t_keys, ap, b_keys,
+                                                       bp)))
+    _repeat_equal("K2 W-word with two planes", lambda: (lambda k_, p_: (
+        k_, *p_))(*merge_kernel.merge_sorted_words_payload(t_keys, ap, b_keys,
+                                                           bp)))
+    results.append(_report(dict(
+        name="merge_path_words_payload[dual]", route="cuda",
+        source="kat_tpu_torch/csrc/merge.cu",
+        replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload(
+            t_keys, ap, b_keys, bp), 5),
+        plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload_plain(
+            t_keys, ap, b_keys, bp), 3),
+        **_bound(_nbytes(t_keys, *ap, b_keys, *bp, mk, *mp),
+                 W * mk.shape[1]),
+        library_ms=None, tile=merge_kernel.words_tile_len(W)),
+        f"K2 W-word merge 2^{cap.bit_length() - 1} + 2^{cap.bit_length() - 1}"
+        " slots, 2 planes (the wide dual probe)"))
+    counted.append((results[-1], lambda a_=t_keys, ap_=ap, b_=b_keys, bp_=bp:
+                    merge_kernel.merge_sorted_words_payload(a_, ap_, b_,
+                                                            bp_)))
+    del mk, mp
+    ta = wide.WideTable(t_keys, t_counts, n_real)
+    tb_ = wide.WideTable(b_keys, b_counts, _nb)
+    got_a, got_b = join.counts_join_dual(t_keys, t_counts, b_keys, b_counts)
+    if not (torch.equal(got_a, wide.lookup_wide(tb_, t_keys))
+            and torch.equal(got_b, wide.lookup_wide(ta, b_keys))):
+        raise AssertionError("the wide dual probe differs from two searches")
+    print(f"wide dual probe: {int((got_a > 0).sum())} keys shared of "
+          f"{n_real} and {_nb}; equal to two binary searches")
+    del ta, tb_, got_a, got_b
+
+    # strain: W = 2..9 at boundary k, around every tile
+    n = 3 * sort_kernel.words_tile_len(2) + 17
+    for sk in workloads.WIDE_STRAIN_K:
+        stb = 2 * top_bases(sk) + 1
+        for name in workloads.WIDE_STRAIN:
+            skeys = workloads.wide_strain(name, sk, n, dev, gen)
+            pos = torch.arange(n, dtype=torch.int32, device=dev)
+            _same(sort_kernel.sort_words_pairs(skeys, pos, stb),
+                  sort_kernel.sort_words_pairs_plain(skeys, pos))
+            a, _ac, b = workloads.wide_merge_inputs(skeys, gen)
+            pa = (torch.arange(a.shape[1], dtype=torch.int32, device=dev),
+                  -torch.arange(a.shape[1], dtype=torch.int32, device=dev))
+            pb = (torch.arange(b.shape[1], dtype=torch.int32, device=dev),
+                  torch.full((b.shape[1],), 2, dtype=torch.int32,
+                             device=dev))
+            for p_a, p_b in ((pa[:1], pb[:1]), (pa, pb)):
+                g = merge_kernel.merge_sorted_words_payload(a, p_a, b, p_b)
+                w = merge_kernel.merge_sorted_words_payload_plain(a, p_a, b,
+                                                                  p_b)
+                _same((g[0], *g[1]), (w[0], *w[1]))
+    lengths = sorted({1, 2, *[t + d for t in (
+        sort_kernel.words_tile_len(2), merge_kernel.words_tile_len(2),
+        merge_kernel.words_tile_len(4), merge_kernel.words_tile_len(9))
+        for d in (-1, 0, 1)]})
+    for m_ in lengths:
+        skeys = workloads.wide_keys(41, m_, dev, gen)
+        pos = torch.arange(m_, dtype=torch.int32, device=dev)
+        _same(sort_kernel.sort_words_pairs(skeys, pos, 21),
+              sort_kernel.sort_words_pairs_plain(skeys, pos))
+        a, _ac, b = workloads.wide_merge_inputs(torch.cat(
+            [skeys, workloads.wide_keys(41, 2 * m_, dev, gen)], dim=1), gen)
+        pa = (torch.arange(a.shape[1], dtype=torch.int32, device=dev),)
+        pb = (torch.arange(b.shape[1], dtype=torch.int32, device=dev),)
+        g = merge_kernel.merge_sorted_words_payload(a, pa, b, pb)
+        w = merge_kernel.merge_sorted_words_payload_plain(a, pa, b, pb)
+        _same((g[0], *g[1]), (w[0], *w[1]))
+    print("K1 W-word with a value and K2 W-word with 1-2 planes: exact on "
+          + ", ".join(workloads.WIDE_STRAIN) + f" ({n} keys) at k = "
+          + ", ".join(map(str, workloads.WIDE_STRAIN_K))
+          + " (W = 2..9), and at n = " + ", ".join(map(str, lengths))
+          + " (k = 41); five runs of each at the join's shapes agree")
+    return results, counted
+
+
+def route_sweep(dev, smi: str) -> list:
+    """The join against the search (benchmarks/sweep_lookup.route_table):
+    one-word, W = 2 and W = 4 lookups of 2^16, 2^20 and 2^23 queries
+    against 2^20- and 2^24-slot tables, and the dual probe against two
+    searches at two 2^24-slot tables; the policy's pick beside each."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import sweep_lookup
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    rows = sweep_lookup.route_table(
+        dev, gen, report=lambda line: print(f"route sweep: {line}"))
+    agree = sum((r["policy"] == "join") == (r["join_ms"] < r["search_ms"])
+                for r in rows)
+    print(f"route sweep ({smi}): kind words capacity queries order join_ms "
+          f"search_ms join/search policy; the join is faster in "
+          f"{sum(r['join_ms'] < r['search_ms'] for r in rows)} of "
+          f"{len(rows)} cells, the policy picks the faster route in "
+          f"{agree}; {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main_path(dev):
     """Counting at bench.py's scale through CodeStreamingCounter."""
     import torch
@@ -964,7 +1219,9 @@ def main_path(dev):
 
 def lookup_path(dev, table, genome, ref_keys, ref_counts):
     """The k=27 windows of the counted genome looked up in the table
-    main_path built, through coverage.window_counts."""
+    main_path built, through coverage.window_counts: by the policy's route
+    (the search, for a narrow table) and by the join, whose three kernels'
+    launches are read around that run."""
     import torch
 
     from kat_tpu_torch.core import coverage, tables
@@ -981,8 +1238,8 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
     codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
     m = rows * row_w
     table = tables.compact(table)
-    if not tables._join_policy(m, table.capacity, table.keys.device):
-        raise AssertionError("the join policy did not pick the join")
+    if tables._join_policy(m, table.capacity, table.keys.device):
+        raise AssertionError("the policy sends a narrow lookup to the join")
 
     coverage.window_counts(table, codes[:2], k, True, method="join")  # warm
     torch.cuda.synchronize()
@@ -991,17 +1248,22 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
     for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
-    counts, gc, valid = coverage.window_counts(table, codes, k, True)
+    counts, gc, valid = coverage.window_counts(table, codes, k, True,
+                                               method="join")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
-    if min(launches) < 1:
-        raise AssertionError(f"a lookup kernel was not launched: {launches}")
+    if launches != [1, 1, 1]:
+        raise AssertionError(f"the join launched {launches}")
 
-    # the same windows by the binary search, and by a search of
-    # torch.unique's table with GC from a running sum of the codes
-    s_counts, s_gc, s_valid = coverage.window_counts(table, codes, k, True,
-                                                     method="search")
+    # the same windows by the policy's route (the binary search), and by a
+    # search of torch.unique's table with GC from a running sum of the
+    # codes
+    for fn in kernels:
+        fn.launches = 0
+    s_counts, s_gc, s_valid = coverage.window_counts(table, codes, k, True)
+    if any(fn.launches for fn in kernels):
+        raise AssertionError("the policy's route launched the join")
     if not (torch.equal(counts, s_counts) and torch.equal(gc, s_gc)
             and torch.equal(valid, s_valid)):
         raise AssertionError("join and search routes differ")
@@ -1024,16 +1286,20 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
 
     wc_ms = _timed_ms(lambda: coverage.window_counts(table, codes, k, True),
                       3)
+    wcj_ms = _timed_ms(lambda: coverage.window_counts(table, codes, k, True,
+                                                      method="join"), 3)
     join_ms = _timed_ms(lambda: tables.lookup(
         table, q, method="join", key_bits=2 * k + 1), 5)
     search_ms = _timed_ms(lambda: tables.lookup(table, q, method="search"),
                           5)
     print(f"lookup path: {m} windows k={k} against {table.n_unique} keys at "
-          f"capacity {table.capacity} in {dt:.4f} s; {n_hit} present, "
-          f"{n_bad} invalid; join, search and reference agree; launches "
+          f"capacity {table.capacity}, by the join in {dt:.4f} s cold; "
+          f"{n_hit} present, {n_bad} invalid; join, search (the policy's "
+          f"route) and reference agree; launches of the join "
           f"sort_pairs/merge_payload/compact {launches}")
-    print(f"lookup path: window_counts {wc_ms:.3f} ms = "
-          f"{m / wc_ms * 1e3:.1f} windows/s; join {join_ms:.3f} ms = "
+    print(f"lookup path: window_counts {wc_ms:.3f} ms by the policy's route "
+          f"= {m / wc_ms * 1e3:.1f} windows/s, {wcj_ms:.3f} ms by the join; "
+          f"join {join_ms:.3f} ms = "
           f"{join_ms * 1e6 / m:.4f} ns/query; search {search_ms:.3f} ms = "
           f"{search_ms * 1e6 / m:.4f} ns/query")
     return launches
@@ -1175,8 +1441,9 @@ def comp_path(dev, table, genome, smi: str):
     t3 = sc.finish()
     del sc
     t1c, t2c = tables.compact(table), tables.compact(t2)
-    if not (tables._join_policy(t1c.capacity, t2c.capacity, dev)
-            and tables._join_policy(t2c.capacity, t1c.capacity, dev)):
+    if not (tables._join_policy(t1c.capacity, t2c.capacity, dev, 1, True)
+            and tables._join_policy(t2c.capacity, t1c.capacity, dev, 1,
+                                    True)):
         raise AssertionError("the dual probe's join policy did not engage")
 
     kernels = (binned_kernel.binned_sums, merge_kernel.merge_sorted_payload,
@@ -1219,12 +1486,456 @@ def comp_path(dev, table, genome, smi: str):
     two, three = launches["two inputs"], launches["three inputs"]
     # two inputs: pass 1 and pass 2 bin once each, the dual probe merges
     # once and compacts twice; three: pass 1 also bins the three matrices
-    # and looks hash3 up through the join (sorted probes: one merge, one
-    # compaction)
-    if two != [2, 1, 2] or three != [3, 2, 3]:
+    # and looks hash3 up by the search (a narrow single lookup)
+    if two != [2, 1, 2] or three != [3, 1, 2]:
         raise AssertionError(f"comp launched binned/merge_payload/compact "
                              f"{two} (two inputs), {three} (three)")
     return launches
+
+
+def _word_ids(*sets):
+    """Integer names of wide keys, with numpy alone: each argument is a
+    list of W uint64/int64 word arrays (word 0 most significant); returns
+    one int64 array per argument, equal keys named alike and the names
+    ordered as the keys are (lexicographically), so that sorted unique
+    keys get sorted names."""
+    sizes = [s_[0].size for s_ in sets]
+    words = [np.concatenate([np.asarray(s_[w], np.int64) for s_ in sets])
+             for w in range(len(sets[0]))]
+    order = np.lexsort(words[::-1])
+    new = np.zeros(order.size, bool)
+    new[:1] = True
+    for w in words:
+        sw = w[order]
+        new[1:] |= sw[1:] != sw[:-1]
+    names = np.empty(order.size, np.int64)
+    names[order] = np.cumsum(new) - 1
+    return np.split(names, np.cumsum(sizes)[:-1])
+
+
+def wide_lookup_path(dev, wtable, genome, rows: int = 128,
+                     row_w: int = 1 << 16):
+    """The k = 41 windows of the genome looked up in the wide path's table
+    (8.4M distinct, 2^24 slots) through coverage.window_counts, as
+    lookup_path at k = 27: 128 rows of 65,576 codes (2^23 windows, 1%
+    substituted, a few invalid).  The policy takes the wide join; its three
+    kernels' launches are read around that run, and its counts must equal
+    the binary search's.  Returns those launches."""
+    import torch
+
+    from kat_tpu_torch.core import coverage, tables
+    from kat_tpu_torch.core.kmers import canonicalize_words, extract_kmers_wide
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    k = 41
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    codes = genome.unfold(0, row_w + k - 1, row_w)[:rows].clone()
+    sub = torch.rand(codes.shape, device=dev, generator=gen) < 0.01
+    codes[sub] = (codes[sub] + 1 + (torch.rand(int(sub.sum()), device=dev,
+                  generator=gen) * 3).to(torch.uint8)) & 3
+    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
+    m = rows * row_w
+    table = tables.compact(wtable)
+    if not tables._join_policy(m, table.capacity, dev, table.n_words):
+        raise AssertionError("the policy did not send the wide lookup to "
+                             "the join")
+    coverage.window_counts(table, codes[:2], k, True)  # warm
+    torch.cuda.synchronize()
+    kernels = (sort_kernel.sort_words_pairs,
+               merge_kernel.merge_sorted_words_payload,
+               reduce_kernel.compact_flagged)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    counts, gc, valid = coverage.window_counts(table, codes, k, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    if launches != [1, 1, 1]:
+        raise AssertionError(f"the wide lookup launched {launches}")
+    s_counts, s_gc, s_valid = coverage.window_counts(table, codes, k, True,
+                                                     method="search")
+    if not (torch.equal(counts, s_counts) and torch.equal(gc, s_gc)
+            and torch.equal(valid, s_valid)):
+        raise AssertionError("wide join and search routes differ")
+    n_hit = int((counts > 0).sum())
+    n_bad = int((~valid).sum())
+    if not 0 < n_hit < m - n_bad or n_bad == 0:
+        raise AssertionError(f"degenerate wide queries: {n_hit} hits, "
+                             f"{n_bad} invalid of {m}")
+    fwd, _ok = extract_kmers_wide(codes, k, canonical=False)
+    q = canonicalize_words(fwd, k)
+    del fwd
+    wc_ms = _timed_ms(lambda: coverage.window_counts(table, codes, k, True),
+                      3)
+    join_ms = _timed_ms(lambda: tables.lookup(
+        table, q, method="join", key_bits=2 * k + 1), 5)
+    search_ms = _timed_ms(lambda: tables.lookup(table, q, method="search"),
+                          3)
+    print(f"wide lookup path: {m} windows k={k} against {table.n_unique} "
+          f"keys at capacity {table.capacity} by the wide join in {dt:.4f} s "
+          f"cold; {n_hit} present, {n_bad} invalid; join and search agree; "
+          f"launches sort_words_pairs/merge_words_payload/compact "
+          f"{launches}")
+    print(f"wide lookup path: window_counts {wc_ms:.3f} ms = "
+          f"{m / wc_ms * 1e3:.1f} windows/s; join {join_ms:.3f} ms = "
+          f"{join_ms * 1e6 / m:.4f} ns/query; search {search_ms:.3f} ms = "
+          f"{search_ms * 1e6 / m:.4f} ns/query")
+    return launches
+
+
+def wide_comp_path(dev, wtable, genome, smi: str):
+    """`comp -m 41` at the comp path's scale through the wide dual probe:
+    hash1 the wide path's k = 41 reads table, hash2 the genome's own
+    41-mers (its first 2^23 windows as one contig), default bins and
+    scales; Comp.compare_tables timed cold and warm and held against numpy
+    over the tables' keys (named by _word_ids) and counts.  Returns the
+    launches of the binned sums, K2 W-word with payload planes and K4."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import tables, wide
+    from kat_tpu_torch.ops import binned_kernel, merge_kernel, reduce_kernel
+    from kat_tpu_torch.tools.comp import Comp
+
+    k = 41
+    sc = workloads.wide_counter(k, dev)
+    sc.add_codes(workloads.contig_rows(genome, k))
+    t2 = sc.finish()
+    del sc
+    t1c, t2c = tables.compact(wtable), tables.compact(t2)
+    if not (tables._join_policy(t1c.capacity, t2c.capacity, dev, 2, True)
+            and tables._join_policy(t2c.capacity, t1c.capacity, dev, 2,
+                                    True)):
+        raise AssertionError("the wide dual probe's policy did not engage")
+    del t1c, t2c
+    kernels = (binned_kernel.binned_sums,
+               merge_kernel.merge_sorted_words_payload,
+               reduce_kernel.compact_flagged)
+
+    def run():
+        c = Comp([], [])
+        c.quiet = True
+        c.set_mer_len(k)
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.compare_tables(wtable, t2)
+        torch.cuda.synchronize()
+        return c, time.perf_counter() - t0, [fn.launches for fn in kernels]
+
+    c, cold, launches = run()
+    _c, warm, _n = run()
+    (w1, c1), (w2, c2) = (wide.table_words_to_numpy(t) for t in (wtable, t2))
+    n1, n2 = _word_ids(list(w1), list(w2))
+    _check_comp(c, _numpy_comp(n1, c1, n2, c2), "wide comp path")
+    n_kmers = wtable.n_unique + t2.n_unique
+    print(f"wide comp path, k={k}: {n_kmers} distinct k-mers compared "
+          f"(hash1 {wtable.n_unique}, hash2 {t2.n_unique}) in {cold:.4f} s "
+          f"cold = {n_kmers / cold:.1f} k-mers/s, {warm:.4f} s warm = "
+          f"{n_kmers / warm:.1f} k-mers/s ({smi}); "
+          f"{c.counters['shared_distinct']} shared; launches binned/"
+          f"merge_words_payload/compact {launches}; equal to numpy's")
+    if launches != [2, 1, 2]:
+        raise AssertionError(f"comp -m 41 launched binned/merge_words_payload"
+                             f"/compact {launches}")
+    return launches
+
+
+COLD_CONTIGS, COLD_LEN = 1024, 8192  # the 2^23-base genome as contigs
+
+
+def write_cold_contigs(path: str, genome) -> np.ndarray:
+    """The main path's genome (its first 2^23 bases) as 1024 contigs of
+    8192 bases in FASTA, every 97th contig with three Ns; returns them as
+    an ASCII array [1024, 8192]."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    asm = acgt[genome[:COLD_CONTIGS * COLD_LEN].cpu().numpy()].reshape(
+        COLD_CONTIGS, COLD_LEN)
+    rng = np.random.default_rng(SEED + 7)
+    for i in range(0, COLD_CONTIGS, 97):
+        asm[i, rng.integers(0, COLD_LEN, 3)] = ord("N")
+    with open(path, "wb") as f:
+        for i in range(COLD_CONTIGS):
+            f.write(b">c%d\n%s\n" % (i, asm[i].tobytes()))
+    return asm
+
+
+def _numpy_counts_of(tkeys, tcounts, qkeys, valid):
+    """Counts of a table at the queries' valid windows, 0 elsewhere, with
+    numpy alone: narrow keys as uint64 arrays, wide ones as lists of W word
+    arrays (named by _word_ids)."""
+    if isinstance(qkeys, list):
+        names_t, names_q = _word_ids(list(tkeys), [w[valid] for w in qkeys])
+        out = np.zeros(valid.shape, np.int64)
+        out[valid] = _numpy_lookup(names_t, tcounts, names_q)
+        return out
+    return np.where(valid, _numpy_lookup(tkeys, tcounts, qkeys), 0)
+
+
+def _numpy_windows_any(seqs: np.ndarray, k: int):
+    """(keys, valid): uint64 keys for k <= 31, a list of W word arrays
+    beyond."""
+    if k <= 31:
+        return _numpy_windows(seqs, k)
+    return _numpy_wide_windows(seqs, k)
+
+
+def _self_counts(keys, valid):
+    """Each valid window's count among the valid windows themselves."""
+    if isinstance(keys, list):
+        (names,) = _word_ids([w[valid] for w in keys])
+    else:
+        names = keys[valid]
+    uk, uc = np.unique(names, return_counts=True)
+    out = np.zeros(valid.shape, np.int64)
+    out[valid] = _numpy_lookup(uk, uc, names)
+    return out
+
+
+def cold_path(dev, tmp: str, k: int, table, host, fa: str, asm: np.ndarray,
+              smi: str):
+    """`kat cold` of the genome's 1024 contigs against the main path's
+    reads table at k (tools.cold.Cold: the assembly counted from its
+    FASTA, the reads table given), its stats TSV held against numpy's.  The
+    join kernels' launches are read around the lookups.  Returns them."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.tools.cold import STATS_HEADER, Cold
+
+    c = Cold([], fa)
+    c.output_prefix = os.path.join(tmp, f"cold{k}")
+    c.quiet = True
+    c.reads.table = table
+    for inp in (c.reads, c.assembly):
+        inp.mer_len, inp.device = k, dev
+    t0 = time.perf_counter()
+    c.assembly.count(quiet=True)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    kernels = ((sort_kernel.sort_words_pairs,
+                merge_kernel.merge_sorted_words_payload) if k > 31
+               else (sort_kernel.sort_pairs,
+                     merge_kernel.merge_sorted_payload)) + (
+        reduce_kernel.compact_flagged,)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        c.write_stats()
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+
+    keys, valid = _numpy_windows_any(asm, k)
+    rc = _numpy_counts_of(*host, keys, valid)
+    ac = _self_counts(keys, valid)
+    nb = COLD_LEN - k + 1
+    med = np.sort(rc, axis=1)[:, nb // 2]
+    acn = np.sort(ac, axis=1)[:, nb // 2]
+    lines = [STATS_HEADER]
+    for i in range(COLD_CONTIGS):
+        seq = asm[i]
+        n_inv = int((~valid[i]).sum())
+        n_nz = int((rc[i] != 0).sum())
+        mean = float(rc[i].sum(dtype=np.float64)) / nb
+        gcs = int(((seq == ord("G")) | (seq == ord("C"))).sum())
+        ns = int((seq == ord("N")).sum())
+        lines.append(
+            f"c{i}\t{int(med[i])}\t{mean:.5f}\t{int(acn[i])}\t"
+            f"{gcs / (COLD_LEN - ns):.5f}\t{COLD_LEN}\t{nb}\t{n_inv}\t"
+            f"{(n_inv / nb * 100.0 if n_inv else 0.0):.5f}\t{n_nz}\t"
+            f"{(n_nz / nb * 100.0 if n_nz else 0.0):.5f}\t"
+            f"{(n_nz / (nb - n_inv) * 100.0 if n_nz else 0.0):.5f}")
+    if _read(f"{c.output_prefix}-stats.tsv") != "\n".join(lines) + "\n":
+        raise AssertionError(f"cold k={k}: stats.tsv differs from numpy's")
+    n_win = COLD_CONTIGS * nb
+    print(f"cold path k={k}: {COLD_CONTIGS} contigs of {COLD_LEN} bases "
+          f"against {table.n_unique} read k-mers, stats equal numpy's; "
+          f"assembly counted in {t_count:.4f} s, coverage in {dt:.4f} s = "
+          f"{n_win / dt:.1f} windows/s ({smi}); join launches "
+          f"sort/merge/compact {launches}")
+    return launches
+
+
+def filter_kmer_path(dev, tmp: str, k: int, table, host):
+    """`kat filter kmer -c 5 -d 100` over the main path's table at k
+    (tools.filter_kmer.FilterKmer, the table given): the kept .jf, read
+    back, and the summary against numpy."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kat_tpu_torch.tools.filter_kmer import FilterKmer
+
+    f = FilterKmer([])
+    f.output_prefix = os.path.join(tmp, f"fk{k}")
+    f.quiet = True
+    f.input.table = table
+    f.input.mer_len, f.input.device = k, dev
+    f.low_count, f.high_count = 5, 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        f.filter_table()
+    dt = time.perf_counter() - t0
+    keys, counts = host
+    c = counts.astype(np.int64)
+    if k > 31:
+        gc = sum(_numpy_gc(np.asarray(w).astype(np.uint64)) for w in keys)
+    else:
+        gc = _numpy_gc(keys.astype(np.uint64))
+    keep = (c >= 5) & (c <= 100) & (gc <= 31)
+    if (f.counters["all"] != (c.size, int(c.sum()))
+            or f.counters["in"] != (int(keep.sum()), int(c[keep].sum()))):
+        raise AssertionError(f"filter kmer k={k}: summary {f.counters}")
+    path = f"{f.output_prefix}-in.jf{k}"
+    _check_kept_jf(path, keys, counts, keep, k)
+    print(f"filter kmer path k={k}: {int(keep.sum())} of {c.size} k-mers "
+          f"kept by -c 5 -d 100 in {dt:.4f} s ({os.path.getsize(path)} "
+          f"bytes of .jf), equal to numpy's")
+
+
+def _read_fasta_rows(path: str, length: int) -> np.ndarray:
+    """The sequences of a FASTA file of one-line records of `length` bases
+    as an ASCII array."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return np.frombuffer(b"".join(lines[1::2]), np.uint8).reshape(-1, length)
+
+
+def filter_seq_path(dev, tmp: str, k: int, fa: str, reads: np.ndarray,
+                    gtable, ghost, smi: str):
+    """`kat filter seq --stats -s` of the bucketed phase's FASTA (200,540
+    reads of 1024 bases, 2% of them low-complexity) against the k-mers of
+    the genome it was drawn from (tools.filter_seq.FilterSeq, the table
+    given).  The .stats file's bases and k-mers for every read, and its
+    hits for all low-complexity reads and every 64th other one, against
+    numpy; the kept and discarded counts against the .stats file's ratios
+    and the .in/.out files' records.  Returns the join kernels' launches
+    around the filter."""
+    import contextlib
+    import io
+
+    import torch
+
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.tools.filter_seq import FilterSeq
+
+    f = FilterSeq(fa, None, [])
+    f.output_prefix = os.path.join(tmp, f"fs{k}")
+    f.quiet, f.do_stats, f.separate = True, True, True
+    f.input.table = gtable
+    f.input.mer_len, f.input.device = k, dev
+    kernels = ((sort_kernel.sort_words_pairs,
+                merge_kernel.merge_sorted_words_payload) if k > 31
+               else (sort_kernel.sort_pairs,
+                     merge_kernel.merge_sorted_payload)) + (
+        reduce_kernel.compact_flagged,)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        f.filter_records()
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+
+    rows = [ln.split("\t") for ln in
+            _read(f"{f.output_prefix}.stats").splitlines()[1:]]
+    n, length = reads.shape
+    nb = length - k + 1  # invalid windows stay in the denominator
+    if (len(rows) != n or [int(r[0]) for r in rows] != list(range(n))
+            or any(int(r[1]) != length for r in rows)
+            or not np.array_equal([int(r[2]) for r in rows],
+                                  np.full(n, nb))):
+        raise AssertionError(f"filter seq k={k}: .stats index/bases/k-mers")
+    hits = np.array([int(r[3]) for r in rows])
+    sample = np.unique(np.concatenate([np.arange(0, n, 64),
+                                       np.arange(n - n // 51, n)]))
+    keys, valid = _numpy_windows_any(reads[sample], k)
+    want = (_numpy_counts_of(*ghost, keys, valid) > 0).sum(1)
+    if not np.array_equal(hits[sample], want):
+        raise AssertionError(f"filter seq k={k}: hits differ from numpy's "
+                             "on the sample")
+    ratio = hits / nb
+    if any(r[4] != f"{x:g}" for r, x in zip(rows, ratio)):
+        raise AssertionError(f"filter seq k={k}: .stats ratios")
+    kept = int((ratio >= f.threshold).sum())
+    n_in = _read(f"{f.output_prefix}.in.fa").count(">")
+    n_out = _read(f"{f.output_prefix}.out.fa").count(">")
+    if (f.keepers, f.total, n_in, n_out) != (kept, n, kept, n - kept):
+        raise AssertionError(f"filter seq k={k}: kept {f.keepers} of "
+                             f"{f.total}, files {n_in} + {n_out}, numpy "
+                             f"{kept}")
+    n_win = n * nb
+    print(f"filter seq path k={k}: {n} reads of {length} bases against "
+          f"{gtable.n_unique} genome k-mers in {dt:.4f} s = "
+          f"{n_win / dt:.1f} windows/s ({smi}); kept {kept}, discarded "
+          f"{n - kept}; .stats equal numpy's ({sample.size} reads' hits "
+          f"checked); join launches sort/merge/compact {launches}")
+    return launches
+
+
+def big_flush_path(dev, smi: str, n: int = (1 << 30) + (1 << 26),
+                   flush: int = 1 << 26) -> None:
+    """One narrow count past 2^30 distinct keys: N = 2^30 + 2^26 distinct
+    62-bit keys (an affine bijection of 0..N-1, a * i + b mod 2^62 with a
+    odd), each fed twice, in flushes of 2^26 keys through
+    StreamingCounter; the table must hold n_unique == N, every count 2,
+    keys strictly ascending, and the keys' sum (mod 2^64) that of the
+    keys fed once.  Each flush past 2^30 merged keys reduces in pieces
+    (counting.reduce_stream), where the counter raised TableFullError
+    before."""
+    import torch
+
+    from kat_tpu_torch.core import counting
+    from kat_tpu_torch.ops import reduce_kernel
+
+    a, b, mask = 0x5851F42D4C957F2D, 0x14057B7EF767814F, (1 << 62) - 1
+    cap = 1 << (n - 1).bit_length()  # 2^31
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sc = counting.StreamingCounter(initial_capacity=min(flush, cap),
+                                   max_capacity=cap, flush_windows=flush,
+                                   key_bits=63, device=dev)
+    want_sum = torch.zeros((), dtype=torch.int64, device=dev)
+    reduce_kernel.reduce_by_key.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rnd in range(2):
+        for start in range(0, n, flush):
+            i = torch.arange(start, min(start + flush, n), dtype=torch.int64,
+                             device=dev)
+            keys = (i * a + b) & mask  # int64 products wrap: mod 2^64
+            if rnd == 0:
+                want_sum += keys.sum()
+            sc.add(keys)
+    table = sc.finish()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    nu = table.n_unique
+    ok = (nu == n and sc.capacity == cap
+          and bool((table.counts[:nu] == 2).all())
+          and bool((table.keys[1:nu] > table.keys[:nu - 1]).all())
+          and int(table.keys[:nu].sum()) == int(want_sum)
+          and bool((table.counts[nu:] == 0).all()))
+    launches = reduce_kernel.reduce_by_key.launches
+    print(f"big flush: {2 * n} keys ({n} distinct, each twice) in flushes "
+          f"of {flush} in {dt:.4f} s ({smi}); table {nu} distinct at "
+          f"capacity {sc.capacity}; K3 launches {launches} (pieces of fewer "
+          f"than {counting.MAX_STREAM} keys); peak memory {peak} B")
+    if not ok:
+        raise AssertionError("the table past 2^30 keys is wrong")
+    print("big flush: n_unique = N, every count 2, keys ascending, key sum "
+          "equal")
 
 
 def wide_path(dev, k: int, n_batches: int, smi: str):
@@ -1233,7 +1944,7 @@ def wide_path(dev, k: int, n_batches: int, smi: str):
     batches), cold and warm, against a reference over the same windows
     that never touches the kernels or the counter: the plain W-word sort
     (chained torch.sort) and reduce.  Returns the W-word kernels' launches
-    in the cold run."""
+    in the cold run and the table."""
     import torch
 
     from kat_tpu_torch.benchmarks import workloads
@@ -1292,7 +2003,7 @@ def wide_path(dev, k: int, n_batches: int, smi: str):
         raise AssertionError(f"the k={k} histogram differs from the "
                              "reference")
     print(f"wide path k={k}: table and histogram equal the reference")
-    return launches
+    return launches, table
 
 
 def profile_wide(k: int) -> None:
@@ -1310,9 +2021,12 @@ def profile_wide(k: int) -> None:
         print(f"wide path profile: {line}")
 
 
-def bucketed_path(dev, n_reads: int = 196_608, genome_len: int = 1 << 23):
-    """The bucketed flush against the classic one on the same FASTA file,
-    through tools.common.Input; then both over staged input."""
+def bucketed_path(dev, tmp: str, n_reads: int = 196_608,
+                  genome_len: int = 1 << 23):
+    """The bucketed flush against the classic one on the same FASTA file
+    (written into `tmp`), through tools.common.Input; then both over staged
+    input.  Returns the launches of the bucketed run, the largest hot
+    group's chunks, the FASTA's path and the genome's codes."""
     import torch
 
     from kat_tpu_torch.benchmarks.sweep_bucketed import write_reads
@@ -1327,73 +2041,72 @@ def bucketed_path(dev, n_reads: int = 196_608, genome_len: int = 1 << 23):
     kernels = (sort_kernel.sort_chunks, sort_kernel.merge_runs,
                reduce_kernel.reduce_by_key, merge_kernel.merge_sorted_payload,
                sort_kernel.sort_pairs)
-    with tempfile.TemporaryDirectory() as tmp:
-        fa = os.path.join(tmp, "reads.fa")
-        n_all = write_reads(fa, genome, n_reads, length, rng)
-        n_windows = n_all * (length - k + 1)
-        print(f"bucketed path: {n_all} reads of {length} bases, "
-              f"{os.path.getsize(fa)} bytes of FASTA, {n_windows} windows")
+    fa = os.path.join(tmp, "reads.fa")
+    n_all = write_reads(fa, genome, n_reads, length, rng)
+    n_windows = n_all * (length - k + 1)
+    print(f"bucketed path: {n_all} reads of {length} bases, "
+          f"{os.path.getsize(fa)} bytes of FASTA, {n_windows} windows")
 
-        def count(flush):
-            inp = Input([fa], mer_len=k, device=dev,
-                        flush=flush)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            inp.count(quiet=True)
-            torch.cuda.synchronize()
-            return inp, time.perf_counter() - t0
-
-        classic, dt_classic = count("classic")
-        for fn in kernels:
-            fn.launches = 0
-        buck, dt_buck = count("bucketed")
-        launches = [fn.launches for fn in kernels]
-        st = buck.flush_stats
-        n = classic.table.n_unique
-        if not (buck.table.n_unique == n
-                and torch.equal(buck.table.keys[:n], classic.table.keys[:n])
-                and torch.equal(buck.table.counts[:n],
-                                classic.table.counts[:n])):
-            raise AssertionError("the bucketed table differs from the "
-                                 "classic one")
-        if int(classic.table.counts[:n].sum()) != n_windows \
-                or st["windows"] != n_windows:
-            raise AssertionError(f"window totals: table "
-                                 f"{int(classic.table.counts[:n].sum())}, "
-                                 f"router {st['windows']}, file {n_windows}")
-        if min(launches) < 1 or st["groups"] < 1 \
-                or launches[1] != st["groups"]:
-            raise AssertionError(
-                f"bucketed run launched chunk_sort/merge_runs/reduce/"
-                f"merge_payload/sort_pairs {launches}; the router reported "
-                f"{st['groups']} hot groups")
-        fill = st["windows"] / st["slots"]
-        print(f"bucketed path: tables equal ({n} distinct); file to table "
-              f"classic {dt_classic:.4f} s = {n_windows / dt_classic:.1f} "
-              f"k-mers/s, bucketed {dt_buck:.4f} s = "
-              f"{n_windows / dt_buck:.1f} k-mers/s; launches chunk_sort/"
-              f"merge_runs/reduce/merge_payload/sort_pairs {launches}; "
-              f"{st['flushes']} flushes, {st['chunks']} chunks, "
-              f"{st['groups'] / st['flushes']:.2f} groups per flush, record "
-              f"fill {fill:.4f} of the slots")
-        del classic, buck
-
-        # device rates over staged input (the recipe of bench.py:194-292):
-        # route with ONE router (timed: the host rate), stage every flush
-        rpc, bits = bucketed.geometry(k)
+    def count(flush):
+        inp = Input([fa], mer_len=k, device=dev,
+                    flush=flush)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        staged = []
-        for chunks, groups, _nw in native.route_flushes(
-                [fa], k, minimizer.M_DEFAULT, bits, bucketed.MAX_CHUNKS, rpc,
-                threads=1):
-            staged.append((bucketed.pad_flush(chunks, bucketed.MAX_CHUNKS),
-                           groups))
-        route_dt = time.perf_counter() - t0
-        group_chunks = max(1 << int(lg) for _c, g in staged for _s, lg in g)
-        staged = [(torch.from_numpy(c.view(np.int64)).to(dev), g)
-                  for c, g in staged]
-        batches = [torch.from_numpy(b).to(dev)
-                   for b in native.stream_code_batches([fa], k)]
+        inp.count(quiet=True)
+        torch.cuda.synchronize()
+        return inp, time.perf_counter() - t0
+
+    classic, dt_classic = count("classic")
+    for fn in kernels:
+        fn.launches = 0
+    buck, dt_buck = count("bucketed")
+    launches = [fn.launches for fn in kernels]
+    st = buck.flush_stats
+    n = classic.table.n_unique
+    if not (buck.table.n_unique == n
+            and torch.equal(buck.table.keys[:n], classic.table.keys[:n])
+            and torch.equal(buck.table.counts[:n],
+                            classic.table.counts[:n])):
+        raise AssertionError("the bucketed table differs from the "
+                             "classic one")
+    if int(classic.table.counts[:n].sum()) != n_windows \
+            or st["windows"] != n_windows:
+        raise AssertionError(f"window totals: table "
+                             f"{int(classic.table.counts[:n].sum())}, "
+                             f"router {st['windows']}, file {n_windows}")
+    if min(launches) < 1 or st["groups"] < 1 \
+            or launches[1] != st["groups"]:
+        raise AssertionError(
+            f"bucketed run launched chunk_sort/merge_runs/reduce/"
+            f"merge_payload/sort_pairs {launches}; the router reported "
+            f"{st['groups']} hot groups")
+    fill = st["windows"] / st["slots"]
+    print(f"bucketed path: tables equal ({n} distinct); file to table "
+          f"classic {dt_classic:.4f} s = {n_windows / dt_classic:.1f} "
+          f"k-mers/s, bucketed {dt_buck:.4f} s = "
+          f"{n_windows / dt_buck:.1f} k-mers/s; launches chunk_sort/"
+          f"merge_runs/reduce/merge_payload/sort_pairs {launches}; "
+          f"{st['flushes']} flushes, {st['chunks']} chunks, "
+          f"{st['groups'] / st['flushes']:.2f} groups per flush, record "
+          f"fill {fill:.4f} of the slots")
+    del classic, buck
+
+    # device rates over staged input (the recipe of bench.py:194-292):
+    # route with ONE router (timed: the host rate), stage every flush
+    rpc, bits = bucketed.geometry(k)
+    t0 = time.perf_counter()
+    staged = []
+    for chunks, groups, _nw in native.route_flushes(
+            [fa], k, minimizer.M_DEFAULT, bits, bucketed.MAX_CHUNKS, rpc,
+            threads=1):
+        staged.append((bucketed.pad_flush(chunks, bucketed.MAX_CHUNKS),
+                       groups))
+    route_dt = time.perf_counter() - t0
+    group_chunks = max(1 << int(lg) for _c, g in staged for _s, lg in g)
+    staged = [(torch.from_numpy(c.view(np.int64)).to(dev), g)
+              for c, g in staged]
+    batches = [torch.from_numpy(b).to(dev)
+               for b in native.stream_code_batches([fa], k)]
 
     def run_bucketed():
         sc = bucketed.BucketedCodeCounter(k, initial_capacity=1 << 24,
@@ -1431,7 +2144,7 @@ def bucketed_path(dev, n_reads: int = 196_608, genome_len: int = 1 << 23):
           f"{rates['classic again']:.1f} k-mers/s; router (one thread) "
           f"{n_windows / route_dt:.1f} host windows/s; the largest hot group "
           f"holds {group_chunks} chunks")
-    return launches, group_chunks
+    return launches, group_chunks, fa, genome
 
 
 def _numpy_windows(seq: np.ndarray, k: int):
@@ -1508,10 +2221,10 @@ def _write_contigs(path: str, genome: np.ndarray, rng) -> list:
     return contigs
 
 
-def _join_share(contigs, k: int, n_keys: int, dev):
+def _join_share(contigs, k: int, n_keys: int, dev, n_words: int = 1):
     """(buckets, windows in them, all windows) of sect's lookups that the
     join policy takes, for one batch of contigs against a table of n_keys
-    distinct keys."""
+    distinct keys of n_words words."""
     from kat_tpu_torch.core import tables
     from kat_tpu_torch.io import fastx
 
@@ -1524,13 +2237,13 @@ def _join_share(contigs, k: int, n_keys: int, dev):
     for codes, _meta in fastx.encode_batch_indexed(records, k):
         m = codes.shape[0] * (codes.shape[1] - k + 1)
         w_all += m
-        if tables._join_policy(m, cap, dev):
+        if tables._join_policy(m, cap, dev, n_words):
             n_join += 1
             w_join += m
     return n_join, w_join, w_all
 
 
-def cli_run(dev):
+def cli_run(dev, smi: str, n_reads: int = 200_000):
     """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`
     and `hist` from the dumped .jf in processes of their own, then `sect`
     through the same entry point inside this process, between a reset and a
@@ -1545,7 +2258,7 @@ def cli_run(dev):
 
     if not native.available():  # build the reader outside the timed run
         raise AssertionError("native FASTX reader did not build")
-    k, n_reads, read_len = 27, 200_000, 150
+    k, read_len = 27, 150
     rng = np.random.default_rng(SEED + 1)
     genome = np.frombuffer(b"ACGT", np.uint8)[
         rng.integers(0, 4, 1 << 20)]
@@ -1606,14 +2319,12 @@ def cli_run(dev):
         launches = [fn.launches for fn in kernels]
         if rc != 0 or "Running KAT in SECT mode" not in banner.getvalue():
             raise AssertionError(f"sect returned {rc}:\n{banner.getvalue()}")
+        # a narrow table's lookups take the search (the policy)
         n_join, w_join, w_all = _join_share(contigs, k, uniq.size, dev)
-        if min(launches) < 1 or launches[3:] != [n_join] * 3:
+        if min(launches[:3]) < 1 or launches[3:] != [n_join] * 3:
             raise AssertionError(
                 f"sect launched sort/merge/reduce/sort_pairs/merge_payload/"
                 f"compact {launches}; {n_join} buckets take the join")
-        if w_join < 0.9 * w_all:
-            raise AssertionError(f"only {w_join} of {w_all} windows are in "
-                                 "buckets that take the join")
         cvg, stats = [], {}
         for name, seq in contigs:
             cvg.append(f">{name}\n")
@@ -1638,6 +2349,8 @@ def cli_run(dev):
         if not os.path.getsize(f"{prefix}-contamination.mx"):
             raise AssertionError("sect wrote no contamination matrix")
         cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng)
+        cli_cold_filter(tmp, fq, fa, contigs, stats, (keys, valid),
+                        (uniq, ucounts), k, smi)
     n_bases = sum(seq.size for _, seq in contigs)
     print(f"CLI: sect of {len(contigs)} contigs ({n_bases} bases, longest "
           f"{max(s.size for _, s in contigs)}) against the reads equals "
@@ -1720,8 +2433,11 @@ def _write_fastq(path: str, seqs: np.ndarray) -> None:
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
 
 
-def _cli_in_process(args: list[str], what: str) -> float:
-    """cli.main(args) on the card, its banner swallowed; returns seconds."""
+def _cli_in_process(args: list[str], what: str,
+                    plots: bool = True) -> float:
+    """cli.main(args) on the card, its banner swallowed; returns seconds.
+    plots: the mode is one that kat_tpu plots after (the port says it
+    skipped them)."""
     import contextlib
     import io
 
@@ -1731,9 +2447,116 @@ def _cli_in_process(args: list[str], what: str) -> float:
     with contextlib.redirect_stdout(io.StringIO()) as out:
         rc = cli.main(args)
     dt = time.perf_counter() - t0
-    if rc != 0 or "Plot and peak analysis skipped" not in out.getvalue():
+    if rc != 0 or plots != ("Plot and peak analysis skipped"
+                            in out.getvalue()):
         raise AssertionError(f"{what} returned {rc}:\n{out.getvalue()}")
     return dt
+
+
+def cli_cold_filter(tmp, fq, fa, contigs, sect_stats: dict, windows, host,
+                    k: int, smi: str) -> None:
+    """`cold`, `filter kmer -c 5 -d 100` and `filter seq --stats` of the CLI
+    read set and contigs through cli.main, against numpy: cold's read
+    median and mean against sect's (held to numpy already) and its copy
+    number against the contigs' own k-mer counts; the kept .jf; every
+    read's hits against the contigs' k-mers.  windows: (keys, valid) of
+    the reads, as _numpy_windows_any gives them; host: the reads' table
+    (keys, counts), narrow or as word lists."""
+    # the contigs' own k-mers: the assembly hash of cold, the hash that
+    # filter seq profiles against
+    per = [(_numpy_windows_any(seq[None], k) if seq.size >= k else None)
+           for _name, seq in contigs]
+    if k > 31:
+        words = [np.concatenate([p[0][w][p[1]] for p in per if p])
+                 for w in range(len(next(p for p in per if p)[0]))]
+        (names,) = _word_ids(words)
+        _u, first, ccounts = np.unique(names, return_index=True,
+                                       return_counts=True)
+        ckeys = [w[first] for w in words]
+    else:
+        ckeys, ccounts = np.unique(np.concatenate(
+            [p[0][p[1]] for p in per if p]), return_counts=True)
+
+    cp = os.path.join(tmp, f"cold{k}")
+    dt = _cli_in_process(["cold", "-m", str(k), "-o", cp, fa, fq],
+                         f"cold -m {k}")
+    want = {}
+    for (name, seq), p in zip(contigs, per):
+        if p is None:
+            want[name] = (*sect_stats[name], "0")
+            continue
+        ac = _numpy_counts_of(ckeys, ccounts, p[0], p[1])[0]
+        want[name] = (*sect_stats[name], str(int(np.sort(ac)[ac.size // 2])))
+    rows = [ln.split("\t") for ln in _read(f"{cp}-stats.tsv").splitlines()[1:]]
+    if {r[0]: (r[1], r[2], r[3]) for r in rows} != want \
+            or len(rows) != len(contigs):
+        raise AssertionError(f"CLI cold -m {k}: read median/mean or copy "
+                             "number differ from numpy's")
+    print(f"CLI: cold -m {k} of {len(contigs)} contigs against the reads "
+          f"equals numpy's in {dt:.4f} s (counting included; {smi})")
+
+    fk = os.path.join(tmp, f"fk{k}")
+    dt = _cli_in_process(["filter", "kmer", "-m", str(k), "-c", "5", "-d",
+                          "100", "-o", fk, fq], f"filter kmer -m {k}",
+                         plots=False)
+    keys, counts = host
+    c = np.asarray(counts, np.int64)
+    gc = (sum(_numpy_gc(np.asarray(w).astype(np.uint64)) for w in keys)
+          if k > 31 else _numpy_gc(np.asarray(keys).astype(np.uint64)))
+    keep = (c >= 5) & (c <= 100) & (gc <= 31)
+    _check_kept_jf(f"{fk}-in.jf{k}", keys, c, keep, k)
+    print(f"CLI: filter kmer -m {k} -c 5 -d 100 kept {int(keep.sum())} of "
+          f"{c.size} k-mers, equal to numpy's, in {dt:.4f} s (counting "
+          f"included; {smi})")
+
+    fs = os.path.join(tmp, f"fs{k}")
+    dt = _cli_in_process(["filter", "seq", "-m", str(k), "--stats", "--seq",
+                          fq, "-o", fs, fa], f"filter seq -m {k}",
+                         plots=False)
+    rkeys, rvalid = windows
+    hits = (_numpy_counts_of(ckeys, ccounts, rkeys, rvalid) > 0).sum(-1)
+    nb = rvalid.shape[-1]
+    length = nb + k - 1
+    text = "index\tnb_bases\tnb_kmers\tnb_hits\tratio\n" + "".join(
+        f"{i}\t{length}\t{nb}\t{h}\t{h / nb:g}\n"
+        for i, h in enumerate(hits.tolist()))
+    if _read(f"{fs}.stats") != text:
+        raise AssertionError(f"CLI filter seq -m {k}: .stats differs from "
+                             "numpy's")
+    kept = int((hits / nb >= 0.1).sum())
+    if _read(f"{fs}.in.fq").count("\n@") + 1 != kept:
+        raise AssertionError(f"CLI filter seq -m {k}: .in.fq holds another "
+                             f"number of reads than {kept}")
+    print(f"CLI: filter seq -m {k} --stats of {hits.size} reads against the "
+          f"contigs kept {kept}, equal to numpy's, in {dt:.4f} s (counting "
+          f"included; {smi})")
+
+
+def _check_kept_jf(path: str, keys, counts, keep, k: int) -> None:
+    """A kept .jf, read back, holds exactly the kept keys and counts
+    (narrow keys sorted, or wide ones as word lists in table order)."""
+    from kat_tpu_torch.io import jellyfish
+
+    counts = np.asarray(counts)
+    if k > 31:
+        _hdr, words, got_c = jellyfish.read_jf_words(path)
+        want = np.stack([np.asarray(w, np.int64) for w in keys])[:, keep]
+        order = np.lexsort(words[::-1])
+        wo = np.lexsort(want[::-1])
+        same = (np.array_equal(words[:, order], want[:, wo])
+                and np.array_equal(got_c[order].astype(np.int64),
+                                   counts[keep][wo].astype(np.int64)))
+    else:
+        _hdr, got_k, got_c = jellyfish.read_jf(path)
+        order = np.argsort(got_k)
+        want = np.asarray(keys, np.uint64)[keep]
+        same = (np.array_equal(got_k[order], np.sort(want))
+                and np.array_equal(got_c[order].astype(np.int64),
+                                   counts[keep][np.argsort(want)]
+                                   .astype(np.int64)))
+    if not same:
+        raise AssertionError(f"{path}: the kept k-mers differ from numpy's")
+
 
 
 def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng):
@@ -1828,7 +2651,7 @@ def _numpy_wide_windows(seq: np.ndarray, k: int):
     return [np.where(less, r, f) for f, r in zip(fwd, rc)], ~bad
 
 
-def wide_cli_run(dev):
+def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
     """`python -m kat_tpu_torch hist -m 41 -d` and `hist` of its .jf in
     processes of their own, then `sect -m 41` through cli.main inside this
     process between a reset and a reading of the W-word kernels' launch
@@ -1839,7 +2662,7 @@ def wide_cli_run(dev):
     from kat_tpu_torch import cli
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
-    k, n_reads, read_len = 41, 100_000, 150
+    k, read_len = 41, 150
     rng = np.random.default_rng(SEED + 4)
     genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 20)]
     off = rng.integers(0, genome.size - read_len, n_reads)
@@ -1884,7 +2707,10 @@ def wide_cli_run(dev):
         contigs = _write_contigs(fa, genome, rng)
         prefix = os.path.join(tmp, "sect")
         kernels = (sort_kernel.sort_words, merge_kernel.merge_sorted_words,
-                   reduce_kernel.reduce_by_key_words)
+                   reduce_kernel.reduce_by_key_words,
+                   sort_kernel.sort_words_pairs,
+                   merge_kernel.merge_sorted_words_payload,
+                   reduce_kernel.compact_flagged)
         for fn in kernels:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1892,10 +2718,18 @@ def wide_cli_run(dev):
             rc = cli.main(["sect", "-m", str(k), "-o", prefix, fa, fq])
         dt = time.perf_counter() - t0
         launches = [fn.launches for fn in kernels]
-        if rc != 0 or min(launches) < 1:
+        # the wide lookups of the large length buckets take the wide join
+        n_join, w_join, w_all = _join_share(contigs, k, len(table), dev, 2)
+        if rc != 0 or min(launches[:3]) < 1 \
+                or launches[3:] != [n_join] * 3 or n_join < 1:
             raise AssertionError(f"sect -m {k} returned {rc}, launched "
-                                 f"W-word sort/merge/reduce {launches}:\n"
+                                 f"W-word sort/merge/reduce/sort_pairs/"
+                                 f"merge_payload/compact {launches}; "
+                                 f"{n_join} buckets take the join:\n"
                                  f"{banner.getvalue()}")
+        if w_join < 0.9 * w_all:
+            raise AssertionError(f"only {w_join} of {w_all} windows are in "
+                                 "buckets that take the wide join")
         cvg, stats = [], {}
         for name, seq in contigs:
             cvg.append(f">{name}\n")
@@ -1917,9 +2751,15 @@ def wide_cli_run(dev):
                 or len(rows) != len(contigs)):
             raise AssertionError("sect -m 41 stats.tsv differs from numpy's")
         wide_cli_gcp_comp(tmp, fq, fa, contigs, table, k)
+        host = (list(np.array(list(table)).T),
+                np.array(list(table.values()), np.int64))
+        cli_cold_filter(tmp, fq, fa, contigs, stats, (words, valid), host, k,
+                        smi)
     print(f"wide CLI: sect -m {k} of {len(contigs)} contigs equals numpy's "
           f"counts, medians and means, in {dt:.4f} s (counting included); "
-          f"launches W-word sort/merge/reduce {launches}")
+          f"launches W-word sort/merge/reduce/sort_pairs/merge_payload/"
+          f"compact {launches}; {n_join} buckets with {w_join} of {w_all} "
+          "windows took the wide join")
     return launches
 
 
@@ -1978,6 +2818,9 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import counting
+    from kat_tpu_torch.core import wide as wide_mod
     from kat_tpu_torch.ops import _cuda
 
     smi = subprocess.run(
@@ -1985,6 +2828,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     _cuda.LIBRARY.get()
     print(f"kernels built by nvcc for sm_90a in "
@@ -1992,44 +2836,113 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
+    def lap(what: str) -> None:
+        print(f"chip_smoke: {what} done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
     kernels, counted = check_kernels(dev, gen)
     wide, wide_counted = check_wide_kernels(dev, gen)
     binned, binned_counted = check_binned_kernels(dev, gen)
     dual, dual_counted = check_dual_probe_kernels(dev, gen)
-    count_inside(counted + wide_counted + binned_counted + dual_counted)
-    del counted, wide_counted, binned_counted, dual_counted
+    wjoin, wjoin_counted = check_wide_join_kernels(dev, gen)
+    count_inside(counted + wide_counted + binned_counted + dual_counted
+                 + wjoin_counted)
+    del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
+    lap("the kernel checks")
     launches, table, genome, ref_keys, ref_counts = main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts
     launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
     binned[1]["launches"] = gcp_path(dev, table, ref_keys, ref_counts)
+    host27 = (ref_keys.cpu().numpy().astype(np.uint64),
+              ref_counts.cpu().numpy())
     del ref_keys, ref_counts
     comp = comp_path(dev, table, genome, smi)
-    del table, genome
     for entry in binned[2:]:
         entry["launches"] = comp["three inputs"][0]
     for entry, n in zip(dual, comp["two inputs"][1:], strict=True):
         entry["launches"] = n
     for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
-    for entry, n, n95 in zip(wide, wide_path(dev, 41, 48, smi),
-                             wide_path(dev, 95, 8, smi), strict=True):
-        entry["launches"], entry["launches_k95"] = n, n95
+    lap("the main, lookup, gcp and comp paths")
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "asm.fa")
+        asm = write_cold_contigs(fa, genome)
+        cold27 = cold_path(dev, tmp, 27, table, host27, fa, asm, smi)
+        filter_kmer_path(dev, tmp, 27, table, host27)
+        del table, host27
+        lap("cold and filter kmer at k=27")
+        w41, wtable = wide_path(dev, 41, 48, smi)
+        w95, _t95 = wide_path(dev, 95, 8, smi)
+        del _t95
+        lap("the wide paths")
+        for entry, n, n95 in zip(wide, w41, w95, strict=True):
+            entry["launches"], entry["launches_k95"] = n, n95
+        words, wcounts = wide_mod.table_words_to_numpy(wtable)
+        host41 = (list(words), wcounts)
+        del words
+        wl = wide_lookup_path(dev, wtable, genome)
+        cold41 = cold_path(dev, tmp, 41, wtable, host41, fa, asm, smi)
+        filter_kmer_path(dev, tmp, 41, wtable, host41)
+        wcomp = wide_comp_path(dev, wtable, genome, smi)
+        del wtable, host41, asm, genome
+        lap("the wide lookup, cold, filter kmer and comp at k=41")
+    # the wide join's forms: launches of the wide lookup path; then of
+    # cold -m 41 and comp -m 41
+    wjoin[0]["launches"], wjoin[1]["launches"] = wl[0], wl[1]
+    wjoin[0]["launches_cold"], wjoin[1]["launches_cold"] = cold41[:2]
+    wjoin[2]["launches"] = wcomp[1]
+    kernels[5]["launches_wide"] = wl[2]
+    kernels[5]["launches_cold"] = [cold27[2], cold41[2]]
     profile_wide(41)
-    sect_launches = cli_run(dev)
+    lap("the k=41 profile")
+    sect_launches = cli_run(dev, smi)
     for entry, n in zip(kernels, sect_launches, strict=True):
         entry["launches_sect"] = n
-    for entry, n in zip(wide, wide_cli_run(dev), strict=True):
+    wide_sect = wide_cli_run(dev, smi)
+    for entry, n in zip(wide, wide_sect[:3], strict=True):
         entry["launches_sect"] = n
+    wjoin[0]["launches_sect"], wjoin[1]["launches_sect"] = wide_sect[3:5]
     kernels += wide
+    lap("the CLI phases")
 
-    b_launches, group_chunks = bucketed_path(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        b_launches, group_chunks, fa, bgenome = bucketed_path(dev, tmp)
+        reads = _read_fasta_rows(fa, 1024)
+        codes = torch.from_numpy(bgenome).to(dev)
+        del bgenome
+        fs = {}
+        for k in (27, 41):
+            sc = (workloads.wide_counter(k, dev) if k > 31 else
+                  counting.CodeStreamingCounter(
+                      k, initial_capacity=1 << 20, flush_windows=1 << 26,
+                      device=dev))
+            sc.add_codes(workloads.contig_rows(codes, k))
+            gt = sc.finish()
+            del sc
+            if k > 31:
+                words, gcounts = wide_mod.table_words_to_numpy(gt)
+                ghost = (list(words), gcounts)
+            else:
+                ghost = counting.table_to_numpy(gt)
+            fs[k] = filter_seq_path(dev, tmp, k, fa, reads, gt, ghost, smi)
+            del gt, ghost
+        del reads, codes
+    lap("the bucketed and filter seq paths")
+    wjoin[0]["launches_filter_seq"], wjoin[1]["launches_filter_seq"] = \
+        fs[41][:2]
+    kernels[3]["launches_filter_seq"] = fs[27][0]
     k5, k6 = check_bucketed_kernels(dev, gen, group_chunks)
     k5["launches"], k6["launches"] = b_launches[:2]
     # K3, K2 with payload planes and K1 with a value also carry this path
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
-    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual]
+    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual, *wjoin]
+    lap("K5, K6 and K7")
+    route_sweep(dev, smi)
+    big_flush_path(dev, smi)
 
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s ({smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

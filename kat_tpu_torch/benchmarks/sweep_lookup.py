@@ -1,16 +1,19 @@
-"""Join against search over table capacity, query count and query order.
+"""Join against search: the measurements behind core/tables._join_policy.
 
     python -m kat_tpu_torch.benchmarks.sweep_lookup [out.json]
 
-For each capacity in 2^17 .. 2^26 (three quarters of the slots hold random
-54-bit keys, the fill `tables.compact` leaves on average) and each query
-count in 2^16 .. 2^24 (half present, 1% SENTINEL), times one bulk lookup
+For keys of 1, 2 and 4 words (k = 27, 41 and 95), tables of 2^20 and 2^24
+slots (three quarters of them real keys, the fill `tables.compact` leaves
+on average) and 2^16, 2^20 and 2^23 queries in random order (half present, 1% SENTINEL), one bulk lookup
 through the sort-merge join (ops/join.py) and through the binary search
-(core/counting.lookup), for queries in random order and already sorted
-(CUDA events, 5 launches after a warm-up), after checking that both routes
-agree.  Prints one row per cell with both times, their ratio, and what
-`tables._join_policy` picks there; writes the rows as JSON when a path is
-given.  Needs an NVIDIA card; the first line names it with its power limit.
+(counting.lookup, wide.lookup_wide); then the fused dual probe
+(join.counts_join_dual) against two searches at comp's shape, two 2^24-slot
+tables sharing half their keys, for 1, 2 and 4 words.  Each cell checks
+that both routes agree, times both (CUDA events, 5 launches after a
+warm-up) and prints what `tables._join_policy` picks there.
+
+Writes the rows as JSON when a path is given.  Needs an NVIDIA card; the
+first line names it with its power limit.
 """
 
 from __future__ import annotations
@@ -23,39 +26,142 @@ import torch
 
 from .profile_join import _timed_ms
 
-CAPACITIES = tuple(1 << s for s in (17, 20, 22, 24, 26))
-QUERY_COUNTS = tuple(1 << s for s in (16, 18, 20, 22, 24))
-KEY_BITS = 55  # k = 27
+KS = {1: 27, 2: 41, 4: 95}  # words -> the k whose keys are drawn
+ROUTE_CAPACITIES = (1 << 20, 1 << 24)
+ROUTE_QUERIES = (1 << 16, 1 << 20, 1 << 23)
+DUAL_CAPACITY = 1 << 24
 
 
-def _table(cap: int, dev, gen):
-    from ..core import counting
+def _random_keys(n: int, k: int, dev, gen) -> torch.Tensor:
+    """n random k-mers: int64 [n] for k <= 31, [W, n] words beyond (lower
+    words of 31 bases, the top word of the rest)."""
+    from ..core import kmers
+
+    if k <= kmers.MAX_K:
+        return torch.randint(0, 1 << (2 * k), (n,), device=dev, generator=gen)
+    W = kmers.words_for_k(k)
+    top = 2 * kmers.top_bases(k)
+    words = torch.randint(0, 1 << 62, (W, n), device=dev, generator=gen)
+    words[0] = torch.randint(0, 1 << top, (n,), device=dev, generator=gen)
+    return words
+
+
+def make_table(cap: int, k: int, dev, gen, keys=None):
+    """A table of `cap` slots holding 3/4 cap distinct random k-mers (or
+    the distinct ones of `keys`), counts in [1, 1000)."""
+    from ..core import counting, kmers, wide
     from ..core.kmers import SENTINEL
+    from ..ops.sort_kernel import words_order_plain
 
-    real = torch.unique(torch.randint(0, 1 << 54, (cap * 3 // 4,),
-                                      device=dev, generator=gen))
-    keys = torch.full((cap,), SENTINEL, dtype=torch.int64, device=dev)
-    keys[:real.numel()] = real
+    if keys is None:
+        keys = _random_keys(cap * 3 // 4, k, dev, gen)
+    if keys.dim() == 1:
+        real = torch.unique(keys)
+    else:
+        keys = keys[:, words_order_plain(keys)]
+        new = torch.ones(keys.shape[1], dtype=torch.bool, device=dev)
+        new[1:] = (keys[:, 1:] != keys[:, :-1]).any(0)
+        real = keys[:, new]
+    n = real.shape[-1]
+    out = torch.full(real.shape[:-1] + (cap,), SENTINEL, dtype=torch.int64,
+                     device=dev)
+    out[..., :n] = real
     counts = torch.zeros(cap, dtype=torch.int32, device=dev)
-    counts[:real.numel()] = torch.randint(
-        1, 1000, (real.numel(),), dtype=torch.int32, device=dev,
-        generator=gen)
-    return counting.CountTable(keys, counts, real.numel())
+    counts[:n] = torch.randint(1, 1000, (n,), dtype=torch.int32, device=dev,
+                               generator=gen)
+    if k > kmers.MAX_K:
+        return wide.WideTable(out, counts, n)
+    return counting.CountTable(out, counts, n)
 
 
-def _queries(table, m: int, dev, gen):
+def make_queries(table, m: int, k: int, dev, gen) -> torch.Tensor:
+    """m queries: every other one a key of the table, the rest random, 1%
+    SENTINEL."""
     from ..core.kmers import SENTINEL
 
-    q = torch.randint(0, 1 << 54, (m,), device=dev, generator=gen)
-    q[::2] = table.keys[torch.randint(0, table.n_unique, (m // 2,),
-                                      device=dev, generator=gen)]
-    q[torch.rand(m, device=dev, generator=gen) < 0.01] = SENTINEL
+    q = _random_keys(m, k, dev, gen)
+    pick = torch.randint(0, table.n_unique, (m // 2,), device=dev,
+                         generator=gen)
+    q[..., ::2] = table.keys[..., pick]
+    q[..., torch.rand(m, device=dev, generator=gen) < 0.01] = SENTINEL
     return q
 
 
-def main(argv: list[str]) -> int:
+def time_routes(table, q, k: int) -> dict:
+    """Both routes of one bulk lookup, after checking that they agree."""
     from ..core import tables
 
+    def join():
+        return tables.lookup(table, q, method="join", key_bits=2 * k + 1)
+
+    def search():
+        return tables.lookup(table, q, method="search")
+
+    if not torch.equal(join(), search()):
+        raise AssertionError(f"join and search differ at capacity "
+                             f"{table.capacity}, k {k}")
+    return dict(join_ms=_timed_ms(join), search_ms=_timed_ms(search))
+
+
+def time_dual(t_a, t_b) -> dict:
+    """The fused probe against two searches, after checking that they
+    agree."""
+    from ..core import tables
+    from ..ops.join import counts_join_dual
+
+    def dual():
+        return counts_join_dual(t_a.keys, t_a.counts, t_b.keys, t_b.counts)
+
+    def searches():
+        return (tables.lookup(t_b, t_a.keys, method="search"),
+                tables.lookup(t_a, t_b.keys, method="search"))
+
+    if not all(torch.equal(x, y) for x, y in zip(dual(), searches())):
+        raise AssertionError("the dual probe and two searches differ")
+    return dict(join_ms=_timed_ms(dual), search_ms=_timed_ms(searches))
+
+
+def route_table(dev, gen, report=print) -> list[dict]:
+    """The cells of the route table (module docstring), one dict each."""
+    from ..core import tables
+
+    rows = []
+    for n_words, k in KS.items():
+        for cap in ROUTE_CAPACITIES:
+            table = make_table(cap, k, dev, gen)
+            for m in ROUTE_QUERIES:
+                q = make_queries(table, m, k, dev, gen)
+                row = dict(kind="lookup", words=n_words, k=k, capacity=cap,
+                           queries=m, order="random",
+                           **time_routes(table, q, k))
+                row["policy"] = "join" if tables._join_policy(
+                    m, cap, dev, n_words) else "search"
+                rows.append(row)
+                report(_line(row))
+            del table
+        a = make_table(DUAL_CAPACITY, k, dev, gen)
+        shared = a.keys[..., :a.n_unique // 2]
+        b = make_table(DUAL_CAPACITY, k, dev, gen, torch.cat(
+            [shared, _random_keys(DUAL_CAPACITY * 3 // 8, k, dev, gen)],
+            dim=-1))
+        row = dict(kind="dual", words=n_words, k=k, capacity=DUAL_CAPACITY,
+                   queries=DUAL_CAPACITY, order="sorted", **time_dual(a, b))
+        row["policy"] = "join" if tables._join_policy(
+            DUAL_CAPACITY, DUAL_CAPACITY, dev, n_words, True) else "search"
+        rows.append(row)
+        report(_line(row))
+        del a, b, shared
+    return rows
+
+
+def _line(r: dict) -> str:
+    return (f"{r['kind']} W={r['words']} 2^{r['capacity'].bit_length() - 1} "
+            f"2^{r['queries'].bit_length() - 1} {r['order']} "
+            f"{r['join_ms']:.4f} {r['search_ms']:.4f} "
+            f"{r['join_ms'] / r['search_ms']:.3f} {r['policy']}")
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("sweep_lookup: no CUDA device", file=sys.stderr)
         return 1
@@ -67,37 +173,14 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = []
-    print("capacity queries order join_ms search_ms join/search policy")
-    for cap in CAPACITIES:
-        table = _table(cap, dev, gen)
-        for m in QUERY_COUNTS:
-            q = _queries(table, m, dev, gen)
-            for order, qq in (("random", q), ("sorted", torch.sort(q).values)):
-                is_sorted = order == "sorted"
-
-                def join():
-                    return tables.lookup(table, qq, assume_sorted=is_sorted,
-                                         method="join", key_bits=KEY_BITS)
-
-                def search():
-                    return tables.lookup(table, qq, method="search")
-
-                if not torch.equal(join(), search()):
-                    raise AssertionError(f"join and search differ at "
-                                         f"capacity {cap}, m {m}, {order}")
-                join_ms, search_ms = _timed_ms(join), _timed_ms(search)
-                picks = "join" if tables._join_policy(
-                    m, cap, table.keys.device) else "search"
-                rows.append(dict(capacity=cap, queries=m, order=order,
-                                 join_ms=join_ms, search_ms=search_ms,
-                                 policy=picks))
-                print(f"2^{cap.bit_length() - 1} 2^{m.bit_length() - 1} "
-                      f"{order} {join_ms:.4f} {search_ms:.4f} "
-                      f"{join_ms / search_ms:.2f} {picks}")
-        del table
+    print("kind words capacity queries order join_ms search_ms join/search "
+          "policy")
+    rows = route_table(dev, gen)
     wins = [r for r in rows if r["join_ms"] < r["search_ms"]]
-    print(f"the join is the faster route in {len(wins)} of {len(rows)} cells")
+    agree = [r for r in rows
+             if (r["policy"] == "join") == (r["join_ms"] < r["search_ms"])]
+    print(f"the join is the faster route in {len(wins)} of {len(rows)} "
+          f"cells; the policy picks the faster route in {len(agree)}")
     if len(argv) > 1:
         with open(argv[1], "w") as f:
             json.dump({"card": card, "rows": rows}, f)

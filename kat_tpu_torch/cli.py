@@ -1,7 +1,7 @@
 """`kat`-compatible command line (reference src/kat.cc mode dispatch).
 
-Port of kat_tpu/cli.py with the `hist`, `gcp`, `comp` and `sect` modes,
-same flags and defaults, plus a top-level `--device` (the card unless the
+Port of kat_tpu/cli.py with the `hist`, `gcp`, `comp`, `sect`, `cold` and
+`filter {kmer,seq}` modes, same flags and defaults, plus a top-level `--device` (the card unless the
 CPU is asked for) and `--flush` (the classic counting flush unless the
 minimizer-bucketed one is asked for: the counterpart of kat_tpu's
 KAT_TPU_MINIMIZER switch).
@@ -95,8 +95,9 @@ def _run_hist(args) -> int:
 
 
 def _plots_skipped() -> None:
-    """kat_tpu plots and analyses peaks after hist, gcp and comp
-    (kat_tpu/cli.py:104-111,150-154,224-249); the port has neither yet."""
+    """kat_tpu plots and analyses peaks after hist, gcp and comp, and plots
+    after cold (kat_tpu/cli.py:104-111,150-154,224-249,356-357); the port
+    has neither yet."""
     print("Plot and peak analysis skipped: not ported yet "
           "(ROADMAP.md §1 item 4).")
 
@@ -279,6 +280,146 @@ def _run_sect(args) -> int:
     return 0
 
 
+def _add_cold(sub):
+    p = sub.add_parser(
+        "cold", add_help=True,
+        description="Given reads and an assembly, calculates read and "
+                    "assembly k-mer coverage plus GC%% per sequence.")
+    p.add_argument("-o", "--output_prefix", default="kat-cold")
+    p.add_argument("-x", "--gc_bins", type=int, default=1001)
+    p.add_argument("-y", "--cvg_bins", type=int, default=1001)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("--5ptrim", dest="trim5", default="0")
+    p.add_argument("-N", "--non_canonical", action="store_true")
+    p.add_argument("-m", "--mer_len", type=int, default=DEFAULT_MER_LEN)
+    p.add_argument("-H", "--hash_size", type=int, default=DEFAULT_HASH_SIZE)
+    p.add_argument("-g", "--disable_hash_grow", action="store_true")
+    p.add_argument("-d", "--dump_hashes", action="store_true")
+    p.add_argument("-p", "--output_type", default="png")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("asm_file")
+    p.add_argument("reads_files", nargs="+")
+    p.set_defaults(func=_run_cold)
+
+
+def _run_cold(args) -> int:
+    from .tools.cold import Cold
+    from .tools.common import glob_files, parse_trim_list
+
+    print("Running KAT in COLD mode")
+    print("------------------------")
+    print()
+    with total("KAT COLD"):
+        c = Cold(glob_files(args.reads_files), args.asm_file)
+        c.output_prefix = args.output_prefix
+        device = _device(args)
+        for inp in (c.reads, c.assembly):
+            inp.device = device
+            inp.flush = args.flush
+            inp.disable_grow = args.disable_hash_grow
+            inp.mer_len = args.mer_len
+        c.gc_bins = args.gc_bins
+        c.cvg_bins = args.cvg_bins
+        c.reads.trim5 = parse_trim_list(args.trim5)
+        c.reads.canonical = not args.non_canonical
+        c.reads.hash_size = args.hash_size
+        c.dump_hashes = args.dump_hashes
+        c.verbose = args.verbose
+        c.execute()
+        _plots_skipped()
+    return 0
+
+
+def _add_filter(sub):
+    p = sub.add_parser("filter", add_help=True,
+                       description="Filtering tools for k-mers and sequences.")
+    fsub = p.add_subparsers(dest="filter_mode", required=True)
+
+    fk = fsub.add_parser("kmer", add_help=False)
+    fk.add_argument("--help", action="help")
+    fk.add_argument("-o", "--output_prefix", default="kat.filter-kmer")
+    fk.add_argument("-t", "--threads", type=int, default=1)
+    fk.add_argument("--low_count", "-c", type=int, default=0)
+    fk.add_argument("--high_count", "-d", type=int, default=10000)
+    fk.add_argument("--low_gc", "-g", type=int, default=0)
+    fk.add_argument("--high_gc", "-h", type=int, default=31)
+    fk.add_argument("-i", "--invert", action="store_true")
+    fk.add_argument("-s", "--separate", action="store_true")
+    fk.add_argument("-N", "--non_canonical", action="store_true")
+    fk.add_argument("-m", "--mer_len", type=int, default=DEFAULT_MER_LEN)
+    fk.add_argument("-H", "--hash_size", type=int, default=DEFAULT_HASH_SIZE)
+    fk.add_argument("-v", "--verbose", action="store_true")
+    fk.add_argument("inputs", nargs="+")
+    fk.set_defaults(func=_run_filter_kmer)
+
+    fs = fsub.add_parser("seq", add_help=True)
+    fs.add_argument("-o", "--output_prefix", default="kat.filter.seq")
+    fs.add_argument("-t", "--threads", type=int, default=1)
+    fs.add_argument("-T", "--threshold", type=float, default=0.1)
+    fs.add_argument("-f", "--frequency", type=float, default=0.0)
+    fs.add_argument("-i", "--invert", action="store_true")
+    fs.add_argument("-s", "--separate", action="store_true")
+    fs.add_argument("--stats", action="store_true")
+    fs.add_argument("-N", "--non_canonical", action="store_true")
+    fs.add_argument("-m", "--mer_len", type=int, default=DEFAULT_MER_LEN)
+    fs.add_argument("-H", "--hash_size", type=int, default=DEFAULT_HASH_SIZE)
+    fs.add_argument("-v", "--verbose", action="store_true")
+    fs.add_argument("--seq", required=True, help="Sequence file to filter.")
+    fs.add_argument("--seq2", default=None,
+                    help="Second sequence file for paired mode.")
+    fs.add_argument("inputs", nargs="+")
+    fs.set_defaults(func=_run_filter_seq)
+
+
+def _run_filter_kmer(args) -> int:
+    from .tools.common import glob_files
+    from .tools.filter_kmer import FilterKmer
+
+    print("Running KAT in filter kmer mode")
+    print("-------------------------------")
+    print()
+    with total("KAT filter kmer"):
+        f = FilterKmer(glob_files(args.inputs))
+        f.output_prefix = args.output_prefix
+        f.input.device = _device(args)
+        f.input.flush = args.flush
+        f.low_count = args.low_count
+        f.high_count = args.high_count
+        f.low_gc = args.low_gc
+        f.high_gc = args.high_gc
+        f.invert = args.invert
+        f.separate = args.separate
+        f.input.canonical = not args.non_canonical
+        f.input.mer_len = args.mer_len
+        f.input.hash_size = args.hash_size
+        f.execute()
+    return 0
+
+
+def _run_filter_seq(args) -> int:
+    from .tools.common import glob_files
+    from .tools.filter_seq import FilterSeq
+
+    print("Running KAT in filter sequences mode")
+    print("------------------------------------")
+    print()
+    with total("KAT filter seq"):
+        f = FilterSeq(args.seq, args.seq2, glob_files(args.inputs))
+        f.output_prefix = args.output_prefix
+        f.input.device = _device(args)
+        f.input.flush = args.flush
+        f.threshold = args.threshold
+        f.frequency = args.frequency
+        f.invert = args.invert
+        f.separate = args.separate
+        f.do_stats = args.stats
+        f.input.canonical = not args.non_canonical
+        f.input.mer_len = args.mer_len
+        f.input.hash_size = args.hash_size
+        f.execute()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     # Fatal-signal backtraces, the analogue of the reference's SIGSEGV
     # handler (src/kat.cc:158-170 prints a backtrace and aborts).
@@ -292,7 +433,7 @@ def main(argv: list[str] | None = None) -> int:
         prog="kat", add_help=False,
         description="The K-mer Analysis Toolkit (KAT), PyTorch/CUDA port. "
                     "The first argument should be the tool/mode you wish to "
-                    "use: hist, gcp, comp, sect.")
+                    "use: hist, gcp, comp, sect, cold, filter.")
     parser.add_argument("--version", action="version",
                         version=f"kat {__version__} (kat_tpu_torch)")
     parser.add_argument("--help", action="help")
@@ -308,7 +449,8 @@ def main(argv: list[str] | None = None) -> int:
                              "(canonical, 13 < k <= 29, files only; an "
                              "error otherwise).")
     sub = parser.add_subparsers(dest="mode")
-    for adder in (_add_hist, _add_gcp, _add_comp, _add_sect):
+    for adder in (_add_hist, _add_gcp, _add_comp, _add_sect, _add_cold,
+                  _add_filter):
         adder(sub)
     args = parser.parse_args(argv)
     if args.mode is None:

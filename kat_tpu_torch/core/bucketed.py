@@ -47,7 +47,8 @@ from ..ops.merge_kernel import merge_sorted_payload
 from ..ops.reduce_kernel import reduce_by_key
 from ..ops.sort_kernel import merge_runs, sort_chunks, sort_pairs
 from . import minimizer
-from .counting import (CountTable, TableFullError, _same_device, empty_table)
+from .counting import (MAX_STREAM, CountTable, TableFullError, _same_device,
+                       empty_table, reduce_stream)
 from .kmers import SENTINEL
 
 SLOTS_LOG = 14     # log2 of the key' slots of one chunk
@@ -121,9 +122,10 @@ class BucketedCodeCounter:
         while True:
             mk, (mc,) = merge_sorted_payload(
                 prev.keys[:n], (prev.counts[:n],), fk[:fnu], (fc[:fnu],))
-            keys, counts, n_unique = reduce_by_key(mk, mc, self.capacity)
-            if int(n_unique) <= self.capacity:
-                return CountTable(keys, counts, int(n_unique))
+            table = CountTable(*reduce_stream(mk, mc, self.capacity))
+            if table.n_unique <= self.capacity:
+                return table
+            del table, mk, mc  # before the replay allocates its own
             self._grow()
 
     # -- streaming protocol ------------------------------------------------
@@ -157,6 +159,11 @@ class BucketedCodeCounter:
         """Decode key' -> canonical keys, re-sort ONCE with the counts as
         values, and return a standard-order CountTable."""
         n = self.table.n_unique
+        if n >= MAX_STREAM:  # one K1 launch
+            raise TableFullError(
+                f"{n} distinct keys: the bucketed flush's final re-sort "
+                f"takes fewer than {MAX_STREAM}; count with the classic "
+                "flush")
         keys, counts = sort_pairs(
             minimizer.decode_keys(self.table.keys[:n], self.k, self.m),
             self.table.counts[:n].contiguous(), 2 * self.k + 1)

@@ -7,7 +7,9 @@ windows once per flush: sort the fresh keys (K1), merge them with the
 table (K2), reduce by key into `capacity` slots (K3).  When the reduce
 reports more runs than slots, capacity doubles and the merge + reduce
 replay from the pre-flush table, which is the observable behaviour of
-jellyfish's cooperative resize (hash_counter.hpp:204-244).
+jellyfish's cooperative resize (hash_counter.hpp:204-244).  A merged
+stream too long for one K3 launch is reduced in pieces (`reduce_stream`),
+so a table may pass 2^30 distinct keys when its max capacity allows.
 
 `lookup` is the binary-search route of the bulk lookups (the join of
 ops/join.py is the other, core/tables.py picks).  Left behind from kat_tpu:
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.merge_kernel import merge_sorted
-from ..ops.reduce_kernel import reduce_by_key
+from ..ops.reduce_kernel import reduce_by_key, reduce_by_key_words
 from ..ops.sort_kernel import sort_keys
 from .kmers import SENTINEL, extract_kmers, from_planes
 
@@ -88,20 +90,84 @@ class TableFullError(RuntimeError):
     pass
 
 
-# K1 and K3 keep counts in 30 bits of their status words, so a flush's
-# fresh windows and its merged stream (the table's real entries and the
-# fresh windows) must each stay under 2^30: with 2^26 windows a flush the
-# table is capped near 2^30 - 2^26 distinct keys.
+# K1 and K3 keep counts in 30 bits of their status words and take fewer
+# than 2^30 keys a launch.  A flush's fresh windows go through K1 in one
+# launch; its merged stream (the table's real entries and the fresh
+# windows) goes through K3 in pieces of fewer than MAX_STREAM keys
+# (`reduce_stream`).  The tests lower it to reach the pieces at small
+# sizes; it is not a setting.
 MAX_STREAM = 1 << 30
 
 
 def check_stream(n: int, what: str) -> None:
-    """Raise TableFullError for a stream K1 or K3 would refuse, before any
-    launch."""
+    """Raise TableFullError for a stream K1 would refuse (the fresh
+    windows of one flush), before any launch."""
     if n >= MAX_STREAM:
         raise TableFullError(
-            f"{what} holds {n} keys: the sort and reduce kernels take fewer "
-            f"than 2^30, which caps a table near 2^30 - 2^26 distinct keys")
+            f"{what} holds {n} keys: the sort kernel takes fewer than "
+            f"{MAX_STREAM} a launch; flush more often")
+
+
+def _key_at(keys: torch.Tensor, i: int) -> list[int]:
+    return keys[:, i].tolist()
+
+
+def _run_start(keys: torch.Tensor, lo: int, p: int) -> int:
+    """The first index in [lo, p] whose key equals the key at p, in a
+    sorted [W, n] stream (a binary search on the host, W words a step)."""
+    want = _key_at(keys, p)
+    hi = p
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if _key_at(keys, mid) < want:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
+    """K3 over a sorted stream of any length: 1-D int64 keys
+    (`reduce_by_key`) or [W, n] words (`reduce_by_key_words`).
+
+    A stream of fewer than MAX_STREAM keys is one launch.  A longer one is
+    cut into pieces of fewer than MAX_STREAM keys, each ending where the
+    key changes, so no run straddles two pieces; each piece's runs are
+    written from the table's fill so far (its offset in the output), and
+    the slots after the last run are padded at the end.  Returns (keys,
+    counts, n_unique as a host int), n_unique the true number of runs even
+    past out_size, as `reduce_by_key`."""
+    wide = keys.dim() == 2
+    reduce = reduce_by_key_words if wide else reduce_by_key
+    n = keys.shape[-1]
+    if n < MAX_STREAM:
+        k, c, nu = reduce(keys, w, out_size)
+        return k, c, int(nu)
+    lead = (keys.shape[0],) if wide else ()
+    out_keys = torch.empty(lead + (out_size,), dtype=torch.int64,
+                           device=keys.device)
+    out_counts = torch.empty(out_size, dtype=torch.int32, device=keys.device)
+    words = keys if wide else keys[None]
+    start = fill = 0
+    while start < n:
+        end = n
+        if n - start >= MAX_STREAM:
+            end = _run_start(words, start, start + MAX_STREAM - 1)
+            if end == start:
+                raise TableFullError(
+                    f"a run of at least {MAX_STREAM} equal keys cannot be "
+                    "reduced in pieces")
+        lo = min(fill, out_size)
+        size = min(out_size - lo, end - start)  # a piece's runs fit its length
+        nu = reduce(keys[..., start:end], w[start:end], size,
+                    out=(out_keys[..., lo:lo + size],
+                         out_counts[lo:lo + size]))[2]
+        fill += int(nu)
+        start = end
+    lo = min(fill, out_size)
+    out_keys[..., lo:] = SENTINEL
+    out_counts[lo:] = 0
+    return out_keys, out_counts, fill
 
 
 class StreamingCounter:
@@ -160,8 +226,7 @@ class StreamingCounter:
         # only the table's real entries join: its padding is all sentinel
         n = prev.n_unique
         mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
-        keys, counts, n_unique = reduce_by_key(mkeys, mw, cap)
-        return CountTable(keys, counts, int(n_unique))
+        return CountTable(*reduce_stream(mkeys, mw, cap))
 
     def _flush(self) -> None:
         if not self._fresh:
@@ -170,14 +235,13 @@ class StreamingCounter:
                  else self._fresh[0])
         self._fresh = []
         self._fresh_n = 0
-        # before any launch; a growth replay merges the same stream
-        check_stream(fresh.numel(), "the fresh windows")
-        check_stream(self.table.n_unique + fresh.numel(), "the merged stream")
+        check_stream(fresh.numel(), "the fresh windows")  # before any launch
         fresh = sort_keys(fresh, self.key_bits)
         prev = self.table
         table = self._merge_reduce(prev, fresh, self.capacity)
         while table.n_unique > self.capacity:
             self._grow()
+            del table  # before the replay allocates its own
             table = self._merge_reduce(prev, fresh, self.capacity)
         self.table = table
 

@@ -6,8 +6,8 @@ Port of kat_tpu/core/coverage.py.  The reference walks each sequence base by
 base, building a mer_dna per window and probing the shared hash
 (sect.cc:527-541).  Here a whole batch of sequence chunks becomes one
 [rows, W] window extraction and one bulk lookup against the sorted count
-table (core/tables.lookup: the sort-merge join for large batches on the
-card, the binary search otherwise).
+table (core/tables.lookup: the sort-merge join or the binary search, as
+its policy picks from the card's measurements).
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def window_counts(table, codes: torch.Tensor, k: int, canonical: bool,
              valid [.., W] bool).
     Queries are canonicalized when the hash was counted canonically
     (JellyfishHelper::getCount semantics, jellyfish_helper.cc:189-194); GC
-    is that of the forward k-mer.  `method` as in tables.lookup; a wide
-    table (k > 31) takes the binary search.
+    is that of the forward k-mer.  `method` as in tables.lookup, for a
+    narrow table (k <= 31) and a wide one ([W, ...] words) alike.
     """
     keys, valid = tables.extract(codes, k, canonical=False)
     q = tables.canonicalize(keys, k) if canonical else keys

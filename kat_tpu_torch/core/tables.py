@@ -4,9 +4,11 @@ compaction, and the key helpers of the window profiles.
 
 Port of kat_tpu/core/tables.py: a table is a narrow CountTable of int64
 keys (k <= 31) or a WideTable of [W, capacity] int64 words (31 < k <= 255,
-core/wide.py).  Wide lookups take the binary search (wide.lookup_wide):
-on the card the search beat the join in every cell measured, so the join's
-multi-word forms are not ported.
+core/wide.py).  Every lookup, narrow or wide, goes to one of two routes:
+the sort-merge join (ops/join.py, K1 with a value, K2 with payload planes
+and K4, in their one-word or W-word forms) or the binary search
+(counting.lookup, wide.lookup_wide).  `_join_policy` picks between them
+from the card's measurements (benchmarks/sweep_lookup.py, PERF.md).
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ import torch
 
 from . import counting, kmers, wide
 
-# The join's streaming passes cost O(capacity + m); below this many queries
-# the per-query binary search is the cheaper route whatever the table.
+# The join's streaming passes cost O(capacity + m), the search's log2(cap)
+# dependent gathers per query.  Below JOIN_MIN_QUERIES queries, or below
+# capacity / JOIN_CAP_RATIO of them, the search is the cheaper route.
 JOIN_MIN_QUERIES = 1 << 16
+JOIN_CAP_RATIO = 256
 
 
 def is_wide(table) -> bool:
@@ -31,22 +35,38 @@ def real_mask(table) -> torch.Tensor:
     return keys != kmers.SENTINEL
 
 
-def _join_policy(m: int, cap: int, device: torch.device) -> bool:
-    """Route a bulk lookup of m queries through the sort-merge join
-    (ops/join.py)?  Only where its sorts and merges are kernels, that is
-    for a table on the card, and only once the query batch is within a
-    couple of orders of magnitude of the table: the join reads the whole
-    table once per call, the binary search log2(cap) slots per query."""
-    return device.type == "cuda" and m >= max(JOIN_MIN_QUERIES, cap // 256)
+def _join_policy(m: int, cap: int, device: torch.device, n_words: int = 1,
+                 dual: bool = False) -> bool:
+    """Route a bulk lookup of m queries against a table of `cap` slots with
+    keys of `n_words` words through the sort-merge join (ops/join.py)?
+    dual: the fused probe of two tables (m is the other table's capacity),
+    against two searches.
+
+    Only where the join's sorts and merges are kernels, that is for a table
+    on the card, and only once the batch is within JOIN_CAP_RATIO of the
+    table.  The card's measurements (benchmarks/sweep_lookup.py, PERF.md
+    §6, an H100): the one-word search beat the one-word join in every
+    cell (by 1.6x to 13x), so a narrow single lookup takes the search; the
+    W-word join beat the W-word search in every cell (1.9x to 10x: the
+    search is ~400 launches a call), and the fused probe two searches
+    (1.2x narrow, 38-41x wide)."""
+    if device.type != "cuda" or (n_words == 1 and not dual):
+        return False
+    return m >= max(JOIN_MIN_QUERIES, cap // JOIN_CAP_RATIO)
+
+
+def _n_words(table) -> int:
+    return table.n_words if is_wide(table) else 1
 
 
 def lookup(table, qkeys: torch.Tensor, assume_sorted: bool = False,
            method: str | None = None, key_bits: int = 63) -> torch.Tensor:
     """Counts (int32, 0 where absent) for int64 query keys of any shape
-    ([W, ...] words for a wide table, which always takes the search).
+    ([W, ...] words for a wide table; the counts then have shape [...]).
 
-    method: "join" (ops/join.counts_join), "search" (counting.lookup), or
-    None to choose by `_join_policy`.  Both give identical counts.
+    method: "join" (ops/join.counts_join), "search" (counting.lookup,
+    wide.lookup_wide), or None to choose by `_join_policy`.  Both give
+    identical counts.
     assume_sorted=True promises the flattened queries are already ascending
     (they are another sorted table's keys); the join then skips its query
     sort and scatter.  The binary search ignores it.
@@ -55,18 +75,19 @@ def lookup(table, qkeys: torch.Tensor, assume_sorted: bool = False,
     if method not in (None, "join", "search"):
         raise ValueError(f"method={method!r}: expected None, 'join' or "
                          "'search'")
-    if is_wide(table):
-        if method == "join":
-            raise ValueError("wide tables take the search, not the join")
-        return wide.lookup_wide(table, qkeys)
+    n_words = _n_words(table)
     if method is None:
-        method = "join" if _join_policy(qkeys.numel(), table.capacity,
-                                        table.keys.device) else "search"
+        m = qkeys.numel() // n_words
+        method = "join" if _join_policy(m, table.capacity,
+                                        table.keys.device,
+                                        n_words) else "search"
     if method == "join":
         from ..ops.join import counts_join
 
         return counts_join(table.keys, table.counts, qkeys,
                            queries_sorted=assume_sorted, key_bits=key_bits)
+    if n_words > 1:
+        return wide.lookup_wide(table, qkeys)
     return counting.lookup(table, qkeys)
 
 
@@ -76,13 +97,15 @@ def lookup_dual(t_a, t_b):
 
     Returns (b_counts_for_a_keys, a_counts_for_b_keys) aligned with each
     table's capacity, or None when the join policy would not engage for
-    either direction, and always for wide tables, whose lookups take the
-    search (callers fall back to two independent lookups)."""
-    if is_wide(t_a) or is_wide(t_b):
-        return None
+    either direction (callers fall back to two independent lookups).  The
+    two tables' keys have the same number of words (one k)."""
+    n_words = _n_words(t_a)
+    if _n_words(t_b) != n_words:
+        raise ValueError("lookup_dual: the tables' keys differ in words")
     dev = t_a.keys.device
-    if not (_join_policy(t_a.capacity, t_b.capacity, dev)
-            and _join_policy(t_b.capacity, t_a.capacity, dev)):
+    if not (_join_policy(t_a.capacity, t_b.capacity, dev, n_words, True)
+            and _join_policy(t_b.capacity, t_a.capacity, dev, n_words,
+                             True)):
         return None
     from ..ops.join import counts_join_dual
 

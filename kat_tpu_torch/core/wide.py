@@ -6,8 +6,9 @@ each word's plane contiguous for the kernels.  The engine is the narrow
 one's (core/counting.py) over W-word keys: the streaming counter's flush
 sorts the fresh windows (K1 W-word), merges them with the resident table's
 real entries (K2 W-word) and reduces by key into `capacity` slots (K3
-W-word); when the reduce reports more runs than slots, capacity doubles and
-the merge and reduce replay from the pre-flush table.
+W-word, in pieces past counting.MAX_STREAM keys: counting.reduce_stream);
+when the reduce reports more runs than slots, capacity doubles and the
+merge and reduce replay from the pre-flush table.
 
 Left behind from kat_tpu, as in the narrow port: the LSM run mode
 (`lsm_runs`, `_run_fn`, `_merge_runs`), measured a net loss on the TPU.
@@ -26,7 +27,8 @@ from ..ops.merge_kernel import merge_sorted_words
 from ..ops.reduce_kernel import reduce_by_key_words
 from ..ops.sort_kernel import sort_words, words_order_plain
 from . import kmers
-from .counting import TableFullError, _same_device, check_stream
+from .counting import (TableFullError, _same_device, check_stream,
+                       reduce_stream)
 from .kmers import SENTINEL
 
 
@@ -135,8 +137,7 @@ class WideCodeStreamingCounter:
         n = prev.n_unique
         mkeys, mw = merge_sorted_words(prev.keys[:, :n], prev.counts[:n],
                                        fresh)
-        keys, counts, n_unique = reduce_by_key_words(mkeys, mw, cap)
-        return WideTable(keys, counts, int(n_unique))
+        return WideTable(*reduce_stream(mkeys, mw, cap))
 
     def _flush(self) -> None:
         self._shape = None
@@ -145,14 +146,13 @@ class WideCodeStreamingCounter:
         fresh = (torch.cat(self._fresh, dim=1) if len(self._fresh) > 1
                  else self._fresh[0])
         self._fresh = []
-        # before any launch; a growth replay merges the same stream
-        check_stream(fresh.shape[1], "the fresh windows")
-        check_stream(self.table.n_unique + fresh.shape[1], "the merged stream")
+        check_stream(fresh.shape[1], "the fresh windows")  # before any launch
         fresh = sort_words(fresh, self.top_bits)
         prev = self.table
         table = self._merge_reduce(prev, fresh, self.capacity)
         while table.n_unique > self.capacity:
             self._grow()
+            del table  # before the replay allocates its own
             table = self._merge_reduce(prev, fresh, self.capacity)
         self.table = table
 

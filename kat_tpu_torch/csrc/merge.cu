@@ -245,6 +245,16 @@ int launch_merge(const int64_t* a, PlanesIn ap, int64_t na, const int64_t* b,
 // threads on consecutive outputs.  The tile shrinks with W so that the
 // staged planes stay under ~82 KB (two blocks an SM): 3072 outputs at W = 2,
 // 2048 at W <= 4, 1024 beyond.
+//
+// kat_merge_sorted_words_payload is the same body carrying 1-3 int32
+// planes from BOTH sides: the table/query merge of the wide join
+// (kat_tpu/ops/join.py:130 with W key planes, payload (count, idx); :199,
+// payload (count_a, count_b, source); the port's join carries one plane,
+// the query's position, and its dual join two).  A plane's slices of both
+// sides are staged like a's counts, TILE + 16 slots a plane (two ranges,
+// each with up to 3 elements of skew and a partial chunk), 98.5 KB a block
+// at three planes, so two blocks still fit an SM for every W.  What bounds
+// it: device memory, 8W + 4P bytes in and out per element.
 
 constexpr int MW_THREADS = 256;
 
@@ -285,22 +295,24 @@ merge_words_partition(const int64_t* __restrict__ a, int64_t sa, int64_t na,
   splits[t] = lo;
 }
 
-template <int W>
+// P planes ride with the keys.  With B_WEIGHT (P == 1) the b side has no
+// plane in memory: its value is (key != SENTINEL).
+template <int W, int P, bool B_WEIGHT>
 __global__ void __launch_bounds__(MW_THREADS)
-merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
-                  const int32_t* __restrict__ aw, int64_t na,
-                  const int64_t* __restrict__ b, int64_t sb, int64_t nb,
+merge_words_tiles(const int64_t* __restrict__ a, int64_t sa, PlanesIn ap,
+                  int64_t na, const int64_t* __restrict__ b, int64_t sb,
+                  PlanesIn bp, int64_t nb,
                   const int64_t* __restrict__ splits,
-                  int64_t* __restrict__ out, int64_t so,
-                  int32_t* __restrict__ out_w) {
+                  int64_t* __restrict__ out, int64_t so, PlanesOut op) {
   constexpr int ITEMS = MergeWords<W>::ITEMS;
   constexpr int TILE = MergeWords<W>::TILE;
-  constexpr int SLOTS = TILE + 4;  // a plane's staged slices, both sides
+  constexpr int SLOTS = TILE + 4;    // a key plane's staged slices
+  constexpr int PSLOTS = TILE + 16;  // a payload plane's
   static_assert(TILE <= 1 << 16, "a source index must fit 16 bits");
   extern __shared__ __align__(16) unsigned char smem[];
-  int64_t* sk = reinterpret_cast<int64_t*>(smem);          // [W][SLOTS]
-  int32_t* sw = reinterpret_cast<int32_t*>(sk + W * SLOTS);  // [TILE + 8]
-  uint32_t* ssrc = reinterpret_cast<uint32_t*>(sw + TILE + 8);  // [TILE]
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);             // [W][SLOTS]
+  int32_t* sp = reinterpret_cast<int32_t*>(sk + W * SLOTS);   // [P][PSLOTS]
+  uint32_t* ssrc = reinterpret_cast<uint32_t*>(sp + P * PSLOTS);  // [TILE]
   const int tid = threadIdx.x;
   const int64_t d0 = (int64_t)blockIdx.x * TILE;
   const int64_t i0 = splits[blockIdx.x];
@@ -309,8 +321,9 @@ merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
   const int lb = len - la;
   const int64_t j0 = d0 - i0;
 
-  // 1. stage every plane of a[i0, i0 + la) and b[j0, j0 + lb), and a's
-  //    counts; plane q's a element i sits at sk[q * SLOTS + fa[q] + i]
+  // 1. stage every plane of a[i0, i0 + la) and b[j0, j0 + lb), and the
+  //    payload planes (a's alone with B_WEIGHT); key plane q's a element i
+  //    sits at sk[fa[q] + i], payload plane q's at sp[pa[q] + i]
   int fa[W], fb[W];
 #pragma unroll
   for (int q = 0; q < W; q++) {
@@ -320,12 +333,15 @@ merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
     fa[q] = q * SLOTS + ck.first(0);
     fb[q] = q * SLOTS + ck.first(1);
   }
-  int fw;
-  {
+  int pa[P], pb[P];
+#pragma unroll
+  for (int q = 0; q < P; q++) {
     kat::Chunks<int32_t, MW_THREADS, ITEMS / 4 + 1> cw;
-    cw.load(aw + i0, la);
-    cw.store(sw);
-    fw = cw.first(0);
+    if constexpr (B_WEIGHT) cw.load(ap.p[q] + i0, la);
+    else cw.load(ap.p[q] + i0, la, bp.p[q] + j0, lb);
+    cw.store(sp + q * PSLOTS);
+    pa[q] = q * PSLOTS + cw.first(0);
+    pb[q] = q * PSLOTS + cw.first(1);
   }
   __syncthreads();
   auto a_le_b = [&](int i, int j) {
@@ -355,7 +371,7 @@ merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
   }
   __syncthreads();
 
-  // 3. every plane, then the weights, out in output order
+  // 3. every key plane, then the payload planes, out in output order
 #pragma unroll
   for (int q = 0; q < W; q++) {
     for (int j = tid; j < len; j += MW_THREADS) {
@@ -364,33 +380,41 @@ merge_words_tiles(const int64_t* __restrict__ a, int64_t sa,
       out[q * so + d0 + j] = sk[(s & FROM_B ? fb[q] : fa[q]) + i];
     }
   }
-  for (int j = tid; j < len; j += MW_THREADS) {
-    const uint32_t s = ssrc[j];
-    const int i = (int)(s & (FROM_B - 1));
-    out_w[d0 + j] = s & FROM_B ? sk[fb[0] + i] != KAT_SENTINEL : sw[fw + i];
+#pragma unroll
+  for (int q = 0; q < P; q++) {
+    for (int j = tid; j < len; j += MW_THREADS) {
+      const uint32_t s = ssrc[j];
+      const int i = (int)(s & (FROM_B - 1));
+      if constexpr (B_WEIGHT)
+        op.p[q][d0 + j] =
+            s & FROM_B ? sk[fb[0] + i] != KAT_SENTINEL : sp[pa[q] + i];
+      else
+        op.p[q][d0 + j] = sp[(s & FROM_B ? pb[q] : pa[q]) + i];
+    }
   }
 }
 
-template <int W>
-int launch_merge_words(const int64_t* a, int64_t sa, const int32_t* aw,
-                       int64_t na, const int64_t* b, int64_t sb, int64_t nb,
-                       int64_t* out, int64_t so, int32_t* out_w,
+template <int W, int P, bool B_WEIGHT>
+int launch_merge_words(const int64_t* a, int64_t sa, PlanesIn ap, int64_t na,
+                       const int64_t* b, int64_t sb, PlanesIn bp, int64_t nb,
+                       int64_t* out, int64_t so, PlanesOut op,
                        int64_t* splits, cudaStream_t stream) {
   const int64_t n = na + nb;
   if (n <= 0) return 0;
   constexpr int TILE = MergeWords<W>::TILE;
-  constexpr int SMEM = W * (TILE + 4) * 8 + (TILE + 8) * 4 + TILE * 4;
+  constexpr int SMEM = W * (TILE + 4) * 8 + P * (TILE + 16) * 4 + TILE * 4;
   static int sms_of[kat::MAX_DEVICES] = {};
   int sms;
   const cudaError_t err =
-      kat::prepare(merge_words_tiles<W>, SMEM, sms_of, &sms);
+      kat::prepare(merge_words_tiles<W, P, B_WEIGHT>, SMEM, sms_of, &sms);
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = (n + TILE - 1) / TILE;
   merge_words_partition<W><<<(unsigned)((tiles + 256) / 256), 256, 0,
                              stream>>>(a, sa, na, b, sb, nb, tiles, splits);
   KAT_CHECK_LAUNCH();
-  merge_words_tiles<W><<<(unsigned)tiles, MW_THREADS, SMEM, stream>>>(
-      a, sa, aw, na, b, sb, nb, splits, out, so, out_w);
+  merge_words_tiles<W, P, B_WEIGHT>
+      <<<(unsigned)tiles, MW_THREADS, SMEM, stream>>>(
+          a, sa, ap, na, b, sb, bp, nb, splits, out, so, op);
   KAT_CHECK_LAUNCH();
   return 0;
 }
@@ -473,10 +497,13 @@ extern "C" int kat_merge_sorted_words(const int64_t* a, int64_t sa,
                                       int64_t so, int32_t* out_w,
                                       int64_t* scratch, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-#define KAT_MERGE_WORDS(W)                                                 \
-  case W:                                                                  \
-    return launch_merge_words<W>(a, sa, aw, na, b, sb, nb, out, so, out_w, \
-                                 scratch, stream);
+  const PlanesIn ap = {{aw, nullptr, nullptr}};
+  const PlanesIn bp = {{nullptr, nullptr, nullptr}};
+  const PlanesOut op = {{out_w, nullptr, nullptr}};
+#define KAT_MERGE_WORDS(W)                                                \
+  case W:                                                                 \
+    return launch_merge_words<W, 1, true>(a, sa, ap, na, b, sb, bp, nb,   \
+                                          out, so, op, scratch, stream);
   switch (words) {
     KAT_MERGE_WORDS(2)
     KAT_MERGE_WORDS(3)
@@ -490,4 +517,51 @@ extern "C" int kat_merge_sorted_words(const int64_t* a, int64_t sa,
       return (int)cudaErrorInvalidValue;
   }
 #undef KAT_MERGE_WORDS
+}
+
+// out[:, 0:na+nb) = stable merge of (a, a0..a2) with (b, b0..b2) over
+// `words` (2-9) key planes (strides as kat_merge_sorted_words), n_planes
+// (1-3) int32 planes on each side, o0..o2 the output planes; unused plane
+// pointers may be null; ties take a.  Scratch as
+// kat_merge_sorted_words_scratch.
+extern "C" int kat_merge_sorted_words_payload(
+    const int64_t* a, int64_t sa, const int32_t* a0, const int32_t* a1,
+    const int32_t* a2, int64_t na, const int64_t* b, int64_t sb,
+    const int32_t* b0, const int32_t* b1, const int32_t* b2, int64_t nb,
+    int words, int n_planes, int64_t* out, int64_t so, int32_t* o0,
+    int32_t* o1, int32_t* o2, int64_t* scratch, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const PlanesIn ap = {{a0, a1, a2}};
+  const PlanesIn bp = {{b0, b1, b2}};
+  const PlanesOut op = {{o0, o1, o2}};
+  if (n_planes < 1 || n_planes > MAX_PLANES) return (int)cudaErrorInvalidValue;
+#define KAT_MERGE_WORDS_P(W)                                               \
+  case W:                                                                  \
+    switch (n_planes) {                                                    \
+      case 1:                                                              \
+        return launch_merge_words<W, 1, false>(a, sa, ap, na, b, sb, bp,   \
+                                               nb, out, so, op, scratch,   \
+                                               stream);                    \
+      case 2:                                                              \
+        return launch_merge_words<W, 2, false>(a, sa, ap, na, b, sb, bp,   \
+                                               nb, out, so, op, scratch,   \
+                                               stream);                    \
+      default:                                                             \
+        return launch_merge_words<W, 3, false>(a, sa, ap, na, b, sb, bp,   \
+                                               nb, out, so, op, scratch,   \
+                                               stream);                    \
+    }
+  switch (words) {
+    KAT_MERGE_WORDS_P(2)
+    KAT_MERGE_WORDS_P(3)
+    KAT_MERGE_WORDS_P(4)
+    KAT_MERGE_WORDS_P(5)
+    KAT_MERGE_WORDS_P(6)
+    KAT_MERGE_WORDS_P(7)
+    KAT_MERGE_WORDS_P(8)
+    KAT_MERGE_WORDS_P(9)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KAT_MERGE_WORDS_P
 }

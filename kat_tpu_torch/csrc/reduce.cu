@@ -43,7 +43,10 @@
 // Counts are int32 and sums are taken mod 2^32, as the plain version's
 // int64 sum cut to int32.  kat_tpu's uint32 counts wrap past 2^32; a count
 // past 2^31 - 1 is out of scope here (a k-mer seen 2 billion times).  Run
-// counts travel in 30 bits, so the wrapper refuses n >= 2^30 (K1's limit).
+// counts travel in 30 bits, so the wrapper refuses n >= 2^30 (K1's limit);
+// a longer stream is reduced in pieces that end where the key changes,
+// each piece's outputs written from its offset in the table
+// (core/counting.reduce_stream), so outputs may start at any element.
 
 #include <algorithm>
 
@@ -293,17 +296,20 @@ reduce_tiles(const int64_t* __restrict__ keys, const int32_t* __restrict__ w,
 }
 
 // Slots [min(n_unique, out_size), out_size) get SENTINEL / 0, four at a
-// time.
+// time where both outputs are 16-byte aligned (a piece's outputs may start
+// anywhere: then one at a time).
 __global__ void __launch_bounds__(256)
 reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
            int64_t out_size, const int64_t* __restrict__ n_unique) {
   const int64_t first = min(*n_unique, out_size);
   const int64_t groups = (out_size + 3) / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const bool aligned =
+      (((uintptr_t)out_keys | (uintptr_t)out_counts) & 15) == 0;
   for (int64_t g = first / 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
     const int64_t s = 4 * g;
-    if (s >= first && s + 4 <= out_size) {
+    if (aligned && s >= first && s + 4 <= out_size) {
       const longlong2 sent = {KAT_SENTINEL, KAT_SENTINEL};
       reinterpret_cast<longlong2*>(out_keys + s)[0] = sent;
       reinterpret_cast<longlong2*>(out_keys + s)[1] = sent;
@@ -346,9 +352,9 @@ reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
 
 template <int W>
 __global__ void __launch_bounds__(THREADS, KAT_RD_WORDS_BLOCKS)
-reduce_words_tiles(const int64_t* __restrict__ keys,
+reduce_words_tiles(const int64_t* __restrict__ keys, int64_t ks,
                    const int32_t* __restrict__ w, int64_t n, int64_t tiles,
-                   int64_t* __restrict__ out_keys,
+                   int64_t* __restrict__ out_keys, int64_t os,
                    int32_t* __restrict__ out_counts, int64_t out_size,
                    uint32_t* next_tile, uint64_t* status, int64_t* n_unique) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -383,7 +389,7 @@ reduce_words_tiles(const int64_t* __restrict__ keys,
     if (q > 0) __syncthreads();  // every thread is done with the last plane
     {
       kat::Chunks<int64_t, THREADS, ITEMS / 2 + 1> ck;
-      ck.load(keys + q * n + base, klen);
+      ck.load(keys + q * ks + base, klen);
       ck.store(sk, klen, KeySlot());
     }
     __syncthreads();
@@ -495,8 +501,8 @@ reduce_words_tiles(const int64_t* __restrict__ keys,
   for (int i = tid; i < m; i += THREADS) out_counts[r0 + i] = sw[i];
 #pragma unroll 1
   for (int q = 0; q < W; q++) {
-    const int64_t* src = keys + q * n + base;
-    int64_t* dst = out_keys + q * out_size + r0;
+    const int64_t* src = keys + q * ks + base;
+    int64_t* dst = out_keys + q * os + r0;
     for (int i = tid; i < m; i += THREADS) dst[i] = src[spos[i]];
   }
 }
@@ -504,14 +510,14 @@ reduce_words_tiles(const int64_t* __restrict__ keys,
 // Slots [min(n_unique, out_size), out_size) of every plane get SENTINEL,
 // and of the counts 0.
 __global__ void __launch_bounds__(256)
-reduce_pad_words(int64_t* __restrict__ out_keys, int words,
+reduce_pad_words(int64_t* __restrict__ out_keys, int64_t os, int words,
                  int32_t* __restrict__ out_counts, int64_t out_size,
                  const int64_t* __restrict__ n_unique) {
   const int64_t first = min(*n_unique, out_size);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t s = first + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        s < out_size; s += stride) {
-    for (int q = 0; q < words; q++) out_keys[q * out_size + s] = KAT_SENTINEL;
+    for (int q = 0; q < words; q++) out_keys[q * os + s] = KAT_SENTINEL;
     out_counts[s] = 0;
   }
 }
@@ -531,15 +537,13 @@ extern "C" int64_t kat_reduce_by_key_scratch(int64_t n) {
 
 // Reduce the sorted stream (keys, w)[0:n) into out_keys/out_counts
 // [0:out_size); n_unique[0] gets the true number of non-sentinel runs.
-// Requires n < 2^30 and 16-byte aligned outputs.
+// Requires n < 2^30.
 extern "C" int kat_reduce_by_key(const int64_t* keys, const int32_t* w,
                                  int64_t n, int64_t* out_keys,
                                  int32_t* out_counts, int64_t out_size,
                                  int64_t* scratch, int64_t* n_unique,
                                  void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if ((((uintptr_t)out_keys | (uintptr_t)out_counts) & 15) != 0)
-    return (int)cudaErrorMisalignedAddress;
   static int sms_of[kat::MAX_DEVICES] = {};
   int sms;
   cudaError_t err = kat::prepare(reduce_tiles, SMEM, sms_of, &sms);
@@ -570,18 +574,19 @@ extern "C" int kat_reduce_by_key(const int64_t* keys, const int32_t* w,
   return 0;
 }
 
-// reduce_by_key over `words` (2-9) key planes keys[q * n + i]; outputs
-// [words][out_size] keys and [out_size] counts; scratch as
-// kat_reduce_by_key_scratch(n).  Requires n < 2^30.
-extern "C" int kat_reduce_by_key_words(const int64_t* keys, int words,
-                                       const int32_t* w, int64_t n,
-                                       int64_t* out_keys, int32_t* out_counts,
+// reduce_by_key over `words` (2-9) key planes keys[q * ks + i]; outputs
+// key planes out_keys[q * os + i] (i < out_size) and [out_size] counts;
+// scratch as kat_reduce_by_key_scratch(n).  Requires n < 2^30.
+extern "C" int kat_reduce_by_key_words(const int64_t* keys, int64_t ks,
+                                       int words, const int32_t* w,
+                                       int64_t n, int64_t* out_keys,
+                                       int64_t os, int32_t* out_counts,
                                        int64_t out_size, int64_t* scratch,
                                        int64_t* n_unique, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  using Kernel = void (*)(const int64_t*, const int32_t*, int64_t, int64_t,
-                          int64_t*, int32_t*, int64_t, uint32_t*, uint64_t*,
-                          int64_t*);
+  using Kernel = void (*)(const int64_t*, int64_t, const int32_t*, int64_t,
+                          int64_t, int64_t*, int64_t, int32_t*, int64_t,
+                          uint32_t*, uint64_t*, int64_t*);
   static const Kernel kernels[] = {
       reduce_words_tiles<2>, reduce_words_tiles<3>, reduce_words_tiles<4>,
       reduce_words_tiles<5>, reduce_words_tiles<6>, reduce_words_tiles<7>,
@@ -603,7 +608,7 @@ extern "C" int kat_reduce_by_key_words(const int64_t* keys, int words,
   if (err != cudaSuccess) return (int)err;
   if (tiles > 0) {
     kernel<<<(unsigned)tiles, THREADS, SMEM, stream>>>(
-        keys, w, n, tiles, out_keys, out_counts, out_size,
+        keys, ks, w, n, tiles, out_keys, os, out_counts, out_size,
         reinterpret_cast<uint32_t*>(scratch),
         reinterpret_cast<uint64_t*>(scratch + 1), n_unique);
     KAT_CHECK_LAUNCH();
@@ -612,7 +617,7 @@ extern "C" int kat_reduce_by_key_words(const int64_t* keys, int words,
     const int64_t blocks =
         std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
     reduce_pad_words<<<(unsigned)blocks, 256, 0, stream>>>(
-        out_keys, words, out_counts, out_size, n_unique);
+        out_keys, os, words, out_counts, out_size, n_unique);
     KAT_CHECK_LAUNCH();
   }
   return 0;

@@ -395,6 +395,15 @@ int onesweep_sort(const int64_t* keys, const int32_t* vals, int64_t* out,
 // one plane of the tile (64 KB) and a byte per key for its digit, 90 KB a
 // block and two blocks an SM for every W, and registers hold one word per
 // item.  Counts in the status words stay below 2^30: n < 2^30.
+//
+// With a value (kat_radix_sort_words_pairs): the same passes, and after
+// the key words each pass moves one int32 value a key through the same
+// buffer, placed at the recorded slots and written.  It replaces the TPU
+// sort reached through sort_planes_padded(qs + (idx,), n_words + 1), the
+// query sort of the wide join (kat_tpu/ops/join.py:122), which rides the
+// query's index as one more key word; a stable sort gives the same order
+// without sorting the index.  What bounds it: device memory, 8W + 4 bytes
+// a key read and written per pass.
 
 constexpr int WS_MAX_WORDS = 9;  // k <= 255
 constexpr int WS_MAX_PASSES = 8 * WS_MAX_WORDS;
@@ -415,7 +424,9 @@ constexpr int64_t WS_STATE_WORDS =
 template <int THREADS, int ITEMS>
 __global__ void __launch_bounds__(THREADS, 2)
 radix_onesweep_words(const int64_t* __restrict__ src,
-                     int64_t* __restrict__ dst, int64_t n, int words,
+                     int64_t* __restrict__ dst,
+                     const int32_t* __restrict__ vsrc,
+                     int32_t* __restrict__ vdst, int64_t n, int words,
                      int word, int shift, int pass, WordsState* st,
                      uint32_t* status) {
   constexpr int TILE = THREADS * ITEMS;
@@ -544,6 +555,21 @@ radix_onesweep_words(const int64_t* __restrict__ src,
     for (int j = tid; j < valid_n; j += THREADS)
       pdst[s_global[s_digit[j]] + j] = s_buf[j];
   }
+
+  // 7. the values, if any, the same way through the buffer
+  if (vsrc != nullptr) {
+    int32_t* s_val = reinterpret_cast<int32_t*>(s_buf);
+    __syncthreads();  // every thread has written the last plane out
+#pragma unroll
+    for (int i = 0; i < ITEMS; i++) {
+      const int j = first + i * 32;
+      if (j < valid_n)
+        s_val[(slot2[i / 2] >> (16 * (i % 2))) & 0xffffu] = vsrc[base + j];
+    }
+    __syncthreads();
+    for (int j = tid; j < valid_n; j += THREADS)
+      vdst[s_global[s_digit[j]] + j] = s_val[j];
+  }
 }
 
 int words_passes(int words, int top_bits) {
@@ -614,15 +640,12 @@ extern "C" int64_t kat_radix_sort_words_scratch(int64_t n, int words,
   return words_scratch(n, words, top_bits);
 }
 
-// Sort the [words][n] planes of `keys` lexicographically (word 0 most
-// significant) into `out`, ping-ponging through `alt` (both [words][n]).
-// Requires 2 <= words <= 9, n < 2^30, every lower word < 2^62 and every
-// non-sentinel top word < 2^(top_bits - 1).  keys is not modified.
-extern "C" int kat_radix_sort_words(const int64_t* keys, int64_t* out,
-                                    int64_t* alt, int32_t* scratch,
-                                    int64_t n, int words, int top_bits,
-                                    void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
+namespace {
+
+// The W-word sort, with (vals != null) or without a value a key.
+int sort_words(const int64_t* keys, const int32_t* vals, int64_t* out,
+               int32_t* vout, int64_t* alt, int32_t* valt, int32_t* scratch,
+               int64_t n, int words, int top_bits, cudaStream_t stream) {
   if (words < 2 || words > WS_MAX_WORDS || top_bits < 1 || top_bits > 63)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
@@ -659,13 +682,46 @@ extern "C" int kat_radix_sort_words(const int64_t* keys, int64_t* out,
   // the last pass writes `out`, the one before it `alt`, and so on
   // backwards; the first reads the input
   const int64_t* src = keys;
+  const int32_t* vsrc = vals;
   for (int p = 0; p < passes; p++) {
-    int64_t* dst = (passes - 1 - p) % 2 == 0 ? out : alt;
+    const bool to_out = (passes - 1 - p) % 2 == 0;
+    int64_t* dst = to_out ? out : alt;
+    int32_t* vdst = vals == nullptr ? nullptr : to_out ? vout : valt;
     kernel<<<(unsigned)tiles, WS_THREADS, SMEM, stream>>>(
-        src, dst, n, words, words - 1 - p / 8, 8 * (p % 8), p, st,
-        status + (int64_t)p * tiles * RS_RADIX);
+        src, dst, vsrc, vdst, n, words, words - 1 - p / 8, 8 * (p % 8), p,
+        st, status + (int64_t)p * tiles * RS_RADIX);
     KAT_CHECK_LAUNCH();
     src = dst;
+    vsrc = vdst;
   }
   return 0;
+}
+
+}  // namespace
+
+// Sort the [words][n] planes of `keys` lexicographically (word 0 most
+// significant) into `out`, ping-ponging through `alt` (both [words][n]).
+// Requires 2 <= words <= 9, n < 2^30, every lower word < 2^62 and every
+// non-sentinel top word < 2^(top_bits - 1).  keys is not modified.
+extern "C" int kat_radix_sort_words(const int64_t* keys, int64_t* out,
+                                    int64_t* alt, int32_t* scratch,
+                                    int64_t n, int words, int top_bits,
+                                    void* stream_ptr) {
+  return sort_words(keys, nullptr, out, nullptr, alt, nullptr, scratch, n,
+                    words, top_bits, (cudaStream_t)stream_ptr);
+}
+
+// kat_radix_sort_words carrying one int32 value a key: vals[0:n) into
+// vout[0:n) through valt, stably (equal keys keep their input order).
+// Scratch as kat_radix_sort_words_scratch; the inputs are not modified.
+extern "C" int kat_radix_sort_words_pairs(const int64_t* keys,
+                                          const int32_t* vals, int64_t* out,
+                                          int32_t* vout, int64_t* alt,
+                                          int32_t* valt, int32_t* scratch,
+                                          int64_t n, int words, int top_bits,
+                                          void* stream_ptr) {
+  if (vals == nullptr || vout == nullptr || valt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return sort_words(keys, vals, out, vout, alt, valt, scratch, n, words,
+                    top_bits, (cudaStream_t)stream_ptr);
 }

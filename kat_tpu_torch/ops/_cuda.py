@@ -43,6 +43,8 @@ _SIGNATURES = {
     "kat_radix_sort_words": [_P, _P, _P, _P, _I64, _INT, _INT, _P],
     "kat_radix_sort_words_scratch": [_I64, _INT, _INT],
     "kat_radix_sort_words_tile": [_INT],
+    "kat_radix_sort_words_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
+                                   _INT, _P],
     "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                                  _INT, _P, _P, _P, _P, _P, _P],
@@ -52,13 +54,17 @@ _SIGNATURES = {
                                _I64, _P, _P, _P],
     "kat_merge_sorted_words_scratch": [_I64, _INT],
     "kat_merge_sorted_words_tile": [_INT],
+    "kat_merge_sorted_words_payload": [_P, _I64, _P, _P, _P, _I64, _P, _I64,
+                                       _P, _P, _P, _I64, _INT, _INT, _P,
+                                       _I64, _P, _P, _P, _P, _P],
     "kat_compact_flagged": [_P, _P, _P, _INT, _P, _I64, _P, _P, _P, _I64, _P,
                             _P, _P],
     "kat_compact_flagged_scratch": [_I64],
     "kat_reduce_by_key": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "kat_reduce_by_key_scratch": [_I64],
     "kat_reduce_by_key_tile": [],
-    "kat_reduce_by_key_words": [_P, _INT, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "kat_reduce_by_key_words": [_P, _I64, _INT, _P, _I64, _P, _I64, _P,
+                                _I64, _P, _P, _P],
     "kat_binned_sums": [_P, _P, _INT, _I64, _P, _INT, _P, _P],
     "kat_binned_sums_window": [],
     "kat_sort_chunks": [_P, _P, _I64, _INT, _P],

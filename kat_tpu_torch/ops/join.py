@@ -20,6 +20,11 @@ passes over the sorted table:
    (K4, ops/reduce_kernel.compact_flagged) and scatter the counts back to
    the queries' own order.
 
+Wide keys (31 < k <= 255, [W, n] int64 words) take the same steps through
+the W-word forms of K1 with a value (sort_words_pairs) and K2 with payload
+planes (merge_sorted_words_payload); the equality tests run over every
+word, and K4 is the same.
+
 kat_tpu rides the position as one more key word through its bitonic sort,
 carries the counts through the merge and spreads them with 2*log2(n)
 shifted passes (`_run_max_multi`) because its merge is unstable, and
@@ -31,13 +36,31 @@ from __future__ import annotations
 
 import torch
 
-from .merge_kernel import merge_sorted_payload
+from .merge_kernel import merge_sorted_payload, merge_sorted_words_payload
 from .reduce_kernel import compact_flagged
-from .sort_kernel import sort_pairs
+from .sort_kernel import sort_pairs, sort_words_pairs
 
 
 def _full(n: int, value: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((n,), value, dtype=torch.int32, device=like.device)
+
+
+def _top_bits(key_bits: int, n_words: int) -> int:
+    """The query sort's top_bits for W-word keys: a wide k-mer's 2k+1 less
+    62 bits a lower word; key_bits <= 63 says nothing of k (all 63)."""
+    return key_bits - 62 * (n_words - 1) if key_bits > 63 else 63
+
+
+def _equal(keys: torch.Tensor, i: torch.Tensor,
+           other: torch.Tensor) -> torch.Tensor:
+    """keys at columns i == other, over every word ([W, n] or 1-D), one
+    word at a time so that no [W, len(i)] gather is held."""
+    if keys.dim() == 1:
+        return keys.index_select(0, i) == other
+    eq = keys[0].index_select(0, i) == other[0]
+    for w in range(1, keys.shape[0]):
+        eq &= keys[w].index_select(0, i) == other[w]
+    return eq
 
 
 def counts_join(tkeys: torch.Tensor, tcounts: torch.Tensor,
@@ -46,34 +69,41 @@ def counts_join(tkeys: torch.Tensor, tcounts: torch.Tensor,
     """Counts for query keys against a sorted unique-key table.
 
     tkeys: int64 [cap], ascending, SENTINEL padding at the tail (counts 0
-      there).  tcounts: int32 [cap].
-    qkeys: int64 query keys of any shape; SENTINEL queries and absent keys
-      return 0.  Returns int32 counts in the queries' shape.
+      there), or [W, cap] words of wide keys.  tcounts: int32 [cap].
+    qkeys: int64 query keys of any shape, [W, ...] for a wide table;
+      SENTINEL queries and absent keys return 0.  Returns int32 counts in
+      the queries' shape ([...] for wide queries).
     queries_sorted=True promises the flattened queries are already
       ascending (they are another sorted table's keys, say) and skips the
       query sort and the scatter back.
     key_bits: every real key is < 2^(key_bits-1) (2k+1 for k-mers); the
-      query sort then takes ceil(key_bits / 8) passes.
+      query sort then takes ceil(key_bits / 8) passes (for wide keys, 8 a
+      lower word and ceil((2k+1 - 62 (W-1)) / 8) over the top word).
     """
-    shape = qkeys.shape
-    q = qkeys.reshape(-1)
-    m = q.numel()
-    if m == 0 or tkeys.numel() == 0:
+    wide = tkeys.dim() == 2
+    cap = tkeys.shape[-1]
+    shape = qkeys.shape[1:] if wide else qkeys.shape
+    q = (qkeys.reshape(qkeys.shape[0], -1) if wide
+         else qkeys.reshape(-1)).contiguous()
+    m = q.shape[-1]
+    if m == 0 or cap == 0:
         return torch.zeros(shape, dtype=torch.int32, device=qkeys.device)
     idx = torch.arange(m, dtype=torch.int32, device=q.device)
     if queries_sorted:
-        sq, sidx = q.contiguous(), idx
+        sq, sidx = q, idx
+    elif wide:
+        sq, sidx = sort_words_pairs(q, idx, _top_bits(key_bits, q.shape[0]))
     else:
-        sq, sidx = sort_pairs(q.contiguous(), idx, key_bits)
-    mkeys, (midx,) = merge_sorted_payload(
-        tkeys, (_full(tkeys.numel(), -1, tkeys),), sq, (sidx,))
+        sq, sidx = sort_pairs(q, idx, key_bits)
+    merge = merge_sorted_words_payload if wide else merge_sorted_payload
+    mkeys, (midx,) = merge(tkeys, (_full(cap, -1, tkeys),), sq, (sidx,))
 
     is_table = midx < 0
     # table rows at or before each position, less one: the table slot of
     # the row that leads the position's run (-1 before every table row)
     lead = torch.cumsum(is_table, 0, dtype=torch.int32) - 1
     lead_c = lead.clamp_min(0)
-    hit = (lead >= 0) & (tkeys.index_select(0, lead_c) == mkeys)
+    hit = (lead >= 0) & _equal(tkeys, lead_c, mkeys)
     c = torch.where(hit, tcounts.index_select(0, lead_c), 0)
 
     ki, kc, _n_kept = compact_flagged((midx, c), ~is_table, m)
@@ -95,21 +125,30 @@ def counts_join_dual(akeys: torch.Tensor, acounts: torch.Tensor,
     stable compactions, driven by the source plane (1 = a, 2 = b), return
     each table's answers in its own sorted order.
 
+    akeys, bkeys: int64 [n] keys, or [W, n] words of wide keys.
     Returns (b_counts_for_a_keys [len(a)], a_counts_for_b_keys [len(b)]),
     int32; SENTINEL (padding) rows get 0.
     """
-    na, nb = akeys.numel(), bkeys.numel()
-    mkeys, (mcnt, msrc) = merge_sorted_payload(
+    wide = akeys.dim() == 2
+    na, nb = akeys.shape[-1], bkeys.shape[-1]
+    merge = merge_sorted_words_payload if wide else merge_sorted_payload
+    mkeys, (mcnt, msrc) = merge(
         akeys, (acounts, _full(na, 1, akeys)),
         bkeys, (bcounts, _full(nb, 2, bkeys)))
-    same_next = torch.zeros(na + nb, dtype=torch.bool, device=mkeys.device)
+    # row i's count for its equal neighbour: an equal neighbour is of the
+    # other table (keys are unique per table, except the SENTINEL padding,
+    # whose counts are 0 anyway); written into shifted slices, with no
+    # copy of the stream
+    from_next = torch.zeros(na + nb, dtype=torch.int32, device=mkeys.device)
+    from_prev = torch.zeros_like(from_next)
     if na + nb > 1:
-        # an equal neighbour is of the other table: keys are unique per
-        # table, except the SENTINEL padding, whose counts are 0 anyway
-        same_next[:-1] = mkeys[1:] == mkeys[:-1]
-    zero = torch.zeros((), dtype=torch.int32, device=mkeys.device)
-    from_next = torch.where(same_next, mcnt.roll(-1), zero)
-    from_prev = torch.where(same_next.roll(1), mcnt.roll(1), zero)
+        words = mkeys if wide else mkeys[None]
+        same = words[0, 1:] == words[0, :-1]
+        for w in range(1, words.shape[0]):
+            same &= words[w, 1:] == words[w, :-1]
+        zero = torch.zeros((), dtype=torch.int32, device=mkeys.device)
+        torch.where(same, mcnt[1:], zero, out=from_next[:-1])
+        torch.where(same, mcnt[:-1], zero, out=from_prev[1:])
     out_a, _n1 = compact_flagged((from_next,), msrc == 1, na)
     out_b, _n2 = compact_flagged((from_prev,), msrc == 2, nb)
     return out_a, out_b

@@ -1,14 +1,14 @@
 """K2: merge of two sorted key streams: the count table with the sorted
 fresh keys (`merge_sorted`, the counting flush; `merge_sorted_words` for
 wide keys of W int64 words, the wide flush), or two streams that each carry
-1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join).
+1-3 int32 payload planes (`merge_sorted_payload`, the sort-merge join;
+`merge_sorted_words_payload` for wide keys, the wide join).
 
 Counterpart of kat_tpu/ops/merge_kernel.py::merge_sorted_kernel (the
 final-phase mode of kat_tpu's bitonic `_window_kernel`).  On a CUDA tensor
-both launch the merge of csrc/merge.cu (a partition launch that finds
+they launch the merge of csrc/merge.cu (a partition launch that finds
 every tile's split on the merge path, then one block per tile); on a CPU
-tensor they take the plain versions, `merge_sorted_plain` and
-`merge_sorted_payload_plain`.  The output is exactly len(a) + len(b) long,
+tensor they take the plain versions (`*_plain`).  The output is exactly len(a) + len(b) long,
 with no block padding, and ties take the `a` element first.
 """
 
@@ -80,24 +80,37 @@ def merge_sorted_payload_plain(a_keys, a_planes, b_keys, b_planes):
                        for pa, pb in zip(a_planes, b_planes))
 
 
+def _check_planes(a_planes, b_planes, na: int, nb: int,
+                  dev: torch.device) -> int:
+    """What the payload merges take: the same number (1-3) of int32 planes
+    on each side, each as long as its side's keys.  Returns the number."""
+    n_planes = len(a_planes)
+    if not 1 <= n_planes <= 3 or len(b_planes) != n_planes:
+        raise ValueError("expected 1-3 payload planes on each side, got "
+                         f"{n_planes} and {len(b_planes)}")
+    for planes, n, side in ((a_planes, na, "a"), (b_planes, nb, "b")):
+        for i, p in enumerate(planes):
+            _cuda.require(p, f"{side}_planes[{i}]", torch.int32, dev)
+            if p.numel() != n:
+                raise ValueError(f"{side}_planes[{i}] and {side}_keys differ "
+                                 "in length")
+    return n_planes
+
+
+def _plane_ptrs(planes, n_planes: int) -> list:
+    return [p.data_ptr() for p in planes] + [None] * (3 - n_planes)
+
+
 def merge_sorted_payload(a_keys, a_planes, b_keys, b_planes):
     """Stable merge of two sorted int64 key streams, each carrying the same
     number (1-3) of int32 payload planes; ties take `a` first.
 
     Returns (keys int64, planes tuple of int32), all len(a) + len(b) long."""
-    n_planes = len(a_planes)
-    if not 1 <= n_planes <= 3 or len(b_planes) != n_planes:
-        raise ValueError("expected 1-3 payload planes on each side, got "
-                         f"{n_planes} and {len(b_planes)}")
     dev = a_keys.device
     _cuda.require(a_keys, "a_keys", torch.int64)
     _cuda.require(b_keys, "b_keys", torch.int64, dev)
-    for keys, planes, side in ((a_keys, a_planes, "a"), (b_keys, b_planes, "b")):
-        for i, p in enumerate(planes):
-            _cuda.require(p, f"{side}_planes[{i}]", torch.int32, dev)
-            if p.numel() != keys.numel():
-                raise ValueError(f"{side}_planes[{i}] and {side}_keys differ "
-                                 "in length")
+    n_planes = _check_planes(a_planes, b_planes, a_keys.numel(),
+                             b_keys.numel(), dev)
     if not _cuda.on_cuda(a_keys, "merge_sorted_payload"):
         return merge_sorted_payload_plain(a_keys, a_planes, b_keys, b_planes)
     na, nb = a_keys.numel(), b_keys.numel()
@@ -106,13 +119,10 @@ def merge_sorted_payload(a_keys, a_planes, b_keys, b_planes):
                 for _ in range(n_planes))
     if na + nb == 0:
         return out_keys, out
-
-    def ptrs(planes):
-        return [p.data_ptr() for p in planes] + [None] * (3 - n_planes)
-
     _cuda.launch("kat_merge_sorted_payload", dev, a_keys.data_ptr(),
-                 *ptrs(a_planes), na, b_keys.data_ptr(), *ptrs(b_planes), nb,
-                 n_planes, out_keys.data_ptr(), *ptrs(out),
+                 *_plane_ptrs(a_planes, n_planes), na, b_keys.data_ptr(),
+                 *_plane_ptrs(b_planes, n_planes), nb, n_planes,
+                 out_keys.data_ptr(), *_plane_ptrs(out, n_planes),
                  _splits(na + nb, dev).data_ptr())
     merge_sorted_payload.launches += 1
     return out_keys, out
@@ -172,3 +182,51 @@ def merge_sorted_words(a_keys: torch.Tensor, a_counts: torch.Tensor,
 
 
 merge_sorted_words.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def merge_sorted_words_payload_plain(a_keys, a_planes, b_keys, b_planes):
+    """Plain PyTorch version of `merge_sorted_words_payload`: concatenate,
+    then the plain W-word sort, whose stable permutation gathers every
+    plane (ties keep `a` first)."""
+    keys = torch.cat([a_keys, b_keys], dim=1)
+    perm = words_order_plain(keys)
+    return keys[:, perm], tuple(torch.cat([pa, pb])[perm]
+                                for pa, pb in zip(a_planes, b_planes))
+
+
+def merge_sorted_words_payload(a_keys, a_planes, b_keys, b_planes):
+    """Stable merge of two sorted streams of [W, n] int64 wide keys, each
+    carrying the same number (1-3) of int32 payload planes; ties take `a`
+    first.  Each word's plane must be contiguous (planes may lie apart).
+
+    Returns (keys [W, na + nb] int64, planes tuple of int32 [na + nb])."""
+    dev = a_keys.device
+    _cuda.require_words(a_keys, "a_keys")
+    _cuda.require_words(b_keys, "b_keys", dev)
+    if b_keys.shape[0] != a_keys.shape[0]:
+        raise ValueError("a_keys and b_keys differ in words")
+    W, na = a_keys.shape
+    nb = b_keys.shape[1]
+    n_planes = _check_planes(a_planes, b_planes, na, nb, dev)
+    if not _cuda.on_cuda(a_keys, "merge_sorted_words_payload"):
+        return merge_sorted_words_payload_plain(a_keys, a_planes, b_keys,
+                                                b_planes)
+    out_keys = torch.empty((W, na + nb), dtype=torch.int64, device=dev)
+    out = tuple(torch.empty(na + nb, dtype=torch.int32, device=dev)
+                for _ in range(n_planes))
+    if na + nb == 0:
+        return out_keys, out
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_merge_sorted_words_scratch", na + nb, W),
+        dtype=torch.int64, device=dev)
+    _cuda.launch("kat_merge_sorted_words_payload", dev, a_keys.data_ptr(),
+                 a_keys.stride(0), *_plane_ptrs(a_planes, n_planes), na,
+                 b_keys.data_ptr(), b_keys.stride(0),
+                 *_plane_ptrs(b_planes, n_planes), nb, W, n_planes,
+                 out_keys.data_ptr(), out_keys.stride(0),
+                 *_plane_ptrs(out, n_planes), scratch.data_ptr())
+    merge_sorted_words_payload.launches += 1
+    return out_keys, out
+
+
+merge_sorted_words_payload.launches = 0  # kernel launches, read by chip_smoke.py

@@ -18,7 +18,33 @@ from ..core.kmers import SENTINEL
 from . import _cuda
 
 
-def reduce_by_key_plain(keys: torch.Tensor, w: torch.Tensor, out_size: int):
+def _into(out, got):
+    """The plain versions' results copied into the caller's `out` tensors
+    (the kernels write there directly), or returned as they are."""
+    if out is None:
+        return got
+    for o, g in zip(out, got[:2]):
+        o.copy_(g)
+    return (*out, got[2])
+
+
+def _check_out(out, shapes, dev: torch.device):
+    """`out`, when given, is (keys, counts) of the output shapes on the
+    stream's device: a place in a larger table, whose word planes may lie
+    apart but each run contiguous."""
+    if out is None:
+        return
+    for t, shape, dtype, name in zip(out, shapes, (torch.int64, torch.int32),
+                                     ("out keys", "out counts")):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: each plane must be contiguous")
+
+
+def reduce_by_key_plain(keys: torch.Tensor, w: torch.Tensor, out_size: int,
+                        out=None):
     """Plain PyTorch version: runs by `unique_consecutive`, sums by an
     int64 `index_add_`, sentinel runs dropped, then padded/truncated."""
     runs, inverse = torch.unique_consecutive(keys, return_inverse=True)
@@ -32,8 +58,8 @@ def reduce_by_key_plain(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     out_counts = torch.zeros(out_size, dtype=torch.int32, device=keys.device)
     out_keys[:m] = runs[:m]
     out_counts[:m] = sums[:m].to(torch.int32)
-    return out_keys, out_counts, torch.tensor(runs.numel(), dtype=torch.int64,
-                                              device=keys.device)
+    return _into(out, (out_keys, out_counts, torch.tensor(
+        runs.numel(), dtype=torch.int64, device=keys.device)))
 
 
 def tile_len() -> int:
@@ -42,7 +68,8 @@ def tile_len() -> int:
     return int(_cuda.LIBRARY.get().kat_reduce_by_key_tile())
 
 
-def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
+def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int,
+                  out=None):
     """Reduce a sorted int64 key stream with int32 weights to its runs.
 
     Returns (keys int64 [out_size], counts int32 [out_size], n_unique):
@@ -50,6 +77,8 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     with SENTINEL / 0.  n_unique (a 0-d int64 tensor) is the true number of
     such runs, even when it exceeds out_size; the caller then grows.
     Sentinel runs are never emitted, wherever they lie in the stream.
+    out: optional (keys, counts) tensors of out_size elements to write
+    into (a piece's place in a larger table); they are returned.
     """
     _cuda.require(keys, "keys", torch.int64)
     _cuda.require(w, "w", torch.int32, keys.device)
@@ -60,11 +89,13 @@ def reduce_by_key(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     # the kernel's status words count runs in 30 bits
     if keys.numel() >= 1 << 30:
         raise ValueError(f"reduce_by_key: n={keys.numel()} must be < 2^30")
+    _check_out(out, ((out_size,), (out_size,)), keys.device)
     if not _cuda.on_cuda(keys, "reduce_by_key"):
-        return reduce_by_key_plain(keys, w, out_size)
+        return reduce_by_key_plain(keys, w, out_size, out)
     dev = keys.device
-    out_keys = torch.empty(out_size, dtype=torch.int64, device=dev)
-    out_counts = torch.empty(out_size, dtype=torch.int32, device=dev)
+    out_keys, out_counts = out if out is not None else (
+        torch.empty(out_size, dtype=torch.int64, device=dev),
+        torch.empty(out_size, dtype=torch.int32, device=dev))
     n_unique = torch.empty(1, dtype=torch.int64, device=dev)
     n = keys.numel()
     scratch = torch.empty(_cuda.scratch_len("kat_reduce_by_key_scratch", n),
@@ -80,7 +111,7 @@ reduce_by_key.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 def reduce_by_key_words_plain(keys: torch.Tensor, w: torch.Tensor,
-                              out_size: int):
+                              out_size: int, out=None):
     """Plain PyTorch version of `reduce_by_key_words`: a run starts where
     any word differs from the key before; an int64 `index_add_` over run
     numbers sums it; sentinel runs dropped, then padded/truncated."""
@@ -100,18 +131,21 @@ def reduce_by_key_words_plain(keys: torch.Tensor, w: torch.Tensor,
     out_counts = torch.zeros(out_size, dtype=torch.int32, device=keys.device)
     out_keys[:, :m] = runs[:, :m]
     out_counts[:m] = sums[:m].to(torch.int32)
-    return out_keys, out_counts, torch.tensor(
-        runs.shape[1], dtype=torch.int64, device=keys.device)
+    return _into(out, (out_keys, out_counts, torch.tensor(
+        runs.shape[1], dtype=torch.int64, device=keys.device)))
 
 
-def reduce_by_key_words(keys: torch.Tensor, w: torch.Tensor, out_size: int):
+def reduce_by_key_words(keys: torch.Tensor, w: torch.Tensor, out_size: int,
+                        out=None):
     """`reduce_by_key` for a sorted stream of [W, n] int64 wide keys: a run
-    ends where any word differs from the next key.
+    ends where any word differs from the next key.  Each word's plane must
+    be contiguous; planes may lie apart (a piece of a longer stream).
 
     Returns (keys [W, out_size] int64, counts [out_size] int32, n_unique):
     each non-sentinel run's key and summed weight in stream order, padded
     with SENTINEL / 0, and the true number of such runs (a 0-d int64
-    tensor) even when it exceeds out_size."""
+    tensor) even when it exceeds out_size.  out: as in `reduce_by_key`,
+    keys [W, out_size]."""
     _cuda.require_words(keys, "keys")
     _cuda.require(w, "w", torch.int32, keys.device)
     if w.numel() != keys.shape[1]:
@@ -122,19 +156,21 @@ def reduce_by_key_words(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     if keys.shape[1] >= 1 << 30:
         raise ValueError(f"reduce_by_key_words: n={keys.shape[1]} must be "
                          "< 2^30")
-    if not _cuda.on_cuda(keys, "reduce_by_key_words"):
-        return reduce_by_key_words_plain(keys, w, out_size)
-    keys = keys.contiguous()
     W, n = keys.shape
+    _check_out(out, ((W, out_size), (out_size,)), keys.device)
+    if not _cuda.on_cuda(keys, "reduce_by_key_words"):
+        return reduce_by_key_words_plain(keys, w, out_size, out)
     dev = keys.device
-    out_keys = torch.empty((W, out_size), dtype=torch.int64, device=dev)
-    out_counts = torch.empty(out_size, dtype=torch.int32, device=dev)
+    out_keys, out_counts = out if out is not None else (
+        torch.empty((W, out_size), dtype=torch.int64, device=dev),
+        torch.empty(out_size, dtype=torch.int32, device=dev))
     n_unique = torch.empty(1, dtype=torch.int64, device=dev)
     scratch = torch.empty(_cuda.scratch_len("kat_reduce_by_key_scratch", n),
                           dtype=torch.int64, device=dev)
-    _cuda.launch("kat_reduce_by_key_words", dev, keys.data_ptr(), W,
-                 w.data_ptr(), n, out_keys.data_ptr(), out_counts.data_ptr(),
-                 out_size, scratch.data_ptr(), n_unique.data_ptr())
+    _cuda.launch("kat_reduce_by_key_words", dev, keys.data_ptr(),
+                 keys.stride(0), W, w.data_ptr(), n, out_keys.data_ptr(),
+                 out_keys.stride(0), out_counts.data_ptr(), out_size,
+                 scratch.data_ptr(), n_unique.data_ptr())
     reduce_by_key_words.launches += 1
     return out_keys, out_counts, n_unique[0]
 

@@ -1,14 +1,16 @@
 """K1: sort of int64 k-mer keys, alone (the fresh windows of the counting
 flush) or carrying one int32 value each (the queries of the sort-merge join),
-and of wide keys of W int64 words (`sort_words`, the fresh windows of the
-wide counting flush, core/wide.py).
+and of wide keys of W int64 words, alone (`sort_words`, the fresh windows of
+the wide counting flush, core/wide.py) or carrying one int32 value each
+(`sort_words_pairs`, the queries of the wide join).
 K5: independent sort of every aligned chunk, and K6: merge of sorted runs
 (both of the minimizer-bucketed flush, core/bucketed.py).
 
 Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
 mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
 `bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys`,
-`sort_pairs` and `sort_words` launch the one-sweep LSD radix sort of
+`sort_pairs`, `sort_words` and `sort_words_pairs` launch the one-sweep LSD
+radix sort of
 csrc/sort.cu,
 `sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
 `merge_runs` the merge-path tree of csrc/merge_runs.cu; on a CPU tensor they
@@ -220,11 +222,23 @@ def words_tile_len(n_words: int) -> int:
     return int(_cuda.LIBRARY.get().kat_radix_sort_words_tile(n_words))
 
 
-def words_pass_floor_bytes(n: int, n_words: int, top_bits: int) -> int:
+def words_pass_floor_bytes(n: int, n_words: int, top_bits: int,
+                           with_values: bool = False) -> int:
     """Bytes the card's W-word sort must move by its pass structure: one
     read of every word for the histograms, then one read and one write of
-    every word of every key per pass."""
-    return n * 8 * n_words * (1 + 2 * words_passes(n_words, top_bits))
+    every word of every key (and its value) per pass."""
+    passes = words_passes(n_words, top_bits)
+    return n * (8 * n_words * (1 + 2 * passes)
+                + (8 * passes if with_values else 0))
+
+
+def _check_words(keys: torch.Tensor, top_bits: int, name: str) -> None:
+    _cuda.require_words(keys, name)
+    if not 1 <= top_bits <= 63:
+        raise ValueError(f"top_bits={top_bits} outside [1, 63]")
+    # the kernel's status words keep a count in 30 bits
+    if keys.shape[1] >= 1 << 30:
+        raise ValueError(f"{name}: n={keys.shape[1]} must be < 2^30")
 
 
 def sort_words(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
@@ -234,12 +248,7 @@ def sort_words(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
     top_bits: every non-sentinel key's top word is < 2^(top_bits-1), so
     that the sentinel (INT64_MAX in every word) sorts last; counting passes
     2 top_bases(k) + 1.  Lower words are < 2^62."""
-    _cuda.require_words(keys, "sort_words")
-    if not 1 <= top_bits <= 63:
-        raise ValueError(f"top_bits={top_bits} outside [1, 63]")
-    # the kernel's status words keep a count in 30 bits
-    if keys.shape[1] >= 1 << 30:
-        raise ValueError(f"sort_words: n={keys.shape[1]} must be < 2^30")
+    _check_words(keys, top_bits, "sort_words")
     if not _cuda.on_cuda(keys, "sort_words"):
         return sort_words_plain(keys)
     keys = keys.contiguous()
@@ -259,3 +268,42 @@ def sort_words(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
 
 
 sort_words.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def sort_words_pairs_plain(keys: torch.Tensor, values: torch.Tensor):
+    """Plain PyTorch version of `sort_words_pairs`: the stable W-word
+    permutation gathers keys and values."""
+    perm = words_order_plain(keys)
+    return keys[:, perm], values[perm]
+
+
+def sort_words_pairs(keys: torch.Tensor, values: torch.Tensor,
+                     top_bits: int):
+    """Stable ascending lexicographic sort of [W, n] int64 wide keys
+    carrying one int32 value each; returns new (keys [W, n] contiguous,
+    values [n]).  Equal keys keep their input order, which the wide join
+    relies on.  top_bits as in `sort_words`."""
+    _check_words(keys, top_bits, "sort_words_pairs")
+    _cuda.require(values, "values", torch.int32, keys.device)
+    if values.numel() != keys.shape[1]:
+        raise ValueError("keys and values differ in length")
+    if not _cuda.on_cuda(keys, "sort_words_pairs"):
+        return sort_words_pairs_plain(keys, values)
+    keys = keys.contiguous()
+    W, n = keys.shape
+    out, vout = torch.empty_like(keys), torch.empty_like(values)
+    if n == 0:
+        return out, vout
+    alt, valt = torch.empty_like(keys), torch.empty_like(values)
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_radix_sort_words_scratch", n, W, top_bits),
+        dtype=torch.int32, device=keys.device)
+    _cuda.launch("kat_radix_sort_words_pairs", keys.device, keys.data_ptr(),
+                 values.data_ptr(), out.data_ptr(), vout.data_ptr(),
+                 alt.data_ptr(), valt.data_ptr(), scratch.data_ptr(), n, W,
+                 top_bits)
+    sort_words_pairs.launches += 1
+    return out, vout
+
+
+sort_words_pairs.launches = 0  # kernel launches, read by chip_smoke.py

@@ -131,7 +131,7 @@ class Comp:
 
         # both cross-probe streams sorted => pass1 and pass2 share ONE
         # table merge (tables.lookup_dual); None when the join policy keeps
-        # the binary search, and for wide tables
+        # the binary search
         pre = tables.lookup_dual(t1, t2) if (sorted2 and sorted1) else None
         h2_pre, h1_pre = pre if pre is not None else (None, None)
         c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = \

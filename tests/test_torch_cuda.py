@@ -1,8 +1,10 @@
 """The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
-payload forms of K1 and K2, the W-word forms of K1, K2 and K3, K5 chunk
-sort, K6 run merge, K7's round classes and the binned sums) against their
-plain PyTorch versions on the card, exactly (integer keys and counts:
-tolerance 0).
+payload forms of K1 and K2, the W-word forms of K1, K2 and K3, the W-word
+forms of K1 with a value and K2 with payload planes (the wide join), K5
+chunk sort, K6 run merge, K7's round classes and the binned sums) against
+their plain PyTorch versions on the card, exactly (integer keys and counts:
+tolerance 0); K3 in pieces (counting.reduce_stream) at a lowered piece
+length against one launch.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -22,11 +24,10 @@ from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
 from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
 from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
-from kat_tpu_torch.ops.merge_kernel import (merge_sorted, merge_sorted_payload,
-                                            merge_sorted_payload_plain,
-                                            merge_sorted_plain,
-                                            merge_sorted_words,
-                                            merge_sorted_words_plain)
+from kat_tpu_torch.ops.merge_kernel import (
+    merge_sorted, merge_sorted_payload, merge_sorted_payload_plain,
+    merge_sorted_plain, merge_sorted_words, merge_sorted_words_payload,
+    merge_sorted_words_payload_plain, merge_sorted_words_plain)
 from kat_tpu_torch.ops.merge_kernel import tile_len as merge_tile_len
 from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              compact_flagged_plain,
@@ -39,8 +40,9 @@ from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
                                            sort_chunks, sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
                                            sort_pairs, sort_pairs_plain,
-                                           sort_words, sort_words_plain,
-                                           tile_len)
+                                           sort_words, sort_words_pairs,
+                                           sort_words_pairs_plain,
+                                           sort_words_plain, tile_len)
 
 pytestmark = pytest.mark.cuda
 
@@ -480,8 +482,10 @@ def test_join_dual_matches_two_lookups(dev):
 
 
 def test_window_counts_join_equals_search(dev):
-    """coverage.window_counts picks the join on the card for a large batch
-    and gives what the search route gives."""
+    """coverage.window_counts by the join on the card gives what the search
+    route gives; for a narrow table the policy takes the search (the card
+    measured it faster in every narrow cell), so only the forced join
+    launches the compaction."""
     rng = np.random.default_rng(8)
     k = 27
     genome = rng.integers(0, 4, 1 << 17, dtype=np.uint8)
@@ -492,12 +496,13 @@ def test_window_counts_join_equals_search(dev):
     codes[rng.random(codes.shape) < 0.002] = 4
     codes[rng.random(codes.shape) < 0.01] ^= 1
     codes = torch.from_numpy(codes).to(dev)
-    assert tables._join_policy(64 * (2048 - k + 1), table.capacity,
-                               table.keys.device)
+    assert not tables._join_policy(64 * (2048 - k + 1), table.capacity,
+                                   table.keys.device)
     before = compact_flagged.launches
-    got = coverage.window_counts(table, codes, k, True)
+    got = coverage.window_counts(table, codes, k, True, method="join")
     assert compact_flagged.launches == before + 1
-    want = coverage.window_counts(table, codes, k, True, method="search")
+    want = coverage.window_counts(table, codes, k, True)
+    assert compact_flagged.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] > 0).sum()) > 0 and int((~got[2]).sum()) > 0
@@ -522,10 +527,11 @@ def test_counter_keeps_card_keys_on_the_card(dev):
 
 
 def test_sect_tool_launches_the_lookup_kernels(dev, tmp_path):
-    """`sect` through the command line's entry point, on the card: contigs
-    that fill one length bucket past the join threshold send their lookups
-    through K1 with a value, K2 with payload planes and K4, and the
-    coverage file equals the CPU run's."""
+    """`sect -m 41` through the command line's entry point, on the card:
+    contigs that fill one length bucket past the join threshold send their
+    lookups through the wide join (K1 W-word with a value, K2 W-word with
+    payload planes, K4), and the coverage file equals the CPU run's.  (A
+    narrow table's lookups take the search: see the policy.)"""
     from kat_tpu_torch import cli
 
     rng = np.random.default_rng(17)
@@ -541,16 +547,16 @@ def test_sect_tool_launches_the_lookup_kernels(dev, tmp_path):
             o = int(rng.integers(0, genome.size - 4096))
             f.write(b">c%d\n%s\n" % (i, genome[o:o + 4096].tobytes()))
         f.write(b">short\n%s\n" % genome[:300].tobytes())
-    counters = (sort_keys, merge_sorted, reduce_by_key, sort_pairs,
-                merge_sorted_payload, compact_flagged)
+    counters = (sort_words, merge_sorted_words, reduce_by_key_words,
+                sort_words_pairs, merge_sorted_words_payload, compact_flagged)
     before = [f.launches for f in counters]
-    assert cli.main(["sect", "-m", "27", "-o", str(tmp_path / "gpu"),
+    assert cli.main(["sect", "-m", "41", "-o", str(tmp_path / "gpu"),
                      str(fa), str(fq)]) == 0
     after = [f.launches for f in counters]
     assert all(a > b for a, b in zip(after, before))
     # one bucket above the threshold: exactly one join
     assert [a - b for a, b in zip(after[3:], before[3:])] == [1, 1, 1]
-    assert cli.main(["--device", "cpu", "sect", "-m", "27", "-o",
+    assert cli.main(["--device", "cpu", "sect", "-m", "41", "-o",
                      str(tmp_path / "cpu"), str(fa), str(fq)]) == 0
     for suffix in ("-counts.cvg", "-stats.tsv"):
         assert (tmp_path / f"gpu{suffix}").read_bytes() \
@@ -894,6 +900,134 @@ def test_wide_counter_on_the_card(dev):
     assert tables[0].n_unique == tables[1].n_unique
     assert torch.equal(tables[0].keys.cpu(), tables[1].keys)
     assert torch.equal(tables[0].counts.cpu(), tables[1].counts)
+
+
+# --- the wide join: K1 W-word with a value, K2 W-word with payload planes ---
+
+def _planes(n, n_planes, g, dev):
+    return tuple(torch.randint(-(1 << 31), (1 << 31) - 1, (n,),
+                               dtype=torch.int32, device=dev, generator=g)
+                 for _ in range(n_planes))
+
+
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_sort_words_pairs_matches_plain(dev, name, k):
+    """K1 W-word carrying a value, W = 2..9: equal keys (one run, all
+    SENTINEL, equal top words) keep their values' input order."""
+    from kat_tpu_torch.core.kmers import top_bases
+
+    keys, g = _wide_case(dev, name, k)
+    (vals,) = _planes(keys.shape[1], 1, g, dev)
+    before = sort_words_pairs.launches
+    gk, gv = sort_words_pairs(keys, vals, 2 * top_bases(k) + 1)
+    torch.cuda.synchronize()
+    assert sort_words_pairs.launches == before + 1
+    wk, wv = sort_words_pairs_plain(keys, vals)
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3])
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_merge_words_payload_matches_plain(dev, name, k, n_planes):
+    """K2 W-word with 1-3 planes on both sides, ties taking `a` first; the
+    table is the prefix of a wider buffer (planes that lie apart)."""
+    keys, g = _wide_case(dev, name, k)
+    a, _ac, b = workloads.wide_merge_inputs(keys, g)
+    ap = _planes(a.shape[1], n_planes, g, dev)
+    bp = _planes(b.shape[1], n_planes, g, dev)
+    buf = torch.full((a.shape[0], a.shape[1] + 1000), SENTINEL,
+                     dtype=torch.int64, device=dev)
+    buf[:, :a.shape[1]] = a
+    before = merge_sorted_words_payload.launches
+    gk, gp = merge_sorted_words_payload(buf[:, :a.shape[1]], ap, b, bp)
+    torch.cuda.synchronize()
+    assert merge_sorted_words_payload.launches == before + 1
+    wk, wp = merge_sorted_words_payload_plain(a, ap, b, bp)
+    assert torch.equal(gk, wk)
+    for x, y in zip(gp, wp, strict=True):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 2047, 2049, 3071,
+                               3073, 8191, 8192, 8193])
+@pytest.mark.parametrize("k", [41, 95, 255])
+def test_wide_join_kernels_at_tile_edges(dev, k, n):
+    """Both new forms at lengths around their tiles (the merge's 1024, 2048
+    and 3072 outputs, the sort's 8192) and at one or two keys, W = 2, 4
+    and 9; the merge with one side empty."""
+    from kat_tpu_torch.core.kmers import top_bases
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + k)
+    keys = workloads.wide_keys(k, n, dev, g)
+    (vals,) = _planes(n, 1, g, dev)
+    got = sort_words_pairs(keys, vals, 2 * top_bases(k) + 1)
+    want = sort_words_pairs_plain(keys, vals)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    both = torch.cat([keys, workloads.wide_keys(k, 2 * n, dev, g)], dim=1)
+    a, _ac, b = workloads.wide_merge_inputs(both, g)
+    for a_, b_ in ((a, b), (a[:, :0], b), (a, b[:, :0])):
+        ap, bp = _planes(a_.shape[1], 2, g, dev), _planes(b_.shape[1], 2, g,
+                                                          dev)
+        got = merge_sorted_words_payload(a_, ap, b_, bp)
+        want = merge_sorted_words_payload_plain(a_, ap, b_, bp)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        for x, y in zip(got[1], want[1], strict=True):
+            assert torch.equal(x, y)
+
+
+def test_wide_join_on_the_card(dev):
+    """counts_join and counts_join_dual over W-word keys on the card equal
+    the binary search on the card and the same join on the CPU."""
+    from kat_tpu_torch.core import wide
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    keys = workloads.wide_keys(41, 300_000, dev, g, sent=0.0)
+    t = wide.table_from_words(keys.cpu().numpy(),
+                              np.ones(keys.shape[1], np.int64), 1 << 19,
+                              device=dev)
+    q = torch.cat([keys[:, ::3], workloads.wide_keys(41, 200_000, dev, g)],
+                  dim=1).reshape(2, 100, -1)
+    got = counts_join(t.keys, t.counts, q, key_bits=83)
+    assert torch.equal(got, wide.lookup_wide(t, q))
+    cpu = counts_join(t.keys.cpu(), t.counts.cpu(), q.cpu(), key_bits=83)
+    assert torch.equal(got.cpu(), cpu)
+    t2 = wide.table_from_words(q.reshape(2, -1).cpu().numpy(),
+                               np.ones(q[0].numel(), np.int64), 1 << 19,
+                               device=dev)
+    d = counts_join_dual(t.keys, t.counts, t2.keys, t2.counts)
+    assert torch.equal(d[0], wide.lookup_wide(t2, t.keys))
+    assert torch.equal(d[1], wide.lookup_wide(t, t2.keys))
+
+
+@pytest.mark.parametrize("W", [1, 2, 9])
+def test_reduce_in_pieces_equals_one_launch(dev, W, monkeypatch):
+    """K3 over a sorted stream of 2^20 keys (runs of 1-40, trailing
+    SENTINEL) in pieces of fewer than 50,000 keys, each written from an
+    unaligned offset of the output, equals one launch; also into too few
+    slots."""
+    rng = np.random.default_rng(W)
+    runs = rng.integers(1, 40, 60_000)
+    n = int(runs.sum())
+    first = np.sort(rng.choice(1 << 50, runs.size, replace=False))
+    words = np.repeat(np.stack([first + q for q in range(W)]), runs, axis=1)
+    words[:, -1000:] = SENTINEL
+    keys = torch.from_numpy(words if W > 1 else words[0].copy()).to(dev)
+    w = torch.from_numpy(rng.integers(1, 9, n).astype(np.int32)).to(dev)
+    one = reduce_by_key_words if W > 1 else reduce_by_key
+    monkeypatch.setattr(counting, "MAX_STREAM", 50_000)
+    for out_size in (1 << 16, 40_001):
+        want = one(keys, w, out_size)
+        before = one.launches
+        got = counting.reduce_stream(keys, w, out_size)
+        torch.cuda.synchronize()
+        assert one.launches - before > n // 50_000
+        assert got[2] == int(want[2])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # -- binned sums (csrc/binned.cu), the binned form of K1 + K3 --

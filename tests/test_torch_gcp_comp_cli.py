@@ -324,7 +324,7 @@ def test_dual_probe_matches_jax_and_two_searches(tmp_path, inputs,
         return real_dual(*args)
 
     monkeypatch.setattr(join, "counts_join_dual", spy)
-    monkeypatch.setattr(tables, "_join_policy", lambda m, cap, dev: True)
+    monkeypatch.setattr(tables, "_join_policy", lambda *a, **kw: True)
     fused = tmp_path / "t"
     assert tcli.main(["--device", "cpu", "comp", *flags, "-o", str(fused),
                       *paths]) == 0
@@ -358,12 +358,16 @@ def test_engine_passes_split_shared_spectrum2_under_the_dual_probe():
 
 
 def test_lookup_dual_returns_none_for_wide_tables(monkeypatch):
-    """Wide lookups take the search: with the join policy forced on, the
-    fused probe still declines two WideTables (the narrow join would read
-    their [W, capacity] words as one key plane)."""
+    """The fused probe once declined two WideTables (the narrow join would
+    have read their [W, capacity] words as one key plane).  With the W-word
+    merge it takes them: with the join policy forced on, lookup_dual of two
+    WideTables equals two searches; with it off, it returns None."""
     (_j1, t1), (_j2, t2), _ = _wide_pair(41, 5)
-    monkeypatch.setattr(tables, "_join_policy", lambda m, cap, dev: True)
-    assert tables.lookup_dual(t1, t2) is None
+    assert tables.lookup_dual(t1, t2) is None  # CPU tables: the search
+    monkeypatch.setattr(tables, "_join_policy", lambda *a, **kw: True)
+    got = tables.lookup_dual(t1, t2)
+    assert torch.equal(got[0], tables.lookup(t2, t1.keys, method="search"))
+    assert torch.equal(got[1], tables.lookup(t1, t2.keys, method="search"))
     (_n1, n1), (_n2, n2), _ = _narrow_pair(13, 5)
     got = tables.lookup_dual(n1, n2)
     assert got is not None
@@ -374,7 +378,7 @@ def test_comp_k41_with_the_join_policy_forced_matches_jax(tmp_path, inputs,
                                                           monkeypatch):
     """The repair end to end: comp -m 41 with the join policy forced on
     (as on the card at comp's sizes) equals kat_tpu's output."""
-    monkeypatch.setattr(tables, "_join_policy", lambda m, cap, dev: True)
+    monkeypatch.setattr(tables, "_join_policy", lambda *a, **kw: True)
     jp, tp = _both(tmp_path, "comp", [*SMALL, "-m", "41"],
                    [inputs["a"], inputs["b"]])
     _same(jp, tp, COMP_BASE)

@@ -56,3 +56,10 @@ def test_the_gcp_comp_slice_is_walked():
             "kat_tpu_torch/core/distance.py", "kat_tpu_torch/utils/fmt.py",
             "kat_tpu_torch/tools/gcp.py",
             "kat_tpu_torch/tools/comp.py"} <= rel
+
+
+def test_the_cold_filter_slice_is_walked():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"kat_tpu_torch/tools/cold.py", "kat_tpu_torch/tools/filter_kmer.py",
+            "kat_tpu_torch/tools/filter_seq.py",
+            "kat_tpu_torch/benchmarks/sweep_lookup.py"} <= rel

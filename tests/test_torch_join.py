@@ -136,11 +136,18 @@ def test_tables_lookup_join_equals_search(assume_sorted):
 
 
 def test_join_policy_on_a_card_table():
+    """The card measured the one-word search faster than the one-word join
+    in every cell, so a narrow single lookup takes the search at any size;
+    wide lookups and the fused probe take the join from
+    max(JOIN_MIN_QUERIES, cap / JOIN_CAP_RATIO) queries."""
     cuda = torch.device("cuda", 0)
-    assert tables._join_policy(1 << 16, 1 << 20, cuda)
-    assert not tables._join_policy((1 << 16) - 1, 1 << 20, cuda)
-    assert not tables._join_policy(1 << 16, 1 << 25, cuda)  # m < cap / 256
-    assert tables._join_policy(1 << 17, 1 << 25, cuda)
+    for m in (1 << 16, 1 << 20, 1 << 24, 1 << 30):
+        assert not tables._join_policy(m, 1 << 20, cuda)
+    assert tables._join_policy(1 << 16, 1 << 20, cuda, 2)
+    assert not tables._join_policy((1 << 16) - 1, 1 << 20, cuda, 2)
+    assert not tables._join_policy(1 << 16, 1 << 25, cuda, 3)  # m < cap/256
+    assert tables._join_policy(1 << 17, 1 << 25, cuda, 9)
+    assert tables._join_policy(1 << 20, 1 << 20, cuda, 1, dual=True)
 
 
 def test_tables_compact_preserves_lookups():

@@ -129,10 +129,11 @@ def _meta_table(n_unique, capacity, wide):
 
 @pytest.mark.parametrize("wide", [False, True])
 def test_counters_refuse_streams_the_kernels_refuse(wide):
-    """A flush whose merged stream (table entries + fresh windows) reaches
-    2^30 raises TableFullError before any launch (its growth replays merge
-    the same stream); so do 2^30 fresh windows.  `meta` tensors reach the
-    check without memory."""
+    """2^30 fresh windows raise TableFullError before any launch (K1 takes
+    fewer a launch).  A merged stream (table entries + fresh windows) of
+    2^30 no longer does: it is reduced in pieces (counting.reduce_stream),
+    so the flush goes on to the sort, which refuses the `meta` tensors
+    that reach these checks without memory."""
     n_fresh = 1 << 26
     if wide:
         sc = tw.WideCodeStreamingCounter(41, initial_capacity=1 << 30,
@@ -143,7 +144,7 @@ def test_counters_refuse_streams_the_kernels_refuse(wide):
         fresh = torch.empty(n_fresh, dtype=torch.int64, device="meta")
     sc.table = _meta_table((1 << 30) - n_fresh, 1 << 30, wide)
     sc._fresh = [fresh]
-    with pytest.raises(tc.TableFullError, match="merged stream"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         sc._flush()
     big = torch.empty((2, 1 << 30) if wide else (1 << 30,),
                       dtype=torch.int64, device="meta")
