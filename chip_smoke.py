@@ -81,6 +81,24 @@
    windows through the wide join, whose three kernels must each launch
    once, equal to the search) and `comp -m 41` through the wide dual probe
    (Comp.compare_tables against numpy);
+4d. drives the mesh-sharded paths (parallel/sharded.py, analysis.py,
+   longseq.py) with every shard on the card: the main path's 48 batches
+   at k = 27 counted on meshes of 8 and of 1 shards and 24 of them at
+   k = 41 on 8 (workloads.sharded_counter), each shard against the
+   one-device table (the keys the owner hash gives it, their counts) and
+   finish() against it, on the card, beside the one-device rate of the
+   same batches in this call (the sharded/single ratio); hist, gcp and
+   comp (two and three inputs, the dual probe per shard) over the 8
+   shards against the one-device results; the lookup path's 2^23 windows
+   through routed lookups (analysis.window_counts_routed) against the
+   one-table counts; then `--shards 8 sect` of the genome as one
+   8,389,632-base contig (the halo path) through cli.main, its artifacts
+   byte-identical to the one-device sect's.  K1, K6 (one-word and
+   W-word), K2 and K3 must each have been launched by the counting runs,
+   which are read between a reset and their end; K6 W-word is held
+   against its plain version and timed at the k = 41 flush's arrival
+   shape (8 runs of 2^22 slots, W = 2) and on strain inputs at W = 2..9
+   with the kernel checks of step 2;
 5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
    against numpy) and `hist` from the dumped .jf (same histogram);
 6. runs `sect` of 200 contigs against those reads through the command
@@ -1217,6 +1235,21 @@ def main_path(dev):
     return launches, table, genome, ref_keys, ref_counts
 
 
+def _lookup_codes(dev, genome, k: int, rows: int, row_w: int, seed: int):
+    """The lookup paths' queries: `rows` rows of the genome of row_w
+    windows each, 1% of bases substituted, a few invalid."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    codes = genome.unfold(0, row_w + k - 1, row_w)[:rows].clone()
+    sub = torch.rand(codes.shape, device=dev, generator=gen) < 0.01
+    codes[sub] = (codes[sub] + 1 + (torch.rand(int(sub.sum()), device=dev,
+                  generator=gen) * 3).to(torch.uint8)) & 3
+    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
+    return codes
+
+
 def lookup_path(dev, table, genome, ref_keys, ref_counts):
     """The k=27 windows of the counted genome looked up in the table
     main_path built, through coverage.window_counts: by the policy's route
@@ -1229,13 +1262,7 @@ def lookup_path(dev, table, genome, ref_keys, ref_counts):
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
     k, rows, row_w = 27, 128, 1 << 16
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 2)
-    codes = genome.unfold(0, row_w + k - 1, row_w)[:rows].clone()
-    sub = torch.rand(codes.shape, device=dev, generator=gen) < 0.01
-    codes[sub] = (codes[sub] + 1 + (torch.rand(int(sub.sum()), device=dev,
-                  generator=gen) * 3).to(torch.uint8)) & 3
-    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
+    codes = _lookup_codes(dev, genome, k, rows, row_w, SEED + 2)
     m = rows * row_w
     table = tables.compact(table)
     if tables._join_policy(m, table.capacity, table.keys.device):
@@ -1528,13 +1555,7 @@ def wide_lookup_path(dev, wtable, genome, rows: int = 128,
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
     k = 41
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 6)
-    codes = genome.unfold(0, row_w + k - 1, row_w)[:rows].clone()
-    sub = torch.rand(codes.shape, device=dev, generator=gen) < 0.01
-    codes[sub] = (codes[sub] + 1 + (torch.rand(int(sub.sum()), device=dev,
-                  generator=gen) * 3).to(torch.uint8)) & 3
-    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-5] = 4
+    codes = _lookup_codes(dev, genome, k, rows, row_w, SEED + 6)
     m = rows * row_w
     table = tables.compact(wtable)
     if not tables._join_policy(m, table.capacity, dev, table.n_words):
@@ -2810,6 +2831,384 @@ def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int):
         raise AssertionError("comp -m 41 did not run the binned-sums kernel")
 
 
+# -- the sharded phases: parallel/sharded.py, analysis.py, longseq.py --------
+
+# a kernel entry's name -> the wrapper whose launches it counts
+SHARDED_WRAPPER = dict(
+    radix_sort="sort_keys", radix_sort_words="sort_words",
+    merge_runs="merge_runs", merge_runs_words="merge_runs_words",
+    merge_path="merge_sorted", merge_path_words="merge_sorted_words",
+    merge_path_payload="merge_sorted_payload",
+    reduce_by_key="reduce_by_key", reduce_by_key_words="reduce_by_key_words",
+    compact_flagged="compact_flagged", radix_sort_pairs="sort_pairs",
+    binned_sums="binned_sums")
+
+def _kernel_fns():
+    """Every kernel wrapper of the sharded paths, by name."""
+    from kat_tpu_torch.ops import (binned_kernel, merge_kernel,
+                                   reduce_kernel, sort_kernel)
+
+    return dict(
+        sort_keys=sort_kernel.sort_keys, sort_words=sort_kernel.sort_words,
+        merge_runs=sort_kernel.merge_runs,
+        merge_runs_words=sort_kernel.merge_runs_words,
+        merge_sorted=merge_kernel.merge_sorted,
+        merge_sorted_words=merge_kernel.merge_sorted_words,
+        merge_sorted_payload=merge_kernel.merge_sorted_payload,
+        reduce_by_key=reduce_kernel.reduce_by_key,
+        reduce_by_key_words=reduce_kernel.reduce_by_key_words,
+        compact_flagged=reduce_kernel.compact_flagged,
+        sort_pairs=sort_kernel.sort_pairs,
+        binned_sums=binned_kernel.binned_sums)
+
+
+def _zero_launches() -> None:
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def _read_launches(what: str, need: tuple) -> dict:
+    """Every wrapper's count since _zero_launches; raises if a kernel in
+    `need` was launched no time."""
+    got = {name: fn.launches for name, fn in _kernel_fns().items()}
+    missing = [name for name in need if got[name] < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({got})")
+    return {name: n for name, n in got.items() if n}
+
+
+def check_merge_runs_words(dev, gen):
+    """K6 over W words against its plain version: at the sharded flush's
+    shape (one shard's arrivals in the main path's k = 41 flush on 8
+    shards: 8 runs of 2^22 slots, ~1M real keys each, W = 2), timed, five
+    runs with equal outputs; then on workloads.RUNS_WORDS_STRAIN at the
+    boundary k of every W = 2..9."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.ops import sort_kernel
+
+    keys = workloads.sharded_runs_words(41, dev, gen)
+    rl = workloads.SHARDED_ROUTE_CAP
+    got = sort_kernel.merge_runs_words(keys, rl)
+    err = _max_abs_err(got, sort_kernel.merge_runs_words_plain(keys, rl))
+    _repeat_equal("K6 W-word", lambda: (sort_kernel.merge_runs_words(
+        keys, rl),))
+    n, W = keys.shape[1], keys.shape[0]
+    levels = (workloads.SHARDED_RUNS - 1).bit_length()
+    entry = _report(dict(
+        name="merge_runs_words", route="cuda",
+        source="kat_tpu_torch/csrc/merge_runs.cu",
+        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+        ms=_timed_ms(lambda: sort_kernel.merge_runs_words(keys, rl), 5),
+        plain_ms=_timed_ms(
+            lambda: sort_kernel.merge_runs_words_plain(keys, rl), 3),
+        # W word compares per key and level of the merge tree
+        **_bound(_nbytes(keys, got), n * W * levels),
+        library_ms=None),  # no one PyTorch call merges W-word runs
+        f"K6 W-word merge of {workloads.SHARDED_RUNS} runs of 2^22 keys, "
+        f"W={W}")
+    del keys, got
+    errs = []
+    for k in workloads.WIDE_STRAIN_K:
+        for name in workloads.RUNS_WORDS_STRAIN:
+            keys, run_len = workloads.runs_words_strain(name, k, dev, gen)
+            errs.append(_max_abs_err(
+                sort_kernel.merge_runs_words(keys, run_len),
+                sort_kernel.merge_runs_words_plain(keys, run_len)))
+    torch.cuda.synchronize()
+    print(f"K6 W-word: equal to its plain version on "
+          f"{len(errs)} strain inputs (W = 2..9)")
+    return entry
+
+
+def _check_shards(sc, table, what: str) -> None:
+    """A sharded count against the one-device table, on the card: shard s
+    holds exactly the table's keys that the owner hash gives it, with
+    their counts, a SENTINEL tail after them; finish() merges the shards
+    back into the table."""
+    import torch
+
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.parallel import sharded
+
+    n = table.n_unique
+    keys, counts = table.keys[..., :n], table.counts[:n]
+    owner = sharded.owner_shard(keys, sc.k, sc.n)
+    for s, t in enumerate(sc.tables):
+        mine = owner == s
+        nu = t.n_unique
+        if not (nu == int(mine.sum())
+                and torch.equal(t.keys[..., :nu], keys[..., mine])
+                and torch.equal(t.counts[:nu], counts[mine])
+                and bool((t.keys[..., nu:] == SENTINEL).all())):
+            raise AssertionError(f"{what}: shard {s} differs from the "
+                                 "one-device table")
+    merged = sc.finish()
+    if not (merged.n_unique == n and torch.equal(merged.keys[..., :n], keys)
+            and torch.equal(merged.counts[:n], counts)):
+        raise AssertionError(f"{what}: finish() differs from the one-device "
+                             "table")
+
+
+def _count_timed(counter, batches, end: str):
+    """(what counter.<end>() returns, seconds) of counting `batches`."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        counter.add_codes(b)
+    out = getattr(counter, end)()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_path(dev, smi: str, table, genome) -> dict:
+    """The mesh-sharded paths on the card, all shards on it: the main
+    path's 48 batches at k = 27 counted on meshes of 8 and 1 shards and 24
+    of them at k = 41 on 8, each shard against the one-device table and
+    finish() against it, with the one-device rate of the same batches in
+    this call; hist, gcp and comp (two and three inputs) over the shards
+    against the one-device results; the lookup path's 2^23 windows through
+    routed lookups against the one-table counts.  Each run's launches are
+    read between a reset and its end.  Returns them by run."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import coverage, stats, tables
+    from kat_tpu_torch.parallel import analysis, sharded
+    from kat_tpu_torch.tools.comp import Comp
+
+    k = workloads.MAIN_K
+    _g, batches = workloads.main_path_batches(dev, SEED)
+    del _g
+    per_batch = workloads.MAIN_ROWS * (workloads.MAIN_LENGTH - k + 1)
+    mesh8, mesh1 = sharded.make_mesh(8), sharded.make_mesh(1)
+    if mesh8.devices != (dev,) * 8:
+        raise AssertionError(f"make_mesh(8) placed {mesh8.devices}")
+    warm = workloads.sharded_counter(k, mesh8)  # touch every launch shape
+    for b in batches[:2]:
+        warm.add_codes(b)
+    warm.check()
+    del warm
+    launches = {}
+
+    one, dt_one = _count_timed(workloads.main_path_counter(dev), batches,
+                               "finish")
+    del one
+    rate_one = len(batches) * per_batch / dt_one
+    print(f"sharded path: the one-device count of the same {len(batches)} "
+          f"batches in {dt_one:.4f} s = {rate_one:.1f} k-mers/s ({smi})")
+    counters = {}
+    for mesh in (mesh8, mesh1):
+        sc = workloads.sharded_counter(k, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launches()
+        _none, dt = _count_timed(sc, batches, "check")
+        what = f"sharded count k={k} on {mesh.n} shards"
+        launches[what] = _read_launches(what, (
+            "sort_keys", "merge_runs", "merge_sorted", "reduce_by_key"))
+        peak = torch.cuda.max_memory_allocated(dev)
+        _check_shards(sc, table, what)
+        rate = len(batches) * per_batch / dt
+        print(f"{what}: {len(batches) * per_batch} windows in {dt:.4f} s = "
+              f"{rate:.1f} k-mers/s, {rate / rate_one:.4f} x the one-device "
+              f"rate; shard capacity {sc.shard_capacity}, route slack "
+              f"{sc.route_slack}, n_unique per shard "
+              f"{sc.n_unique.tolist()}; peak memory {peak} B; launches "
+              f"{launches[what]}; each shard and finish() equal the "
+              f"one-device table ({smi})")
+        counters[mesh.n] = sc
+    del counters[1]
+    sc8 = counters.pop(8)
+
+    # hist, gcp and comp over the shards of the mesh of 8
+    _zero_launches()
+    t0 = time.perf_counter()
+    h = analysis.hist_sharded(sc8, 1, 10001, 1, 10001)
+    g = analysis.gcp_sharded(sc8, k, 1000)
+    dt = time.perf_counter() - t0
+    launches["hist and gcp on 8 shards"] = _read_launches(
+        "hist and gcp on 8 shards", ("binned_sums",))
+    want_h = stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
+    want_g = stats.gcp_matrix(table, k, 1000)
+    if not (np.array_equal(h, want_h.cpu().numpy().astype(np.uint64))
+            and np.array_equal(g, want_g.cpu().numpy().astype(np.uint64))):
+        raise AssertionError("hist or gcp over the shards differs from the "
+                             "one-device table's")
+    print(f"sharded hist and gcp: equal to the one-device table's, "
+          f"{dt:.4f} s for both over 8 shards")
+    asm = workloads.contig_rows(genome, k)
+    one2 = workloads.main_path_counter(dev)
+    one2.add_codes(asm)
+    t2 = one2.finish()
+    third = workloads.read_draw(genome, SEED + 5,
+                                workloads.COMP_THIRD_BATCHES)
+    one3 = workloads.main_path_counter(dev)
+    for b in third:
+        one3.add_codes(b)
+    t3 = one3.finish()
+    c2, c3 = (workloads.sharded_counter(k, mesh8) for _ in range(2))
+    c2.add_codes(asm)
+    for b in third:
+        c3.add_codes(b)
+    c2.check()
+    c3.check()
+    del one2, one3
+    for three in (False, True):
+        what = f"sharded comp, {'three' if three else 'two'} inputs"
+        comps = []
+        for on_mesh in (True, False):
+            c = Comp([], [])
+            c.quiet = True
+            c.set_mer_len(k)
+            if three:
+                c.set_third_input([])
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if on_mesh:
+                for inp, sc in zip(c.inputs, (sc8, c2, c3)):
+                    inp.shards = sc
+                c._compare_sharded()
+            else:
+                c.compare_tables(table, t2, t3 if three else None)
+            torch.cuda.synchronize()
+            comps.append((c, time.perf_counter() - t0))
+            if on_mesh:  # the dual probe per shard: K2 payload, K4
+                launches[what] = _read_launches(what, (
+                    "binned_sums", "merge_sorted_payload",
+                    "compact_flagged"))
+        (cs, dts), (c1, dt1) = comps
+        got = [cs.counters, cs.main_mx.data, cs.spectrum1, cs.spectrum2,
+               cs.shared_spectrum1, cs.shared_spectrum2]
+        want = [c1.counters, c1.main_mx.data, c1.spectrum1, c1.spectrum2,
+                c1.shared_spectrum1, c1.shared_spectrum2]
+        if three:
+            got += [cs.ends_mx.data, cs.mixed_mx.data, cs.middle_mx.data]
+            want += [c1.ends_mx.data, c1.mixed_mx.data, c1.middle_mx.data]
+        if not (got[0] == want[0] and all(
+                np.array_equal(a, b) for a, b in zip(got[1:], want[1:]))):
+            raise AssertionError(f"{what} differs from the one-device comp")
+        print(f"{what}: equal to the one-device comp; {dts:.4f} s over 8 "
+              f"shards, {dt1:.4f} s on one table (cold); launches "
+              f"{launches[what]}")
+    del c2, c3, t2, t3, asm, third
+
+    # routed lookups: the lookup path's windows against the shards
+    codes = _lookup_codes(dev, genome, k, 128, 1 << 16, SEED + 2)
+    svc = analysis.ShardedLookup(sc8)
+    analysis.window_counts_routed(svc, codes[:2], k, True)  # warm
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = analysis.window_counts_routed(svc, codes, k, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches["routed lookups"] = _read_launches("routed lookups", ())
+    compact = tables.compact(table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = coverage.window_counts(compact, codes, k, True)
+    torch.cuda.synchronize()
+    dt1 = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("routed window counts differ from the "
+                             "one-table window counts")
+    m = codes.shape[0] * (codes.shape[1] - k + 1)
+    print(f"sharded lookups: {m} windows routed to 8 shards in {dt:.4f} s "
+          f"= {m / dt:.1f} windows/s (the host plan included), one table "
+          f"{dt1:.4f} s; equal")
+    del svc, sc8, got, want, compact
+
+    # k = 41 on the mesh of 8: 24 batches, K6 over W words
+    wb = batches[:24]
+    one41, dt_one = _count_timed(workloads.wide_counter(41, dev), wb,
+                                 "finish")
+    sc = workloads.sharded_counter(41, mesh8)
+    _zero_launches()
+    _none, dt = _count_timed(sc, wb, "check")
+    what = "sharded count k=41 on 8 shards"
+    launches[what] = _read_launches(what, (
+        "sort_words", "merge_runs_words", "merge_sorted_words",
+        "reduce_by_key_words"))
+    _check_shards(sc, one41, what)
+    n41 = len(wb) * workloads.MAIN_ROWS * (workloads.MAIN_LENGTH - 40)
+    print(f"{what}: {n41} windows in {dt:.4f} s = {n41 / dt:.1f} k-mers/s, "
+          f"{dt_one / dt:.4f} x the one-device rate ({dt_one:.4f} s); "
+          f"launches {launches[what]}; each shard and finish() equal the "
+          f"one-device table ({smi})")
+    return launches
+
+
+def sharded_sect(dev, smi: str, genome) -> dict:
+    """`sect --shards 8` of the main genome as one 8,389,632-base contig
+    (three Ns in it) against 100,000 reads of 150 bases from it, through
+    cli.main: the contig takes the halo path (routed lookups), its
+    artifacts must equal the one-device sect's byte for byte.  Returns the
+    sharded run's launches."""
+    import contextlib
+    import io
+
+    from kat_tpu_torch import cli
+    from kat_tpu_torch.parallel import longseq
+
+    rng = np.random.default_rng(SEED + 7)
+    letters = np.frombuffer(b"ACGT", np.uint8)[genome.cpu().numpy()]
+    contig = letters.copy()
+    contig[rng.integers(0, contig.size, 3)] = ord("N")
+    n_reads, read_len = 100_000, 150
+    off = rng.integers(0, letters.size - read_len, n_reads)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fq = os.path.join(tmp, "genome.fa"), os.path.join(tmp, "r.fq")
+        with open(fa, "wb") as f:
+            f.write(b">genome\n")
+            for o in range(0, contig.size, 80):
+                f.write(contig[o:o + 80].tobytes() + b"\n")
+        with open(fq, "wb") as f:
+            qual = b"I" * read_len
+            for i, o in enumerate(off):
+                f.write(b"@r%d\n%s\n+\n%s\n" % (
+                    i, letters[o:o + read_len].tobytes(), qual))
+        halo = []
+        real = longseq.sharded_window_profile_routed
+        longseq.sharded_window_profile_routed = \
+            lambda *a: halo.append(1) or real(*a)
+        times = {}
+        try:
+            for shards in (["--shards", "8"], []):
+                _zero_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli.main([*shards, "sect", "-o",
+                                   os.path.join(tmp, f"s{len(shards)}"), fa,
+                                   fq])
+                times[len(shards)] = time.perf_counter() - t0
+                if rc != 0:
+                    raise AssertionError(f"sect {shards} returned {rc}")
+                if shards:
+                    launches = _read_launches("sect --shards 8", (
+                        "sort_keys", "merge_runs", "merge_sorted",
+                        "reduce_by_key"))
+        finally:
+            longseq.sharded_window_profile_routed = real
+        if halo != [1]:
+            raise AssertionError(f"the halo path ran {len(halo)} times")
+        for suffix in ("-counts.cvg", "-stats.tsv", "-contamination.mx"):
+            with open(os.path.join(tmp, f"s2{suffix}"), "rb") as a, \
+                    open(os.path.join(tmp, f"s0{suffix}"), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"sect --shards 8 {suffix} differs "
+                                         "from the one-device sect's")
+    print(f"sharded sect: one {contig.size}-base contig on the halo path "
+          f"(8 spans, routed lookups) against {n_reads} reads in "
+          f"{times[2]:.4f} s, one device {times[0]:.4f} s (counting and "
+          f"writing included); artifacts byte-identical; launches "
+          f"{launches} ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2845,6 +3244,7 @@ def main() -> int:
     binned, binned_counted = check_binned_kernels(dev, gen)
     dual, dual_counted = check_dual_probe_kernels(dev, gen)
     wjoin, wjoin_counted = check_wide_join_kernels(dev, gen)
+    k6w = check_merge_runs_words(dev, gen)
     count_inside(counted + wide_counted + binned_counted + dual_counted
                  + wjoin_counted)
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
@@ -2864,6 +3264,11 @@ def main() -> int:
     for entry, n in zip(kernels, launches, strict=True):
         entry["launches"] = n
     lap("the main, lookup, gcp and comp paths")
+    sharded = sharded_path(dev, smi, table, genome)
+    sharded["sect --shards 8"] = sharded_sect(dev, smi, genome)
+    k6w["launches"] = sharded["sharded count k=41 on 8 shards"][
+        "merge_runs_words"]
+    lap("the sharded paths")
     with tempfile.TemporaryDirectory() as tmp:
         fa = os.path.join(tmp, "asm.fa")
         asm = write_cold_contigs(fa, genome)
@@ -2936,7 +3341,13 @@ def main() -> int:
     # K3, K2 with payload planes and K1 with a value also carry this path
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
-    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual, *wjoin]
+    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual, *wjoin,
+                k6w]
+    for entry in kernels:  # the sharded paths' launches, by run
+        fn = SHARDED_WRAPPER.get(entry["name"].split("[")[0])
+        runs = {run: n[fn] for run, n in sharded.items() if n.get(fn)}
+        if runs:
+            entry["launches_sharded"] = runs
     lap("K5, K6 and K7")
     route_sweep(dev, smi)
     big_flush_path(dev, smi)

@@ -1,6 +1,6 @@
 """Where the device time of the counting path goes on the card.
 
-    python -m kat_tpu_torch.benchmarks.profile_main [--k K]
+    python -m kat_tpu_torch.benchmarks.profile_main [--k K] [--shards N]
 
 Counts chip_smoke.py's main-path workload (benchmarks/workloads.py: k=27
 canonical, 48 batches of 4096 reads x 1024 bases from a 2^23-base random
@@ -11,6 +11,9 @@ kernel (the histogram's binned sums among them; a memset of a kernel's scratch c
 just after it: K1's histogram, K3's tile pass), and the 15 costliest
 kernels.  With --k above 31 the same reads go through the wide counter
 (k = 41: 193,462,272 windows, W = 2 words a key) and its W-word kernels.
+With --shards N they are counted on a mesh of N shards, all on the card
+(workloads.sharded_counter: parallel/sharded.py), whose flush adds K6's
+arrival merge and the exchange's copies.
 Needs an NVIDIA card; the first line names it with its power limit.
 """
 
@@ -22,11 +25,18 @@ import time
 
 import torch
 
-# how the kernels of csrc/ begin in the profiler's names (after "void ")
+# how the kernels of csrc/ begin in the profiler's names (after "void "),
+# in the order they are matched: an event joins the first group it fits
 KERNEL_GROUPS = (("K1 sort", "(anonymous namespace)::radix_"),
+                 ("K6 run merge", "(anonymous namespace)::merge_runs"),
                  ("K2 merge", "(anonymous namespace)::merge_"),
                  ("K3 reduce", "(anonymous namespace)::reduce_"),
                  ("binned sums", "(anonymous namespace)::binned_"))
+
+
+def _group(name: str) -> str | None:
+    return next((g for g, prefix in KERNEL_GROUPS
+                 if name.startswith(prefix)), None)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -37,7 +47,9 @@ def main(argv: list[str] | None = None) -> int:
 
     parser = argparse.ArgumentParser(prog="profile_main")
     parser.add_argument("--k", type=int, default=workloads.MAIN_K)
-    k = parser.parse_args(argv).k
+    parser.add_argument("--shards", type=int, default=None)
+    args = parser.parse_args(argv)
+    k = args.k
 
     if not torch.cuda.is_available():
         print("profile_main: no CUDA device", file=sys.stderr)
@@ -52,12 +64,21 @@ def main(argv: list[str] | None = None) -> int:
 
     def run():
         nonlocal table
-        sc = (workloads.wide_counter(k, dev) if k > 31
-              else workloads.main_path_counter(dev))
-        for b in batches:
-            sc.add_codes(b)
-        table = sc.finish()
-        stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
+        if args.shards:
+            from ..parallel import sharded
+
+            sc = workloads.sharded_counter(k, sharded.make_mesh(args.shards))
+            for b in batches:
+                sc.add_codes(b)
+            sc.histogram(1, 10001, 1, 10001)  # checks, then bins per shard
+            table = sc
+        else:
+            sc = (workloads.wide_counter(k, dev) if k > 31
+                  else workloads.main_path_counter(dev))
+            for b in batches:
+                sc.add_codes(b)
+            table = sc.finish()
+            stats.hist_from_counts(table.counts, 1, 10001, 1, 10001)
         torch.cuda.synchronize()
 
     run()
@@ -68,16 +89,18 @@ def main(argv: list[str] | None = None) -> int:
     device_us = sum(us for _name, us in events)
     n_windows = (workloads.MAIN_BATCHES * workloads.MAIN_ROWS
                  * (workloads.MAIN_LENGTH - k + 1))
-    print(f"main path k={k}, warm: {n_windows} windows, {table.n_unique} "
-          "distinct, "
+    n_unique = int(table.n_unique.sum()) if args.shards else table.n_unique
+    print(f"main path k={k}"
+          + (f" on {args.shards} shards" if args.shards else "")
+          + f", warm: {n_windows} windows, {n_unique} distinct, "
           f"wall {wall * 1e3:.1f} ms unprofiled, device {device_us / 1e3:.1f} "
           "ms")
     names = [name.removeprefix("void ") for name, _us in events]
-    for group, prefix in KERNEL_GROUPS:
-        mine = [i for i, name in enumerate(names)
-                if name.startswith(prefix)
-                or (name.startswith("Memset") and i + 1 < len(names)
-                    and names[i + 1].startswith(prefix))]
+    groups = [_group(name) if not name.startswith("Memset") else
+              (_group(names[i + 1]) if i + 1 < len(names) else None)
+              for i, name in enumerate(names)]
+    for group, _prefix in KERNEL_GROUPS:
+        mine = [i for i, g in enumerate(groups) if g == group]
         us = sum(events[i][1] for i in mine)
         print(f"{group}: {us / 1e3:.3f} ms = {100 * us / device_us:.1f}% of "
               f"the device time, in {len(mine)} launches")

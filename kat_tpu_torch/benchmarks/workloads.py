@@ -393,3 +393,73 @@ def wide_flush_shapes(k: int, dev, gen):
     fresh = sort_kernel.sort_words_plain(fresh)
     mk, mw = merge_kernel.merge_sorted_words_plain(t_keys, t_counts, fresh)
     return t_keys, t_counts, fresh, mk, mw
+
+
+# K6 over W words: the sharded flush's arrival merge (parallel/sharded.py)
+RUNS_WORDS_STRAIN = ("random", "top_equal", "all_equal", "all_sentinel",
+                     "one_run", "unequal_runs")
+SHARDED_RUNS, SHARDED_ROUTE_CAP = 8, 1 << 22
+# real keys a source sends each destination in the main path's k = 41
+# flush on 8 shards: 8,060,928 windows a source over 8 owners
+SHARDED_RUN_REAL = 8_060_928 // 8
+
+
+def sorted_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """[W, n] keys with each run of run_len (the last may be short) sorted
+    by the plain W-word sort, in place; returns keys."""
+    from ..ops import sort_kernel
+
+    for lo in range(0, keys.shape[1], run_len):
+        keys[:, lo:lo + run_len] = sort_kernel.sort_words_plain(
+            keys[:, lo:lo + run_len])
+    return keys
+
+
+def runs_words_strain(name: str, k: int, dev, gen, n_runs: int = 8,
+                      run_len: int = 3000):
+    """(keys [W, n], run_len): K6 W-word's input where it can go wrong, in
+    n_runs ascending runs of run_len, the last 1000 keys short: random
+    (10% SENTINEL), equal top words, every key equal (ties across every
+    run and tile), all SENTINEL, one run (run_len = n), and runs of
+    unequal real length, each with a SENTINEL tail of its own length (the
+    sharded flush's buckets)."""
+    n = n_runs * run_len - 1000
+    if name == "all_equal":
+        keys = wide_keys(k, 1, dev, gen, sent=0.0).expand(-1, n).contiguous()
+        return keys, run_len
+    if name == "one_run":
+        return sorted_runs(wide_keys(k, n, dev, gen), n), n
+    keys = wide_strain({"unequal_runs": "random"}.get(name, name), k, n, dev,
+                       gen)
+    if name == "unequal_runs":
+        for r, lo in enumerate(range(0, n, run_len)):
+            keys[:, lo + r * run_len // n_runs:lo + run_len] = SENTINEL
+    return sorted_runs(keys, run_len), run_len
+
+
+def sharded_runs_words(k: int, dev, gen):
+    """The arrival buffer of one shard in the main path's k = 41 flush on 8
+    shards: SHARDED_RUNS runs of SHARDED_ROUTE_CAP slots, each
+    SHARDED_RUN_REAL sorted real keys then a SENTINEL tail ([W, 2^25],
+    W = 2 at k = 41)."""
+    runs = []
+    for _ in range(SHARDED_RUNS):
+        run = torch.full((kmers.words_for_k(k), SHARDED_ROUTE_CAP), SENTINEL,
+                         dtype=torch.int64, device=dev)
+        run[:, :SHARDED_RUN_REAL] = sorted_runs(
+            wide_keys(k, SHARDED_RUN_REAL, dev, gen, sent=0.0),
+            SHARDED_RUN_REAL)
+        runs.append(run)
+    return torch.cat(runs, dim=1)
+
+
+def sharded_counter(k: int, mesh):
+    """The sharded counter the main path's batches go to on a mesh: the
+    one-device counters' starting capacity (2^20 slots) split over the
+    shards, growing in place; kat_tpu's flush of 16 batches and the route
+    slack of tools/common.Input (4.0)."""
+    from ..parallel import sharded
+
+    return sharded.ShardedCounter(mesh, k, canonical=True,
+                                  shard_capacity=max(1, (1 << 20) // mesh.n),
+                                  route_slack=4.0, flush_batches=16)

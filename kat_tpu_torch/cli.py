@@ -2,10 +2,11 @@
 
 Port of kat_tpu/cli.py with the `hist`, `gcp`, `comp`, `sect`, `cold` and
 `filter {kmer,seq}` modes, same flags and defaults, plus a top-level `--device` (the card unless the
-CPU is asked for) and `--flush` (the classic counting flush unless the
-minimizer-bucketed one is asked for: the counterpart of kat_tpu's
-KAT_TPU_MINIMIZER switch).
-Usage: python -m kat_tpu_torch [--device {cuda,cpu}]
+CPU is asked for), `--shards N` (count on a mesh of N shards: the
+counterpart of kat_tpu's KAT_TPU_SHARD=1 on an N-device mesh) and
+`--flush` (the classic counting flush unless the minimizer-bucketed one is
+asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
+Usage: python -m kat_tpu_torch [--device {cuda,cpu}] [--shards N]
        [--flush {classic,bucketed}] <mode> [options] ...
 """
 
@@ -82,6 +83,7 @@ def _run_hist(args) -> int:
         h.output_prefix = args.output_prefix
         h.input.device = _device(args)
         h.input.flush = args.flush
+        h.input.n_shards = args.shards
         h.input.trim5 = parse_trim_list(args.trim5)
         h.input.canonical = not args.non_canonical
         h.input.mer_len = args.mer_len
@@ -129,6 +131,7 @@ def _run_gcp(args) -> int:
         g.output_prefix = args.output_prefix
         g.input.device = _device(args)
         g.input.flush = args.flush
+        g.input.n_shards = args.shards
         g.cvg_scale = args.cvg_scale
         g.cvg_bins = args.cvg_bins
         g.input.trim5 = parse_trim_list(args.trim5)
@@ -191,6 +194,7 @@ def _run_comp(args) -> int:
         for inp in c.inputs:
             inp.device = device
             inp.flush = args.flush
+            inp.n_shards = args.shards
         c.output_prefix = args.output_prefix
         c.d1_scale = args.d1_scale
         c.d2_scale = args.d2_scale
@@ -260,6 +264,7 @@ def _run_sect(args) -> int:
         s.output_prefix = args.output_prefix
         s.input.device = _device(args)
         s.input.flush = args.flush
+        s.input.n_shards = args.shards
         s.gc_bins = args.gc_bins
         s.cvg_bins = args.cvg_bins
         s.cvg_logscale = args.cvg_logscale
@@ -316,6 +321,7 @@ def _run_cold(args) -> int:
         for inp in (c.reads, c.assembly):
             inp.device = device
             inp.flush = args.flush
+            inp.n_shards = args.shards
             inp.disable_grow = args.disable_hash_grow
             inp.mer_len = args.mer_len
         c.gc_bins = args.gc_bins
@@ -383,6 +389,7 @@ def _run_filter_kmer(args) -> int:
         f.output_prefix = args.output_prefix
         f.input.device = _device(args)
         f.input.flush = args.flush
+        f.input.n_shards = args.shards
         f.low_count = args.low_count
         f.high_count = args.high_count
         f.low_gc = args.low_gc
@@ -408,6 +415,7 @@ def _run_filter_seq(args) -> int:
         f.output_prefix = args.output_prefix
         f.input.device = _device(args)
         f.input.flush = args.flush
+        f.input.n_shards = args.shards
         f.threshold = args.threshold
         f.frequency = args.frequency
         f.invert = args.invert
@@ -441,6 +449,13 @@ def main(argv: list[str] | None = None) -> int:
                         help="Where tables live and kernels run: the first "
                              "NVIDIA card (default; an error without one) "
                              "or the CPU.")
+    parser.add_argument("--shards", type=int, default=None, metavar="N",
+                        help="Count on a mesh of N shards, the tables "
+                             "staying on their shards for the analysis "
+                             "(round-robin over the visible cards; all on "
+                             "the CPU with --device cpu).  Default: a mesh "
+                             "over every card when more than one is "
+                             "visible, else one device.")
     parser.add_argument("--flush", choices=("classic", "bucketed"),
                         default="classic",
                         help="How sequence files are counted: sort, merge "

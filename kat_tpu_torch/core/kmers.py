@@ -253,6 +253,37 @@ def gc_count_words(words: torch.Tensor) -> torch.Tensor:
     return sum(gc_count(w) for w in words)
 
 
+
+def ref_words(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """kat_tpu's big-first uint32 word layout of keys on their device,
+    each word carried in int64 (< 2^32): [2, ...] (hi, lo) for narrow int64
+    keys (k <= 31), [ref_words_for_k(k), ...] for [W, ...] wide words.
+    SENTINEL becomes all ones in every word, as kat_tpu's sentinel.
+
+    uint32 word j from the bottom holds bits [32 j, 32 j + 32) of the key's
+    integer value; it is cut from the one or two int64 words that hold
+    those bits.  Every operand of a shift is non-negative and masked first,
+    so nothing passes 2^63."""
+    if k <= MAX_K:
+        spec_valid(k)
+        out = torch.stack([keys >> 32, keys & 0xFFFFFFFF])
+        return torch.where(keys == SENTINEL, 0xFFFFFFFF, out)
+    W = words_for_k(k)
+    nw = ref_words_for_k(k)
+    out = []
+    for j in range(nw):
+        b, off = divmod(32 * j, 62)
+        if b >= W:
+            out.append(torch.zeros_like(keys[0]))
+            continue
+        v = keys[W - 1 - b] >> off
+        if off > 30 and b + 1 < W:  # the word's high bits lie in the next
+            nxt = keys[W - 2 - b] & ((1 << (off - 30)) - 1)
+            v = v | (nxt << (62 - off))
+        out.append(v & 0xFFFFFFFF)
+    out = torch.stack(out[::-1])
+    return torch.where(keys[0] == SENTINEL, 0xFFFFFFFF, out)
+
 # ---------------------------------------------------------------------------
 # Host-side helpers (numpy; small data, used by tests/tools)
 # ---------------------------------------------------------------------------

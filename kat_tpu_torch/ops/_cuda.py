@@ -69,6 +69,7 @@ _SIGNATURES = {
     "kat_binned_sums_window": [],
     "kat_sort_chunks": [_P, _P, _I64, _INT, _P],
     "kat_merge_runs": [_P, _P, _P, _I64, _I64, _P],
+    "kat_merge_runs_words": [_P, _I64, _P, _P, _I64, _I64, _INT, _P],
     "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],
 }
 

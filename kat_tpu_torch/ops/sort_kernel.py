@@ -4,7 +4,9 @@ and of wide keys of W int64 words, alone (`sort_words`, the fresh windows of
 the wide counting flush, core/wide.py) or carrying one int32 value each
 (`sort_words_pairs`, the queries of the wide join).
 K5: independent sort of every aligned chunk, and K6: merge of sorted runs
-(both of the minimizer-bucketed flush, core/bucketed.py).
+(both of the minimizer-bucketed flush, core/bucketed.py; K6 also merges the
+runs that arrive at a shard in the sharded flush, narrow and over W
+words).
 
 Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
 mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
@@ -13,7 +15,9 @@ mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
 radix sort of
 csrc/sort.cu,
 `sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
-`merge_runs` the merge-path tree of csrc/merge_runs.cu; on a CPU tensor they
+`merge_runs` / `merge_runs_words` (K6 over W words, the arrival merge of
+the sharded flush, parallel/sharded.py) the merge-path tree of
+csrc/merge_runs.cu; on a CPU tensor they
 take the plain versions (`*_plain`).  No padding to a power of two: the radix sort and the
 run merge take any length.
 """
@@ -191,6 +195,43 @@ def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
 
 
 merge_runs.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def merge_runs_words_plain(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """Plain PyTorch version of `merge_runs_words`: the plain W-word sort
+    (the runs' order is no help to it)."""
+    return sort_words_plain(keys)
+
+
+def merge_runs_words(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """Merge the ascending runs keys[:, r*run_len : (r+1)*run_len] of
+    [W, n] int64 wide keys (word 0 most significant, 2 <= W <= 9) into one
+    ascending lexicographic stream, returned as a new contiguous [W, n]
+    tensor; each word's plane must be contiguous (planes may lie apart).
+    Any length and any run_len >= 1: the last run may be short.  Keys
+    compare as signed int64 words, so SENTINEL tails merge last."""
+    _cuda.require_words(keys, "keys")
+    if run_len < 1:
+        raise ValueError(f"run_len={run_len} < 1")
+    W, n = keys.shape
+    if n >= 1 << 40:
+        raise ValueError(f"merge_runs_words: n={n} must be < 2^40")
+    if not _cuda.on_cuda(keys, "merge_runs_words"):
+        return merge_runs_words_plain(keys, run_len)
+    out = torch.empty((W, n), dtype=torch.int64, device=keys.device)
+    if n == 0:
+        return out
+    if keys.stride(0) < n:  # planes overlap (a broadcast view)
+        keys = keys.contiguous()
+    tmp = torch.empty_like(out) if n > 2 * run_len else None
+    _cuda.launch("kat_merge_runs_words", keys.device, keys.data_ptr(),
+                 keys.stride(0), out.data_ptr(),
+                 tmp.data_ptr() if tmp is not None else None, n, run_len, W)
+    merge_runs_words.launches += 1
+    return out
+
+
+merge_runs_words.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 def words_order_plain(keys: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """`kat cold` — per-assembly-sequence read coverage and assembly copy
-number (port of kat_tpu/tools/cold.py, one device).
+number (port of kat_tpu/tools/cold.py; on a mesh, the lookups are routed to
+the shards through Input.window_counts).
 
 Output-parity re-implementation of reference src/cold.cc: counts (or loads)
 a reads hash and an assembly hash, then for every assembly sequence computes

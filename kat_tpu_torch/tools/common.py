@@ -3,13 +3,16 @@
 COUNT-vs-LOAD dispatch, 5' trim lists, hash dumping, and the window
 lookups of the sequence tools.
 
-Port of kat_tpu/tools/common.py on one device: COUNT through
-CodeStreamingCounter (`flush="classic"`, the default; for 31 < k <= 255
-core/wide.WideCodeStreamingCounter) or through the minimizer-bucketed flush
+Port of kat_tpu/tools/common.py: COUNT through CodeStreamingCounter
+(`flush="classic"`, the default; for 31 < k <= 255
+core/wide.WideCodeStreamingCounter), through the minimizer-bucketed flush
 of core/bucketed.py (`flush="bucketed"`, the counterpart of kat_tpu's
 KAT_TPU_MINIMIZER switch; it raises where its conditions fail and never
-turns into the classic flush by itself), LOAD from a .jf (narrow or wide
-keys).  kat_tpu's mesh branches are not ported.
+turns into the classic flush by itself), or on a mesh of shards
+(parallel/sharded.ShardedCounter, `n_shards`: the counterpart of kat_tpu's
+mesh branch, in one process), LOAD from a .jf (narrow or wide keys).  A
+sharded input keeps its tables on their shards: lookups are routed there
+(parallel/analysis.py) and `host_table()` merges them on demand.
 """
 
 from __future__ import annotations
@@ -118,7 +121,10 @@ class Input:
     device: where the table lives and the kernels run; None means the
     card (`default_device()`, which raises when there is none).
     flush: "classic" (sort, merge and reduce of extracted windows) or
-    "bucketed" (the minimizer-bucketed chunk flush)."""
+    "bucketed" (the minimizer-bucketed chunk flush).
+    n_shards: count on a mesh of this many shards (`mesh()`); None shards
+    where kat_tpu does, over every card when more than one is visible and
+    the device is a card."""
     paths: list[str]
     index: int = 1
     canonical: bool = True
@@ -135,6 +141,10 @@ class Input:
     # what the bucketed flush tallied (flushes, chunks, windows, record
     # slots, hot groups); empty after a classic count
     flush_stats: dict = field(default_factory=dict)
+    n_shards: int | None = None
+    # the live mesh-sharded counter of a sharded COUNT: its tables stay on
+    # their shards, `table` is filled only by host_table()
+    shards: object | None = None
 
     def _device(self) -> torch.device:
         if self.device is None:
@@ -184,7 +194,13 @@ class Input:
                 initial_capacity=min(cap0, _next_pow2(self.hash_size)),
                 max_capacity=max(_next_pow2(self.hash_size), cap0),
                 disable_grow=self.disable_grow, device=self._device())
-            if self.flush == "bucketed":
+            mesh = self.mesh()
+            if mesh is not None:
+                if self.flush == "bucketed":
+                    raise ValueError("flush='bucketed' does not run on a "
+                                     "mesh: drop --shards or --flush")
+                self.shards = self._count_sharded(mesh)
+            elif self.flush == "bucketed":
                 from ..core import bucketed
 
                 self._require_bucketed()
@@ -202,10 +218,60 @@ class Input:
                 for batch in self._code_batches():
                     sc.add_codes(batch)
                 self.table = sc.finish()
+        n_uniq = (int(self.shards.n_unique.sum()) if self.shards is not None
+                  else self.table.n_unique)
         self.header = jellyfish.JfHeader(
             key_len=2 * self.mer_len, counter_len=4,
-            canonical=self.canonical,
-            size=_next_pow2(2 * self.table.n_unique))
+            canonical=self.canonical, size=_next_pow2(2 * n_uniq))
+
+    def mesh(self):
+        """The mesh this input counts on, or None for one device: n_shards
+        shards when it is set (`--shards N`; on the CPU when the device is
+        the CPU, else round-robin over the visible cards), else every card
+        when more than one is visible, the device is a card and the flush
+        is the classic one (kat_tpu's rule, kat_tpu/tools/common.py:157-189;
+        the bucketed flush runs on one device)."""
+        from ..parallel.sharded import make_mesh
+
+        dev = self._device()
+        if self.n_shards is None:
+            if (dev.type == "cuda" and torch.cuda.device_count() > 1
+                    and self.flush == "classic"):
+                return make_mesh()
+            return None
+        return make_mesh(self.n_shards,
+                         devices=[dev] if dev.type == "cpu" else None)
+
+    def _count_sharded(self, mesh):
+        """Count on the mesh: k-mers routed to their owner shards
+        (parallel/sharded.py).  Growth happens in place inside the counter
+        (a flush that overflows or drops replays at doubled capacity or
+        slack); this outer restart loop is kat_tpu's fallback, and the
+        raise path when growth is disabled or capped.  Returns the live
+        ShardedCounter."""
+        from ..parallel.sharded import ShardedCounter
+
+        shard_cap = _next_pow2(max(self.hash_size // mesh.n, 1 << 16))
+        slack = 4.0
+        while True:
+            sc = ShardedCounter(mesh, self.mer_len, canonical=self.canonical,
+                                shard_capacity=shard_cap, route_slack=slack,
+                                disable_grow=self.disable_grow)
+            try:
+                for batch in self._code_batches():
+                    sc.add_codes(batch)
+                sc.check()
+                return sc
+            except RuntimeError as e:
+                msg = str(e)
+                if "dropped in routing" in msg and "maximum" not in msg:
+                    slack *= 2
+                elif "shard table overflow" not in msg:
+                    raise
+                elif self.disable_grow or shard_cap * 2 > sc.max_capacity:
+                    raise counting.TableFullError(msg) from e
+                else:
+                    shard_cap *= 2
 
     def _require_bucketed(self) -> None:
         """kat_tpu's conditions for the bucketed flush
@@ -230,12 +296,16 @@ class Input:
     def window_counts(self, codes):
         """(counts u32, gc i32, valid bool) per window of a [rows, L] code
         batch, as host arrays: each plane crosses to the host once per
-        batch, so callers slice rows without touching the device."""
+        batch, so callers slice rows without touching the device.  A
+        sharded input answers by routed lookups into its shards."""
         from ..core import coverage
 
-        c, g, v = coverage.window_counts(
-            self._compacted_table(), self._codes(codes), self.mer_len,
-            self.canonical)
+        if self.shards is not None:
+            c, g, v = self._routed_window_counts(codes)
+        else:
+            c, g, v = coverage.window_counts(
+                self._compacted_table(), self._codes(codes), self.mer_len,
+                self.canonical)
         return (c.cpu().numpy().astype(np.uint32), g.cpu().numpy(),
                 v.cpu().numpy())
 
@@ -245,6 +315,10 @@ class Input:
         (the profile loop of filter seq only needs ratios)."""
         from ..core import coverage
 
+        if self.shards is not None:
+            c, _g, v = self._routed_window_counts(codes)
+            return (((c > 0) & v).sum(-1).cpu().numpy().astype(np.int64),
+                    v.sum(-1).cpu().numpy().astype(np.int64))
         hits, nwin = coverage.window_hit_counts(
             self._compacted_table(), self._codes(codes), self.mer_len,
             self.canonical)
@@ -252,6 +326,19 @@ class Input:
 
     def _codes(self, codes) -> torch.Tensor:
         return torch.as_tensor(codes, dtype=torch.uint8).to(self._device())
+
+    def _routed_window_counts(self, codes):
+        """window_counts of a sharded input: parallel/analysis.py's routed
+        lookups, the service kept per counter."""
+        from ..parallel.analysis import ShardedLookup, window_counts_routed
+
+        if getattr(self, "_lookup_src", None) is not self.shards:
+            self._lookup_svc = ShardedLookup(self.shards)
+            self._lookup_src = self.shards
+        return window_counts_routed(
+            self._lookup_svc,
+            torch.as_tensor(codes, dtype=torch.uint8).to(
+                self.shards.mesh.devices[0]), self.mer_len, self.canonical)
 
     def _compacted_table(self):
         """The finished table compacted for the lookup phase (cached per
@@ -266,8 +353,13 @@ class Input:
         return self._lookup_table
 
     def host_table(self):
-        """The finished table (the hook where kat_tpu gathers its mesh
-        shards; one device here)."""
+        """The finished table, merged from the mesh's shards on first demand
+        (ShardedCounter.finish) for a sharded input.  The sharded tools
+        (hist, gcp, comp, sect, cold, filter seq) never call it for one; it
+        backs .jf dumps, the filter kmer export and comp of mixed LOAD and
+        COUNT inputs."""
+        if self.table is None and self.shards is not None:
+            self.table = self.shards.finish()
         return self.table
 
     def _code_batches(self):

@@ -1,12 +1,14 @@
 """`kat comp` — k-mer comparison between two (or three) inputs (port of
-kat_tpu/tools/comp.py, one device).
+kat_tpu/tools/comp.py).
 
 Output-parity re-implementation of reference src/comp.cc.  The slice-parallel
 compare with random hash probes (comp.cc:366-484) becomes three passes over
 sorted tables (core/comp_engine.py); counters, spectra and the 1001x1001
 matrices are sums and binned sums on the device, so the mutex+merge
 machinery of ThreadedCompCounters (lib/src/comp_counters.cc:230-254)
-disappears.  kat_tpu's mesh branch (`comp_sharded`) is not ported.
+disappears.  When every input was counted on one mesh, the passes run per
+shard on the co-partitioned shard tables and their results are summed
+(parallel/analysis.comp_sharded); the tables never leave their shards.
 """
 
 from __future__ import annotations
@@ -93,8 +95,11 @@ class Comp:
             inp.validate_mer_len(self.mer_len)
 
         with stage("Comparing hashes", quiet=self.quiet):
-            self.compare_tables(*[inp.host_table()
-                                  for inp in self._active_inputs()])
+            active = self._active_inputs()
+            if all(inp.shards is not None for inp in active):
+                self._compare_sharded()
+            else:
+                self.compare_tables(*[inp.host_table() for inp in active])
 
         if self.dump_hashes:
             for inp in self._active_inputs():
@@ -105,6 +110,32 @@ class Comp:
         with stage("Merging results", quiet=self.quiet):
             pass  # device reductions are already global
 
+    def _probe_flags(self) -> dict:
+        """The passes' canonicalization and sorted-probe flags.  Probe
+        streams in pass1/2 are a sorted table's own keys; they stay sorted
+        whenever the applied canonicalization is an identity (none
+        requested, or the probing table already stores canonical keys) —
+        the join lookups then skip sort/un-permute."""
+        canon1 = self.inputs[0].canonical
+        canon2 = self.inputs[1].canonical
+        canon3 = (self.inputs[2].canonical if self.three_inputs else True)
+        return dict(canon2=canon2, canon3=canon3,
+                    sorted2=(not canon2) or canon1,
+                    sorted3=(not canon3) or canon1,
+                    sorted1=canon2)  # pass2 always canonicalizes (§5.1.2)
+
+    def _compare_sharded(self) -> None:
+        """The three passes per shard of the inputs' mesh, summed."""
+        from ..parallel.analysis import comp_sharded
+
+        outs1, outs2, c3 = comp_sharded(
+            self.inputs[0].shards, self.inputs[1].shards,
+            self.inputs[2].shards if self.three_inputs else None,
+            k=self.mer_len, d1_bins=self.d1_bins, d2_bins=self.d2_bins,
+            dm_size=min(self.d1_bins, self.d2_bins), d1_scale=self.d1_scale,
+            d2_scale=self.d2_scale, **self._probe_flags())
+        self._store(outs1, outs2, c3)
+
     def compare_tables(self, t1, t2, t3=None) -> None:
         """The three passes over finished tables of the active inputs
         (counted or loaded, on one device): counters, spectra and matrices
@@ -112,16 +143,8 @@ class Comp:
         input's table when there is one."""
         k = self.mer_len
         dm_size = min(self.d1_bins, self.d2_bins)
-        # Probe streams in pass1/2 are a sorted table's own keys; they
-        # stay sorted whenever the applied canonicalization is an
-        # identity (none requested, or the probing table already stores
-        # canonical keys) — the join lookups then skip sort/un-permute.
-        canon1 = self.inputs[0].canonical
-        canon2 = self.inputs[1].canonical
-        canon3 = (self.inputs[2].canonical if self.three_inputs else True)
-        sorted2 = (not canon2) or canon1
-        sorted3 = (not canon3) or canon1
-        sorted1 = canon2  # pass2 always canonicalizes (§5.1.2)
+        flags = self._probe_flags()
+        sorted1, sorted2 = flags["sorted1"], flags["sorted2"]
 
         # Compact to final fill: the passes stream over every table's
         # capacity (iteration AND sort-merge-join probes), so padding left
@@ -134,18 +157,23 @@ class Comp:
         # the binary search
         pre = tables.lookup_dual(t1, t2) if (sorted2 and sorted1) else None
         h2_pre, h1_pre = pre if pre is not None else (None, None)
-        c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = \
-            comp_engine.pass1(
-                t1, t2, t3, k=k, d1_bins=self.d1_bins, d2_bins=self.d2_bins,
-                dm_size=dm_size, d1_scale=self.d1_scale,
-                d2_scale=self.d2_scale, canon2=canon2, canon3=canon3,
-                three=self.three_inputs, sorted2=sorted2, sorted3=sorted3,
-                h2_pre=h2_pre)
-        c2, sp2, row0, ssp2b = comp_engine.pass2(
+        outs1 = comp_engine.pass1(
+            t1, t2, t3, k=k, d1_bins=self.d1_bins, d2_bins=self.d2_bins,
+            dm_size=dm_size, d1_scale=self.d1_scale, d2_scale=self.d2_scale,
+            canon2=flags["canon2"], canon3=flags["canon3"],
+            three=self.three_inputs, sorted2=sorted2,
+            sorted3=flags["sorted3"], h2_pre=h2_pre)
+        outs2 = comp_engine.pass2(
             t2, t1, k=k, d2_bins=self.d2_bins, dm_size=dm_size,
             d2_scale=self.d2_scale, sorted1=sorted1, h1_pre=h1_pre)
-        c3 = comp_engine.pass3(t3) if self.three_inputs else {}
+        self._store(outs1, outs2,
+                    comp_engine.pass3(t3) if self.three_inputs else {})
 
+    def _store(self, outs1, outs2, c3) -> None:
+        """The passes' outputs (comp_engine.pass1/2/3's structures) as the
+        host counters, spectra and matrices of this object."""
+        c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = outs1
+        c2, sp2, row0, ssp2b = outs2
         sums = {**c1, **c2, **c3}
         counters = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
         if not self.three_inputs:

@@ -1,5 +1,6 @@
 """`kat filter kmer` — keep k-mers within count and GC bounds (port of
-kat_tpu/tools/filter_kmer.py, one device).
+kat_tpu/tools/filter_kmer.py; a sharded input is merged by
+Input.host_table()).
 
 Output-parity re-implementation of reference src/filter_kmer.cc: counts (or
 loads) a hash, partitions its k-mers by `inBounds` (low/high count x

@@ -1,5 +1,6 @@
 """`kat filter seq` — keep sequences whose k-mer hit ratio meets a
-threshold (port of kat_tpu/tools/filter_seq.py, one device).
+threshold (port of kat_tpu/tools/filter_seq.py; on a mesh, the lookups are
+routed to the shards through Input.window_hit_counts).
 
 Output-parity re-implementation of reference src/filter_sequence.cc: builds
 a presence profile per sequence (getProfile, :330-368: invalid windows

@@ -1,5 +1,6 @@
 """`kat gcp` — GC count x k-mer frequency matrix over distinct k-mers (port
-of kat_tpu/tools/gcp.py, one device).
+of kat_tpu/tools/gcp.py; a sharded input sums its shards' matrices,
+parallel/analysis.py).
 
 Output-parity re-implementation of reference src/gcp.cc.  The per-thread
 hash-slice scan (gcp.cc:179-197 `analyseSlice`) becomes one binned sum over
@@ -42,12 +43,18 @@ class Gcp:
 
         with stage("Analysing kmers in hash", quiet=self.quiet):
             mer_len = self.input.mer_len
-            grid = stats.gcp_matrix(self.input.table, mer_len,
-                                    self.cvg_bins, self.cvg_scale)
+            if self.input.shards is not None:
+                from ..parallel.analysis import gcp_sharded
+
+                grid = gcp_sharded(self.input.shards, mer_len,
+                                   self.cvg_bins, self.cvg_scale)
+            else:
+                grid = stats.gcp_matrix(self.input.table, mer_len,
+                                        self.cvg_bins, self.cvg_scale)
+                grid = grid.cpu().numpy().astype(np.uint64)
             # Logical height merLen: the GC == merLen row is accumulated but
             # never printed (reference quirk, see module docstring).
-            self.matrix = Matrix(grid.cpu().numpy().astype(np.uint64),
-                                 m=mer_len, n=self.cvg_bins + 1)
+            self.matrix = Matrix(grid, m=mer_len, n=self.cvg_bins + 1)
 
         if self.input.dump_hash:
             self.input.dump(

@@ -1,14 +1,16 @@
 """`kat sect` — SEquence Coverage estimator Tool (port of
-kat_tpu/tools/sect.py, one device).
+kat_tpu/tools/sect.py).
 
 Output-parity re-implementation of reference src/sect.cc: per-sequence,
 per-base k-mer coverage of a FASTA/Q target against a count hash, streamed
 in batches of 1024 records (sect.hpp:66 BATCH_SIZE) so memory stays bounded.
 The per-thread per-window hash probes (processSeq, sect.cc:490-602) become
 batched device lookups (core/coverage.py); long sequences are chunked with a
-(k-1)-base seam and stitched.  kat_tpu's halo-exchange path for contigs over
-1 Mbp on a device mesh waits for the multi-device port (ROADMAP.md §1 item
-14).
+(k-1)-base seam and stitched.  On a mesh of more than one shard, contigs of
+at least `halo_min` bases (1 Mbp) take the halo-exchange path instead
+(parallel/longseq.py: one span per shard and a (k-1)-base ring halo),
+answered by routed lookups into a sharded input's shards, or from a loaded
+table replicated per shard (k <= 31, as kat_tpu).
 
 Quirk parity (SURVEY §5.1.1/.7): `average_cvg` is never assigned in the
 reference, so every sequence lands in coverage-bin 0 of the contamination
@@ -24,12 +26,16 @@ import os
 
 import numpy as np
 
+from ..core.kmers import MAX_K, encode_ascii
 from ..core.matrix import Matrix
 from ..io import fastx, mme
 from ..utils.timer import stage
 from .common import Input, ensure_parent_dir
 
 BATCH_SIZE = 1024  # records per batch, reference src/sect.hpp:66
+# contigs this long or longer take the halo path on a mesh (kat_tpu's
+# KAT_TPU_HALO_MIN default)
+HALO_MIN = 1 << 20
 
 STATS_HEADER = ("seq_name\tmedian\tmean\tgc%\tseq_length\tkmers_in_seq\t"
                 "invalid_kmers\t%_invalid\tnon_zero_kmers\t%_non_zero\t"
@@ -50,6 +56,7 @@ class Sect:
         self.extract_r = False
         self.min_repeat = 2
         self.max_repeat = 0
+        self.halo_min = HALO_MIN
         self.verbose = False
         self.quiet = False
         self.contamination_mx: Matrix | None = None
@@ -120,16 +127,45 @@ class Sect:
                                 self.max_repeat)
         self._print_stat_table(stats_f, records, counts, gcs)
 
+    def _halo(self):
+        """The halo-path profile of one coded contig on this input's mesh,
+        or None when there is no mesh of more than one shard."""
+        from ..parallel import longseq
+
+        inp, k = self.input, self.input.mer_len
+        if inp.shards is not None:
+            if inp.shards.n < 2:
+                return None
+            return lambda codes: longseq.sharded_window_profile_routed(
+                inp.shards, codes, k, inp.canonical)
+        mesh = inp.mesh() if k <= MAX_K else None
+        if mesh is None or mesh.n < 2:
+            return None
+        return lambda codes: longseq.sharded_window_profile(
+            inp.table, codes, k, inp.canonical, mesh)
+
     def _analyse_batch(self, records):
         """Batched device lookups with seam-stitched long-sequence chunks.
         Each bucket's [rows, W] planes come to the host once
-        (Input.window_counts); the per-row slicing below is host work."""
+        (Input.window_counts); the per-row slicing below is host work.  On
+        a mesh, contigs of at least halo_min bases take the halo path."""
         k = self.input.mer_len
         counts: list[np.ndarray | None] = [None] * len(records)
         gcs: list[np.ndarray | None] = [None] * len(records)
-        for codes, meta in fastx.encode_batch_indexed(records, k):
+        halo = self._halo()
+        chunked = []
+        for ri, rec in enumerate(records):
+            if halo is not None and len(rec.seq) >= max(self.halo_min, k):
+                c, g = halo(encode_ascii(np.frombuffer(rec.seq, np.uint8)))
+                counts[ri] = c.astype(np.uint64)
+                gcs[ri] = g.astype(np.int16)
+            else:
+                chunked.append(ri)
+        for codes, meta in fastx.encode_batch_indexed(
+                [records[i] for i in chunked], k):
             c, g, _v = self.input.window_counts(codes)
-            for row, (ri, start, nw) in enumerate(meta):
+            for row, (ci, start, nw) in enumerate(meta):
+                ri = chunked[ci]
                 if counts[ri] is None:
                     w_total = len(records[ri].seq) - k + 1
                     counts[ri] = np.zeros(w_total, np.uint64)

@@ -1,10 +1,12 @@
 """The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
 payload forms of K1 and K2, the W-word forms of K1, K2 and K3, the W-word
 forms of K1 with a value and K2 with payload planes (the wide join), K5
-chunk sort, K6 run merge, K7's round classes and the binned sums) against
-their plain PyTorch versions on the card, exactly (integer keys and counts:
-tolerance 0); K3 in pieces (counting.reduce_stream) at a lowered piece
-length against one launch.
+chunk sort, K6 run merge, one-word and W-word, K7's round classes and the
+binned sums) against their plain PyTorch versions on the card, exactly
+(integer keys and counts: tolerance 0); K3 in pieces
+(counting.reduce_stream) at a lowered piece length against one launch;
+the mesh-sharded counter on a mesh of 8 shards on the card against the
+same mesh on the CPU.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -37,6 +39,8 @@ from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              reduce_by_key_words_plain)
 from kat_tpu_torch.ops.reduce_kernel import tile_len as reduce_tile_len
 from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
+                                           merge_runs_words,
+                                           merge_runs_words_plain,
                                            sort_chunks, sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
                                            sort_pairs, sort_pairs_plain,
@@ -1164,3 +1168,89 @@ def test_stats_and_tools_launch_the_binned_kernel(dev, tmp_path):
     for suffix in ("-main.mx", ".stats"):
         assert (tmp_path / f"card{suffix}").read_bytes() == \
             (tmp_path / f"cpu{suffix}").read_bytes()
+
+
+@pytest.mark.parametrize("name", workloads.RUNS_WORDS_STRAIN)
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_merge_runs_words_matches_plain(dev, name, k):
+    """K6 W-word at W = 2..9 on the inputs where it can go wrong: 8 runs
+    of 3000 keys (the last short), ties across runs, sentinel tails of
+    unequal length, one run."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k)
+    keys, run_len = workloads.runs_words_strain(name, k, dev, g)
+    before = merge_runs_words.launches
+    kept = keys.clone()
+    got = merge_runs_words(keys, run_len)
+    torch.cuda.synchronize()
+    assert merge_runs_words.launches == before + 1
+    assert torch.equal(got, merge_runs_words_plain(keys, run_len))
+    assert torch.equal(keys, kept)  # input untouched
+
+
+@pytest.mark.parametrize("n_words", [2, 9])
+@pytest.mark.parametrize("g_runs", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("run_len", [1, 1000, 4096])
+def test_merge_runs_words_run_counts(dev, n_words, g_runs, run_len):
+    """Any number of runs (odd counts leave a run without a neighbour at
+    some level) and any run length, the last run short."""
+    k = {2: 41, 9: 255}[n_words]
+    g = torch.Generator(device=dev)
+    g.manual_seed(g_runs * run_len)
+    n = max(g_runs * run_len - run_len // 3, 1)
+    keys = workloads.sorted_runs(workloads.wide_keys(k, n, dev, g), run_len)
+    got = merge_runs_words(keys, run_len)
+    assert torch.equal(got, merge_runs_words_plain(keys, run_len))
+
+
+def test_merge_runs_words_planes_apart(dev):
+    """The exchange's receive buffer hands K6 planes that lie apart."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    keys = workloads.sorted_runs(workloads.wide_keys(95, 8 * 2048, dev, g),
+                                 2048)
+    buf = torch.full((4, 3 * keys.shape[1]), SENTINEL, dtype=torch.int64,
+                     device=dev)
+    buf[:, 1000:1000 + keys.shape[1]] = keys
+    view = buf[:, 1000:1000 + keys.shape[1]]
+    assert view.stride(0) == 3 * keys.shape[1]
+    assert torch.equal(merge_runs_words(view, 2048),
+                       merge_runs_words_plain(keys, 2048))
+
+
+@pytest.mark.parametrize("k", [27, 31, 41, 95])
+def test_sharded_counter_on_the_card(dev, k):
+    """A mesh of 8 shards on the card counts what the same mesh on the CPU
+    counts, shard by shard, through K1, K6 (one-word or W-word), K2 and
+    K3."""
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 20_000, dtype=np.uint8)
+    batches = [np.stack([genome[o:o + 150] for o in
+                         rng.integers(0, 19_800, 512)]) for _ in range(5)]
+    wide = k > 31
+    fns = ((sort_kernel.sort_words,) if wide or k == 31 else
+           (sort_kernel.sort_keys,)) + (
+        (sort_kernel.merge_runs_words, merge_kernel.merge_sorted_words,
+         reduce_kernel.reduce_by_key_words) if wide else
+        (sort_kernel.merge_runs, merge_kernel.merge_sorted,
+         reduce_kernel.reduce_by_key))
+    before = [f.launches for f in fns]
+    counters = [sharded.ShardedCounter(sharded.make_mesh(8, devices=[d]), k,
+                                       shard_capacity=1 << 10,
+                                       flush_batches=2)
+                for d in (dev, torch.device("cpu"))]
+    for b in batches:
+        for c in counters:
+            c.add_codes(b)
+    for c in counters:
+        c.check()
+    card, cpu = counters
+    assert all(f.launches > b for f, b in zip(fns, before))
+    assert (card.n_unique == cpu.n_unique).all()
+    for tc, tp in zip(card.tables, cpu.tables):
+        assert torch.equal(tc.keys.cpu(), tp.keys)
+        assert torch.equal(tc.counts.cpu(), tp.counts)
+    assert card.shard_capacity == cpu.shard_capacity > 1 << 10

@@ -63,3 +63,11 @@ def test_the_cold_filter_slice_is_walked():
     assert {"kat_tpu_torch/tools/cold.py", "kat_tpu_torch/tools/filter_kmer.py",
             "kat_tpu_torch/tools/filter_seq.py",
             "kat_tpu_torch/benchmarks/sweep_lookup.py"} <= rel
+
+
+def test_the_sharded_slice_is_walked():
+    rel = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"kat_tpu_torch/parallel/__init__.py",
+            "kat_tpu_torch/parallel/sharded.py",
+            "kat_tpu_torch/parallel/analysis.py",
+            "kat_tpu_torch/parallel/longseq.py"} <= rel
