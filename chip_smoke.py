@@ -482,6 +482,7 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
 
     import torch
 
+    from kat_tpu_torch.benchmarks import earlier_kernels
     from kat_tpu_torch.core.kmers import SENTINEL
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
 
@@ -558,11 +559,15 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
         errs.append(_same(got[:-1], want[:-1]))
         print(f"K4 compact {n}, {what}: n_kept {int(got[-1])} into "
               f"{out_size} exact")
+    errs.append(_same(earlier_kernels.compact_flagged(mp, flag, m),
+                      reduce_kernel.compact_flagged(mp, flag, m)))
     results.append(_report(dict(
         name="compact_flagged", route="cuda",
         source="kat_tpu_torch/csrc/compact.cu",
         replaces="kat_tpu/ops/reduce_kernel.py:285", max_abs_err=max(errs),
         ms=_timed_ms(lambda: reduce_kernel.compact_flagged(mp, flag, m), 5),
+        earlier_ms=_timed_ms(
+            lambda: earlier_kernels.compact_flagged(mp, flag, m), 5),
         plain_ms=_timed_ms(
             lambda: reduce_kernel.compact_flagged_plain(mp, flag, m), 5),
         **_bound(_nbytes(*mp, flag) + 2 * m * 4, n),
@@ -634,7 +639,7 @@ def check_dual_probe_kernels(dev, gen):
     and their (entry, call) pairs."""
     import torch
 
-    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks import earlier_kernels, workloads
     from kat_tpu_torch.core import counting
     from kat_tpu_torch.core.kmers import SENTINEL
     from kat_tpu_torch.ops import join, merge_kernel, reduce_kernel
@@ -674,12 +679,15 @@ def check_dual_probe_kernels(dev, gen):
         return (*fn((from_next,), fa, na), *fn((from_prev,), fb, nb))
 
     got = both(reduce_kernel.compact_flagged)
-    err = _same(got, both(reduce_kernel.compact_flagged_plain))
+    err = max(_same(got, both(reduce_kernel.compact_flagged_plain)),
+              _same(got, both(earlier_kernels.compact_flagged)))
     results.append(_report(dict(
         name="compact_flagged[dual]", route="cuda",
         source="kat_tpu_torch/csrc/compact.cu",
         replaces="kat_tpu/ops/reduce_kernel.py:285", max_abs_err=err,
         ms=_timed_ms(lambda: both(reduce_kernel.compact_flagged), 5),
+        earlier_ms=_timed_ms(lambda: both(earlier_kernels.compact_flagged),
+                             5),
         plain_ms=_timed_ms(lambda: both(reduce_kernel.compact_flagged_plain),
                            5),
         **_bound(2 * _nbytes(from_next, fa) + (na + nb) * 4, 2 * (na + nb)),
@@ -801,6 +809,21 @@ def _repeat_equal(what: str, fn) -> None:
                                  "differ")
 
 
+def _bucket_stats(keys, top_bits: int) -> str:
+    """The W-word sort's buckets for `keys`: the largest and how many hold
+    more keys than one block sorts (those take the fallback passes)."""
+    import torch
+
+    from kat_tpu_torch.ops import sort_kernel
+
+    b = sort_kernel.bucket_of(keys, top_bits)
+    counts = torch.bincount(b, minlength=sort_kernel.SENTINEL_BUCKET + 1)
+    real = counts[:sort_kernel.SENTINEL_BUCKET]
+    return (f"largest bucket {int(real.max())} keys, "
+            f"{int((real > sort_kernel.BUCKET_CAP).sum())} oversize (past "
+            f"{sort_kernel.BUCKET_CAP}), {int(counts[-1])} sentinels")
+
+
 def check_wide_kernels(dev, gen):
     """K1, K2 and K3 W-word against their plain versions: at the wide
     flush's shapes (k = 41, W = 2: 2^26 fresh keys, a 2^24-slot table,
@@ -811,7 +834,7 @@ def check_wide_kernels(dev, gen):
 
     import torch
 
-    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks import earlier_kernels, workloads
     from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
     from kat_tpu_torch.core.kmers import top_bases
     from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
@@ -824,13 +847,21 @@ def check_wide_kernels(dev, gen):
     # K1 W-word: 2^26 random 41-mers, 10% SENTINEL
     keys = workloads.wide_keys(k, n_fresh, dev, gen)
     W = keys.shape[0]
+    reads = sort_kernel.sort_words.host_reads
     got = sort_kernel.sort_words(keys, tb)
-    err = _max_abs_err(got, sort_kernel.sort_words_plain(keys))
+    reads = sort_kernel.sort_words.host_reads - reads
+    err = max(_max_abs_err(got, sort_kernel.sort_words_plain(keys)),
+              _max_abs_err(got, earlier_kernels.sort_words(keys, tb)))
+    print(f"K1 W-word: {reads} host read(s) a call; "
+          + _bucket_stats(keys, tb))
     results.append(_report(dict(
         name="radix_sort_words", route="cuda",
         source="kat_tpu_torch/csrc/sort.cu",
         replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
         ms=_timed_ms(lambda: sort_kernel.sort_words(keys, tb), 5),
+        earlier_ms=_timed_ms(lambda: earlier_kernels.sort_words(keys, tb),
+                             5),
+        host_reads_per_call=reads,
         # the W chained stable torch.sort calls with their gathers: no one
         # PyTorch call sorts W-word keys
         plain_ms=_timed_ms(lambda: sort_kernel.sort_words_plain(keys), 3),
@@ -895,15 +926,18 @@ def check_wide_kernels(dev, gen):
     _repeat_equal("K3 W-word", lambda: reduce_kernel.reduce_by_key_words(
         mk, mw, cap))
 
-    # strain: W = 2..9 at boundary k, around every kernel's tile
+    # strain: W = 2..9 at boundary k, around every kernel's tile; the sort
+    # also on the keys that skew its prefix split
     n = 3 * sort_kernel.words_tile_len(2) + 17
     for sk in workloads.WIDE_STRAIN_K:
         stb = 2 * top_bases(sk) + 1
-        for name in workloads.WIDE_STRAIN:
+        for name in workloads.WIDE_STRAIN + workloads.WIDE_SKEW:
             # (not `keys`: the K1 call counted above reads that name)
             skeys = workloads.wide_strain(name, sk, n, dev, gen)
             _same((sort_kernel.sort_words(skeys, stb),),
                   (sort_kernel.sort_words_plain(skeys),))
+            if name in workloads.WIDE_SKEW:
+                continue
             a, ac, b = workloads.wide_merge_inputs(skeys, gen)
             _same(merge_kernel.merge_sorted_words(a, ac, b),
                   merge_kernel.merge_sorted_words_plain(a, ac, b))
@@ -934,7 +968,8 @@ def check_wide_kernels(dev, gen):
             raise AssertionError(f"K3 W-word n_unique at n = {m}")
         _same(g[:2], w[:2])
     print("K1/K2/K3 W-word: exact on " + ", ".join(workloads.WIDE_STRAIN)
-          + f" ({n} keys) at k = "
+          + " (K1 also on " + ", ".join(workloads.WIDE_SKEW)
+          + f"; {n} keys) at k = "
           + ", ".join(map(str, workloads.WIDE_STRAIN_K))
           + " (W = 2..9), and at n = " + ", ".join(map(str, lengths))
           + f" (k = {k}); five runs of each at the path's shapes agree")
@@ -978,7 +1013,7 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
 
     import torch
 
-    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks import earlier_kernels, workloads
     from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
     from kat_tpu_torch.core import wide
     from kat_tpu_torch.core.kmers import top_bases
@@ -999,7 +1034,8 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
             q[:, ::3] = t_keys[:, hit]
         idx = torch.arange(m, dtype=torch.int32, device=dev)
         got = sort_kernel.sort_words_pairs(q, idx, tb)
-        err = _same(got, sort_kernel.sort_words_pairs_plain(q, idx))
+        err = max(_same(got, sort_kernel.sort_words_pairs_plain(q, idx)),
+                  _same(got, earlier_kernels.sort_words(q, tb, idx)))
         _repeat_equal(f"K1 W-word with a value (W={W})",
                       lambda q=q, idx=idx, tb=tb:
                       sort_kernel.sort_words_pairs(q, idx, tb))
@@ -1009,6 +1045,8 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
             replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
             ms=_timed_ms(lambda q=q, idx=idx, tb=tb:
                          sort_kernel.sort_words_pairs(q, idx, tb), 5),
+            earlier_ms=_timed_ms(lambda q=q, idx=idx, tb=tb:
+                                 earlier_kernels.sort_words(q, tb, idx), 5),
             # chained stable torch.sort calls and gathers: no one PyTorch
             # call sorts W-word keys
             plain_ms=_timed_ms(lambda q=q, idx=idx:
@@ -1104,11 +1142,13 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
     n = 3 * sort_kernel.words_tile_len(2) + 17
     for sk in workloads.WIDE_STRAIN_K:
         stb = 2 * top_bases(sk) + 1
-        for name in workloads.WIDE_STRAIN:
+        for name in workloads.WIDE_STRAIN + workloads.WIDE_SKEW:
             skeys = workloads.wide_strain(name, sk, n, dev, gen)
             pos = torch.arange(n, dtype=torch.int32, device=dev)
             _same(sort_kernel.sort_words_pairs(skeys, pos, stb),
                   sort_kernel.sort_words_pairs_plain(skeys, pos))
+            if name in workloads.WIDE_SKEW:
+                continue
             a, _ac, b = workloads.wide_merge_inputs(skeys, gen)
             pa = (torch.arange(a.shape[1], dtype=torch.int32, device=dev),
                   -torch.arange(a.shape[1], dtype=torch.int32, device=dev))
@@ -1137,7 +1177,8 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
         w = merge_kernel.merge_sorted_words_payload_plain(a, pa, b, pb)
         _same((g[0], *g[1]), (w[0], *w[1]))
     print("K1 W-word with a value and K2 W-word with 1-2 planes: exact on "
-          + ", ".join(workloads.WIDE_STRAIN) + f" ({n} keys) at k = "
+          + ", ".join(workloads.WIDE_STRAIN) + " (K1 also on "
+          + ", ".join(workloads.WIDE_SKEW) + f"; {n} keys) at k = "
           + ", ".join(map(str, workloads.WIDE_STRAIN_K))
           + " (W = 2..9), and at n = " + ", ".join(map(str, lengths))
           + " (k = 41); five runs of each at the join's shapes agree")
@@ -2024,7 +2065,43 @@ def wide_path(dev, k: int, n_batches: int, smi: str):
         raise AssertionError(f"the k={k} histogram differs from the "
                              "reference")
     print(f"wide path k={k}: table and histogram equal the reference")
+    if k == workloads.WIDE_K:
+        time_real_flush(batches, k, smi)
     return launches, table
+
+
+def time_real_flush(batches, k: int, smi: str) -> None:
+    """K1 W-word on the fresh windows of the wide path's first flush (its
+    batches' canonical windows, SENTINEL where invalid, in arrival order):
+    a k-mer's copies and the canonical form's skew, which uniform keys do
+    not show; against the LSD sort it replaced (benchmarks/earlier/) and
+    the plain sort."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import earlier_kernels
+    from kat_tpu_torch.core.kmers import extract_kmers_wide, top_bases
+    from kat_tpu_torch.ops import sort_kernel
+
+    W = (k + 30) // 31
+    # workloads.wide_counter flushes every 2^26 // (windows a batch) batches
+    batches = batches[:(1 << 26) // (batches[0].shape[0]
+                                      * (batches[0].shape[1] - k + 1))]
+    fresh = torch.cat([extract_kmers_wide(b, k)[0].reshape(W, -1)
+                       for b in batches], dim=1)
+    tb = 2 * top_bases(k) + 1
+    reads = sort_kernel.sort_words.host_reads
+    got = sort_kernel.sort_words(fresh, tb)
+    reads = sort_kernel.sort_words.host_reads - reads
+    _max_abs_err(got, sort_kernel.sort_words_plain(fresh))
+    _max_abs_err(got, earlier_kernels.sort_words(fresh, tb))
+    del got
+    ms = _timed_ms(lambda: sort_kernel.sort_words(fresh, tb), 5)
+    earlier = _timed_ms(lambda: earlier_kernels.sort_words(fresh, tb), 5)
+    print(f"K1 W-word on the k={k} path's first flush ({fresh.shape[1]} "
+          f"fresh windows): exact, {ms:.3f} ms (the replaced LSD sort "
+          f"{earlier:.3f} ms), {reads} host read(s) a call; "
+          + _bucket_stats(fresh, tb)
+          + f" ({smi})")
 
 
 def profile_wide(k: int) -> None:

@@ -298,6 +298,10 @@ WIDE_K = 41
 # nearly empty (one base), and k = 33 and 255
 WIDE_STRAIN_K = (33, 62, 63, 93, 94, 124, 125, 255)
 WIDE_STRAIN = ("random", "top_equal", "all_sentinel", "one_run")
+# what strains the W-word sort's prefix split (sort_kernel.prefix_layout):
+# half the keys in one bucket (a poly-A-like hot prefix), half SENTINEL,
+# and every key in one bucket with distinct lower words
+WIDE_SKEW = ("one_hot_bucket", "half_sentinel", "one_prefix")
 
 
 def wide_counter(k: int, dev):
@@ -329,7 +333,8 @@ def wide_strain(name: str, k: int, n: int, dev, gen) -> torch.Tensor:
     """[W, n] unsorted wide keys where a W-word kernel can go wrong: random
     (10% SENTINEL), equal in the top word and different below (a pass over
     the top word moves nothing, a compare must reach the lower words),
-    all SENTINEL, and one key (one run across every tile)."""
+    all SENTINEL, and one key (one run across every tile); and WIDE_SKEW's
+    three."""
     if name == "random":
         return wide_keys(k, n, dev, gen)
     if name == "top_equal":
@@ -338,6 +343,21 @@ def wide_strain(name: str, k: int, n: int, dev, gen) -> torch.Tensor:
         return wide_keys(k, n, dev, gen, sent=1.0)
     if name == "one_run":
         return wide_keys(k, 1, dev, gen, sent=0.0).expand(-1, n).contiguous()
+    if name == "half_sentinel":
+        return wide_keys(k, n, dev, gen, sent=0.5)
+    if name in ("one_hot_bucket", "one_prefix"):
+        from ..ops.sort_kernel import prefix_layout
+
+        keys = wide_keys(k, n, dev, gen,
+                         sent=0.1 if name == "one_hot_bucket" else 0.0)
+        hot = (keys[0] != SENTINEL) & (
+            torch.rand(n, device=dev, generator=gen) < 0.5
+            if name == "one_hot_bucket" else True)
+        for word, low, count in prefix_layout(keys.shape[0],
+                                              2 * kmers.top_bases(k) + 1):
+            keys[word] = torch.where(
+                hot, keys[word] & ~(((1 << count) - 1) << low), keys[word])
+        return keys
     raise KeyError(name)
 
 

@@ -40,11 +40,14 @@ _SIGNATURES = {
     "kat_radix_sort_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P],
     "kat_radix_sort_pairs_scratch": [_I64, _INT],
     "kat_radix_sort_pairs_tile": [],
-    "kat_radix_sort_words": [_P, _P, _P, _P, _I64, _INT, _INT, _P],
-    "kat_radix_sort_words_scratch": [_I64, _INT, _INT],
     "kat_radix_sort_words_tile": [_INT],
-    "kat_radix_sort_words_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT,
-                                   _INT, _P],
+    "kat_radix_sort_words_bucket_cap": [],
+    "kat_sort_words_split": [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                             _P],
+    "kat_sort_words_split_scratch": [_I64, _INT, _INT],
+    "kat_sort_words_finish": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                              _I64, _I64, _I64, _P, _INT, _P],
+    "kat_sort_words_fallback_scratch": [_I64, _I64, _INT],
     "kat_merge_sorted": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "kat_merge_sorted_payload": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I64,
                                  _INT, _P, _P, _P, _P, _P, _P],
@@ -77,10 +80,15 @@ _SIGNATURES = {
 class KernelLibrary:
     """The compiled kernels: built once per process at first `get()`.
     `extra_flags` (say `-DKAT_RS_ITEMS=12`) go to nvcc after NVCC_FLAGS and
-    name a library of their own: a benchmark's variant, never the port's."""
+    name a library of their own: a benchmark's variant, never the port's.
+    `csrc` and `signatures` name another directory of sources (built with
+    this one's headers) and its C entry points: a benchmark's own kernels."""
 
-    def __init__(self, extra_flags: tuple[str, ...] = ()):
+    def __init__(self, extra_flags: tuple[str, ...] = (), csrc: str = CSRC,
+                 signatures: dict | None = None):
         self._flags = [*NVCC_FLAGS, *extra_flags]
+        self._csrc = csrc
+        self._signatures = _SIGNATURES if signatures is None else signatures
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.build_seconds: float | None = None
@@ -94,7 +102,7 @@ class KernelLibrary:
         raise RuntimeError("nvcc not found (needs the CUDA toolkit)")
 
     def _build(self) -> str:
-        srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+        srcs = sorted(glob.glob(os.path.join(self._csrc, "*.cu")))
         hdrs = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
         h = hashlib.sha1(" ".join(self._flags).encode())
         for p in srcs + hdrs:
@@ -142,7 +150,7 @@ class KernelLibrary:
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(self._build())
-                for name, argtypes in _SIGNATURES.items():
+                for name, argtypes in self._signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int64 if name.endswith(

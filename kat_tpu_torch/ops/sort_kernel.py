@@ -10,11 +10,11 @@ words).
 
 Counterpart of kat_tpu/ops/sort_kernel.py: `sort_planes_padded` (full-sort
 mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
-`bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys`,
-`sort_pairs`, `sort_words` and `sort_words_pairs` launch the one-sweep LSD
-radix sort of
-csrc/sort.cu,
-`sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
+`bitonic_merge_runs` (runs mode).  On a CUDA tensor `sort_keys` and
+`sort_pairs` launch the one-sweep LSD radix sort of csrc/sort.cu,
+`sort_words` and `sort_words_pairs` its W-word sort (a split on the key's
+16-bit prefix, then a shared-memory sort of each bucket; `sort_words_model`
+is that design step by step in plain PyTorch), `sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
 `merge_runs` / `merge_runs_words` (K6 over W words, the arrival merge of
 the sharded flush, parallel/sharded.py) the merge-path tree of
 csrc/merge_runs.cu; on a CPU tensor they
@@ -23,6 +23,8 @@ run merge take any length.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -251,26 +253,141 @@ def sort_words_plain(keys: torch.Tensor) -> torch.Tensor:
     return keys[:, words_order_plain(keys)]
 
 
+PREFIX_BITS = 16  # the W-word sort splits on a key's first 16 significant bits
+SENTINEL_BUCKET = 1 << PREFIX_BITS  # the sentinels' own bucket, after all
+LOWER_WORD_BITS = 62  # a lower word's bits (31 bases)
+BUCKET_CAP = 4096  # keys csrc/sort.cu's bucket sort takes in one block
+
+
+def prefix_layout(n_words: int, top_bits: int) -> list[tuple[int, int, int]]:
+    """Which bits make the W-word sort's 16-bit prefix: (word, lowest bit,
+    bit count) pieces, most significant first.  A key's significant bits are
+    the top word's top_bits - 1 data bits followed by 62 bits of each lower
+    word, so the prefix spans the top word and the next where the top word
+    holds fewer than 16 (k = 32-38, the sharded sort's owner word)."""
+    if not 2 <= n_words <= _cuda.MAX_WORDS or not 1 <= top_bits <= 63:
+        raise ValueError(f"n_words={n_words}, top_bits={top_bits}")
+    t = top_bits - 1
+    if t >= PREFIX_BITS:
+        return [(0, t - PREFIX_BITS, PREFIX_BITS)]
+    rest = PREFIX_BITS - t
+    head = [(0, 0, t)] if t else []
+    return head + [(1, LOWER_WORD_BITS - rest, rest)]
+
+
+def bucket_of(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
+    """Each key's bucket (int64 [n]): its prefix (`prefix_layout`), or
+    SENTINEL_BUCKET where the top word is 2^(top_bits - 1) or more (the
+    SENTINEL: its bit top_bits - 1 is set), so that a real key whose prefix
+    is all ones shares no bucket with the sentinels."""
+    b = torch.zeros(keys.shape[1], dtype=torch.int64, device=keys.device)
+    for word, low, count in prefix_layout(keys.shape[0], top_bits):
+        b = b << count | keys[word] >> low & ((1 << count) - 1)
+    sent = keys[0] >> (top_bits - 1) != 0
+    return torch.where(sent, SENTINEL_BUCKET, b)
+
+
+def fallback_digits(n_words: int, top_bits: int) -> list[tuple[int, int]]:
+    """(word, shift) of each 8-bit digit that a bucket too large for one
+    block is sorted on by the fallback passes, least significant first:
+    every digit of the lower words' 62 bits and of the top word's
+    top_bits - 1 data bits, except those wholly inside the prefix (equal
+    across a bucket).  Sentinels are never in such a bucket."""
+    held: dict[int, set[int]] = {}
+    for word, low, count in prefix_layout(n_words, top_bits):
+        held.setdefault(word, set()).update(range(low, low + count))
+    out = []
+    for word in reversed(range(n_words)):
+        width = top_bits - 1 if word == 0 else LOWER_WORD_BITS
+        for shift in range(0, width, 8):
+            if not set(range(shift, min(shift + 8, width))) <= held.get(
+                    word, set()):
+                out.append((word, shift))
+    return out
+
+
+def plan_units(counts: torch.Tensor, cap: int = BUCKET_CAP):
+    """The bucket sort's units from the real buckets' counts (int64
+    [2^16]), as csrc/sort.cu's split_plan cuts them: a bucket of more than
+    cap // 2 keys is a unit alone (oversize past cap), and runs of smaller
+    buckets whose starts lie in one cap // 2-aligned window share one, so a
+    unit that is not oversize holds at most cap keys.  Returns (starts,
+    int64 [units + 1] ending at the number of real keys; oversize, bool
+    [units])."""
+    small = cap // 2
+    starts = torch.cumsum(counts, 0) - counts
+    opens = torch.ones_like(counts, dtype=torch.bool)
+    opens[1:] = ((counts[1:] > small) | (counts[:-1] > small)
+                 | (starts[1:] // small != starts[:-1] // small))
+    ends = counts.sum().reshape(1)
+    return torch.cat([starts[opens], ends]), counts[opens] > cap
+
+
+def sort_words_model(keys: torch.Tensor, values: torch.Tensor | None,
+                     top_bits: int, cap: int = BUCKET_CAP):
+    """csrc/sort.cu's W-word sort step by step in plain PyTorch: the
+    buckets (`bucket_of`) and their histogram, two stable passes by the
+    prefix's low and then high 8-bit digit (sentinels' high digit 256), the
+    units of `plan_units`, each unit sorted stably, and each oversize
+    bucket by stable passes over `fallback_digits`.  Returns (keys [W, n],
+    values or None); equal to `sort_words_pairs_plain` for every input the
+    kernels take."""
+    b = bucket_of(keys, top_bits)
+    order = torch.sort(b & 255, stable=True).indices
+    order = order[torch.sort(b[order] >> 8, stable=True).indices]
+    out, b = keys[:, order], b[order]
+    vout = None if values is None else values[order]
+    counts = torch.bincount(b[b < SENTINEL_BUCKET],
+                            minlength=SENTINEL_BUCKET)
+    starts, oversize = plan_units(counts, cap)
+    digits = fallback_digits(keys.shape[0], top_bits)
+    for u in range(oversize.numel()):
+        lo, hi = int(starts[u]), int(starts[u + 1])
+        if hi - lo < 2:
+            continue
+        seg = out[:, lo:hi]
+        if oversize[u]:
+            perm = torch.arange(hi - lo, device=keys.device)
+            for word, shift in digits:
+                d = seg[word][perm] >> shift & 255
+                perm = perm[torch.sort(d, stable=True).indices]
+        else:
+            perm = words_order_plain(seg)
+        out[:, lo:hi] = seg[:, perm]
+        if vout is not None:
+            vout[lo:hi] = vout[lo:hi][perm]
+    return out, vout
+
+
 def words_passes(n_words: int, top_bits: int) -> int:
-    """8-bit digit passes of the W-word sort: 8 over each lower word (62
-    bits), ceil(top_bits / 8) over the top word."""
-    return 8 * (n_words - 1) + (top_bits + 7) // 8
+    """Passes of the W-word sort over the whole array, whatever W: the two
+    split passes and the bucket sort (buckets past BUCKET_CAP add passes
+    over themselves)."""
+    prefix_layout(n_words, top_bits)
+    return 3
 
 
 def words_tile_len(n_words: int) -> int:
-    """Keys one thread block of the card's W-word sort takes, as the
-    compiled library reports it for W words."""
+    """Keys a tile of the card's W-word split passes takes, as the compiled
+    library reports it for W words."""
     return int(_cuda.LIBRARY.get().kat_radix_sort_words_tile(n_words))
+
+
+def words_bucket_cap() -> int:
+    """Keys the card's bucket sort takes in one block, as the compiled
+    library reports it (BUCKET_CAP)."""
+    return int(_cuda.LIBRARY.get().kat_radix_sort_words_bucket_cap())
 
 
 def words_pass_floor_bytes(n: int, n_words: int, top_bits: int,
                            with_values: bool = False) -> int:
-    """Bytes the card's W-word sort must move by its pass structure: one
-    read of every word for the histograms, then one read and one write of
-    every word of every key (and its value) per pass."""
-    passes = words_passes(n_words, top_bits)
-    return n * (8 * n_words * (1 + 2 * passes)
-                + (8 * passes if with_values else 0))
+    """Bytes the card's W-word sort must move by its pass structure when no
+    bucket is oversize: one read of the words that hold the prefix for the
+    histogram, then one read and one write of every word of every key (and
+    its value) per pass."""
+    hist = 8 * len({w for w, _l, _c in prefix_layout(n_words, top_bits)})
+    return n * (hist + 2 * words_passes(n_words, top_bits)
+                * (8 * n_words + (4 if with_values else 0)))
 
 
 def _check_words(keys: torch.Tensor, top_bits: int, name: str) -> None:
@@ -282,33 +399,62 @@ def _check_words(keys: torch.Tensor, top_bits: int, name: str) -> None:
         raise ValueError(f"{name}: n={keys.shape[1]} must be < 2^30")
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _sort_words_launch(keys: torch.Tensor, values: torch.Tensor | None,
+                       top_bits: int):
+    """Both C entry points of the card's W-word sort, with the one host
+    read between them (the plan's unit and oversize counts)."""
+    W, n = keys.shape
+    dev = keys.device
+    out, alt = torch.empty_like(keys), torch.empty_like(keys)
+    vout = valt = None
+    if values is not None:
+        vout, valt = torch.empty_like(values), torch.empty_like(values)
+    scratch = torch.empty(
+        _cuda.scratch_len("kat_sort_words_split_scratch", n, W, top_bits),
+        dtype=torch.int32, device=dev)
+    _cuda.launch("kat_sort_words_split", dev, keys.data_ptr(), _ptr(values),
+                 out.data_ptr(), _ptr(vout), alt.data_ptr(), _ptr(valt),
+                 scratch.data_ptr(), n, W, top_bits)
+    n_units, n_over, over_tiles = scratch[:3].tolist()
+    digits = [w << 8 | s for w, s in fallback_digits(W, top_bits)]
+    fscratch = None if n_over == 0 else torch.empty(
+        _cuda.scratch_len("kat_sort_words_fallback_scratch", n_over,
+                          over_tiles, len(digits)),
+        dtype=torch.int32, device=dev)
+    host_digits = (ctypes.c_int32 * len(digits))(*digits)
+    _cuda.launch("kat_sort_words_finish", dev, out.data_ptr(), _ptr(vout),
+                 alt.data_ptr(), _ptr(valt), scratch.data_ptr(),
+                 _ptr(fscratch), n, W, top_bits, n_units, n_over, over_tiles,
+                 ctypes.addressof(host_digits), len(digits))
+    return out, vout
+
+
 def sort_words(keys: torch.Tensor, top_bits: int) -> torch.Tensor:
     """Ascending lexicographic sort of [W, n] int64 wide keys (word 0 most
     significant), returned as a new contiguous [W, n] tensor.
 
     top_bits: every non-sentinel key's top word is < 2^(top_bits-1), so
     that the sentinel (INT64_MAX in every word) sorts last; counting passes
-    2 top_bases(k) + 1.  Lower words are < 2^62."""
+    2 top_bases(k) + 1.  Lower words are < 2^62.  On the card a call reads
+    the host once (`host_reads`), between the split and the bucket sort."""
     _check_words(keys, top_bits, "sort_words")
     if not _cuda.on_cuda(keys, "sort_words"):
         return sort_words_plain(keys)
     keys = keys.contiguous()
-    W, n = keys.shape
-    out = torch.empty_like(keys)
-    if n == 0:
-        return out
-    alt = torch.empty_like(keys)
-    scratch = torch.empty(
-        _cuda.scratch_len("kat_radix_sort_words_scratch", n, W, top_bits),
-        dtype=torch.int32, device=keys.device)
-    _cuda.launch("kat_radix_sort_words", keys.device, keys.data_ptr(),
-                 out.data_ptr(), alt.data_ptr(), scratch.data_ptr(), n, W,
-                 top_bits)
+    if keys.shape[1] == 0:
+        return torch.empty_like(keys)
+    out, _ = _sort_words_launch(keys, None, top_bits)
     sort_words.launches += 1
+    sort_words.host_reads += 1
     return out
 
 
 sort_words.launches = 0  # kernel launches, read by chip_smoke.py
+sort_words.host_reads = 0  # reads of the device by the host, likewise
 
 
 def sort_words_pairs_plain(keys: torch.Tensor, values: torch.Tensor):
@@ -323,7 +469,8 @@ def sort_words_pairs(keys: torch.Tensor, values: torch.Tensor,
     """Stable ascending lexicographic sort of [W, n] int64 wide keys
     carrying one int32 value each; returns new (keys [W, n] contiguous,
     values [n]).  Equal keys keep their input order, which the wide join
-    relies on.  top_bits as in `sort_words`."""
+    relies on.  top_bits as in `sort_words`; one host read a call on the
+    card likewise."""
     _check_words(keys, top_bits, "sort_words_pairs")
     _cuda.require(values, "values", torch.int32, keys.device)
     if values.numel() != keys.shape[1]:
@@ -331,20 +478,13 @@ def sort_words_pairs(keys: torch.Tensor, values: torch.Tensor,
     if not _cuda.on_cuda(keys, "sort_words_pairs"):
         return sort_words_pairs_plain(keys, values)
     keys = keys.contiguous()
-    W, n = keys.shape
-    out, vout = torch.empty_like(keys), torch.empty_like(values)
-    if n == 0:
-        return out, vout
-    alt, valt = torch.empty_like(keys), torch.empty_like(values)
-    scratch = torch.empty(
-        _cuda.scratch_len("kat_radix_sort_words_scratch", n, W, top_bits),
-        dtype=torch.int32, device=keys.device)
-    _cuda.launch("kat_radix_sort_words_pairs", keys.device, keys.data_ptr(),
-                 values.data_ptr(), out.data_ptr(), vout.data_ptr(),
-                 alt.data_ptr(), valt.data_ptr(), scratch.data_ptr(), n, W,
-                 top_bits)
+    if keys.shape[1] == 0:
+        return torch.empty_like(keys), torch.empty_like(values)
+    out, vout = _sort_words_launch(keys, values, top_bits)
     sort_words_pairs.launches += 1
+    sort_words_pairs.host_reads += 1
     return out, vout
 
 
 sort_words_pairs.launches = 0  # kernel launches, read by chip_smoke.py
+sort_words_pairs.host_reads = 0  # reads of the device by the host, likewise

@@ -15,6 +15,8 @@ from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.io import native
 from kat_tpu_torch.tools.common import Input
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 pytestmark = pytest.mark.kernel_interpret
 CPU = torch.device("cpu")
 COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}

@@ -12,6 +12,8 @@ from kat_tpu_torch import cli
 from kat_tpu_torch.io import native
 from kat_tpu_torch.tools.common import Input
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 pytestmark = pytest.mark.kernel_interpret
 CPU = torch.device("cpu")
 

@@ -15,10 +15,13 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from kat_tpu import cli as jcli
 from kat_tpu_torch import cli as tcli
 from kat_tpu_torch.core import tables
+
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 
 SMALL = ["-H", "5000"]  # tables grow from 8192
 

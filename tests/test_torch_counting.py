@@ -14,6 +14,8 @@ from kat_tpu_torch.core import counting as tc
 from kat_tpu_torch.core import stats as ts
 from kat_tpu_torch.core.kmers import to_planes
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 K = 27
 LENGTH = 128
 

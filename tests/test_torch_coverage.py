@@ -15,6 +15,8 @@ from kat_tpu_torch.core import coverage as tcov
 from kat_tpu_torch.io import fastx as tfastx
 from kat_tpu_torch.tools import common as tcommon
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 ROWS, LENGTH = 12, 192
 
 

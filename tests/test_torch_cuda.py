@@ -809,10 +809,11 @@ def _wide_case(dev, name, k):
     return workloads.wide_strain(name, k, WIDE_N, dev, g), g
 
 
-@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN + workloads.WIDE_SKEW)
 @pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
 def test_sort_words_matches_plain(dev, name, k):
-    """K1 W-word at W = 2..9, the top word full or one base wide."""
+    """K1 W-word at W = 2..9, the top word full or one base wide; the skewed
+    keys fill one bucket past what a block sorts (the fallback passes)."""
     from kat_tpu_torch.core.kmers import top_bases
 
     keys, _g = _wide_case(dev, name, k)
@@ -853,12 +854,13 @@ def test_reduce_words_matches_plain(dev, name, k):
 
 
 @pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 3071, 3073, 4095,
-                               4097, 8191, 8192, 8193])
+                               4097, 6143, 6144, 6145, 8191, 8192, 8193])
 @pytest.mark.parametrize("k", [41, 255])
 def test_words_kernels_at_tile_edges(dev, k, n):
     """The three W-word kernels at lengths around their tiles (the merge's
-    1024-3072 outputs, the reduce's 4096, the sort's 8192) and at one or
-    two keys, W = 2 and 9."""
+    1024-3072 outputs, the reduce's 4096, the sort's split passes' 6144,
+    its bucket sort's 4096 and fallback passes' 8192) and at one or two
+    keys, W = 2 and 9."""
     from kat_tpu_torch.core.kmers import top_bases
 
     g = torch.Generator(device=dev)
@@ -914,7 +916,7 @@ def _planes(n, n_planes, g, dev):
                  for _ in range(n_planes))
 
 
-@pytest.mark.parametrize("name", workloads.WIDE_STRAIN)
+@pytest.mark.parametrize("name", workloads.WIDE_STRAIN + workloads.WIDE_SKEW)
 @pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
 def test_sort_words_pairs_matches_plain(dev, name, k):
     """K1 W-word carrying a value, W = 2..9: equal keys (one run, all
@@ -929,6 +931,67 @@ def test_sort_words_pairs_matches_plain(dev, name, k):
     assert sort_words_pairs.launches == before + 1
     wk, wv = sort_words_pairs_plain(keys, vals)
     assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("k", workloads.WIDE_STRAIN_K)
+def test_sort_words_fallback_and_clustered_units(dev, k):
+    """Both W-word sorts where the bucket sort gives way: one bucket of
+    50,000 keys (the fallback passes, with an odd and an even number of
+    digits across k), 2^16 copies of one key among random ones, and a unit
+    whose keys cluster below its spread (the merge sort); one host read a
+    call."""
+    from kat_tpu_torch.core.kmers import top_bases
+    from kat_tpu_torch.ops.sort_kernel import BUCKET_CAP, words_bucket_cap
+
+    assert words_bucket_cap() == BUCKET_CAP
+    tb = 2 * top_bases(k) + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(k)
+    wide = workloads.wide_strain("one_prefix", k, 50_000, dev, g)
+    hot = workloads.wide_keys(k, 1 << 18, dev, g)
+    hot[:, torch.randperm(1 << 18, device=dev, generator=g)[:1 << 16]] = \
+        hot[:, :1]
+    near = workloads.wide_keys(k, 3000, dev, g, sent=0.0)
+    near[0] = near[0, :1]
+    near[-1] = torch.randint(0, 1 << 20, (3000,), device=dev, generator=g)
+    near[-1, :5] = 1 << 61
+    for keys in (wide, hot, near):
+        vals = torch.arange(keys.shape[1], dtype=torch.int32, device=dev)
+        before = (sort_words.host_reads, sort_words_pairs.host_reads)
+        got = sort_words(keys, tb)
+        gk, gv = sort_words_pairs(keys, vals, tb)
+        torch.cuda.synchronize()
+        assert (sort_words.host_reads, sort_words_pairs.host_reads) == \
+            (before[0] + 1, before[1] + 1)
+        wk, wv = sort_words_pairs_plain(keys, vals)
+        assert torch.equal(got, wk)
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("case", ["unaligned", "sparse"])
+def test_compact_flagged_views_and_sparse_tiles(dev, case):
+    """K4 on planes and flags that start off a 16-byte boundary (views one
+    element in), and on flags so sparse that the tiles read their kept
+    elements where they lie instead of staging the planes."""
+    rng = np.random.default_rng(7)
+    n = (1 << 20) + 5
+    density = 0.5 if case == "unaligned" else 0.03
+    flag_np = rng.random(n + 1) < density
+    raw = [torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n + 1).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    flag = torch.from_numpy(flag_np).to(dev)
+    if case == "unaligned":
+        planes, flag = tuple(p[1:] for p in raw), flag[1:]
+    else:
+        planes, flag = tuple(p[:n] for p in raw), flag[:n]
+    kept = int(flag.sum())
+    for out_size in (kept, kept // 2, kept + 100):
+        got = compact_flagged(planes, flag, out_size)
+        want = compact_flagged_plain(planes, flag, out_size)
+        torch.cuda.synchronize()
+        assert int(got[-1]) == int(want[-1]) == kept
+        for x, y in zip(got[:-1], want[:-1]):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("n_planes", [1, 2, 3])

@@ -24,6 +24,8 @@ from kat_tpu_torch.core import tables
 from kat_tpu_torch.core import wide as tw
 from kat_tpu_torch.ops import join
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 SMALL = ["-H", "5000", "-I", "5000", "-J", "5000"]  # tables grow from 8192
 COMP_BASE = ("-main.mx", ".stats")
 COMP_THREE = ("-ends.mx", "-middle.mx", "-mixed.mx")

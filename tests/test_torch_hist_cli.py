@@ -15,6 +15,8 @@ from kat_tpu.tools import hist as jhist
 from kat_tpu_torch import cli as tcli
 from kat_tpu_torch.tools import hist as thist
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 
 def _write_fastq(path, seed, n_reads=300, read_len=150, gz=False):
     rng = np.random.default_rng(seed)

@@ -16,6 +16,8 @@ from kat_tpu_torch.core import wide as twide
 from kat_tpu_torch.io import jellyfish as tjf
 from kat_tpu_torch.tools import common as tcommon
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 CPU = torch.device("cpu")
 
 

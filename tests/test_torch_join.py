@@ -16,6 +16,8 @@ from kat_tpu_torch.core import tables
 from kat_tpu_torch.core.kmers import SENTINEL, to_planes
 from kat_tpu_torch.ops import join as tjoin
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 
 def _tables(rng, n_keys, capacity):
     """The same table in both packages, and its keys."""

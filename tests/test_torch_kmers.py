@@ -12,6 +12,8 @@ import oracle
 from kat_tpu.core import kmers as jk
 from kat_tpu_torch.core import kmers as tk
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 ROWS, L = 6, 64
 
 

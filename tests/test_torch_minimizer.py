@@ -13,6 +13,8 @@ from kat_tpu.core import minimizer as jmin
 from kat_tpu_torch.core import kmers, minimizer
 from kat_tpu_torch.core.kmers import SENTINEL
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 KS = [17, 27, 28, 29]
 
 

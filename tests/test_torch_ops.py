@@ -23,6 +23,8 @@ from kat_tpu_torch.ops.sort_kernel import (merge_runs, sort_chunks, sort_keys,
                                            sort_keys_plain, sort_pairs,
                                            sort_pairs_plain)
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 
 def _keys(rng, n, bits=54, sent_frac=0.1):
     k = rng.integers(0, 1 << bits, n, dtype=np.int64)

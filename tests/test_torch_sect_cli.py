@@ -6,10 +6,13 @@ CLI would also plot) in this process on the CPU; the port runs its CLI with
 
 import numpy as np
 import pytest
+import torch
 
 from kat_tpu import cli as jcli
 from kat_tpu.tools import hist as jhist
 from kat_tpu_torch import cli as tcli
+
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 
 SECT_ARTIFACTS = ("-counts.cvg", "-stats.tsv", "-contamination.mx")
 SECT_EXTRA = ("-counts.gc", "-non_repetitive.fa", "-repetitive.fa")

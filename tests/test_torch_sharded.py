@@ -19,6 +19,8 @@ from kat_tpu_torch.core import counting, kmers, wide
 from kat_tpu_torch.ops import sort_kernel
 from kat_tpu_torch.parallel import sharded
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 HASH_K = (13, 16, 27, 31, 32, 47, 48, 63, 95, 127, 255)
 MESH_N = (1, 2, 3, 8, 16)
 

@@ -17,6 +17,8 @@ from kat_tpu.parallel import sharded as jsharded
 from kat_tpu_torch.core import counting, kmers, tables
 from kat_tpu_torch.parallel import analysis, longseq, sharded
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 
 def _reads(genome, rng, rows, length=100):
     off = rng.integers(0, genome.size - length, rows)

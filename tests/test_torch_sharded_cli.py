@@ -17,6 +17,8 @@ from kat_tpu_torch import cli as tcli
 from kat_tpu_torch.parallel import longseq
 from kat_tpu_torch.tools import common, sect
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 SECT_FILES = ("-counts.cvg", "-counts.gc", "-stats.tsv", "-contamination.mx")
 
 

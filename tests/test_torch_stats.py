@@ -25,6 +25,8 @@ from kat_tpu_torch.core import wide as tw
 from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops import binned_kernel as bk
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 BIG = [1 << 31, (1 << 32) - 1, (1 << 31) + 7]  # counts past int32
 
 

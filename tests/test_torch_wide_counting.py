@@ -18,6 +18,8 @@ from kat_tpu_torch.core import kmers as tk
 from kat_tpu_torch.core import stats as tstats
 from kat_tpu_torch.core import wide as tw
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 CPU = torch.device("cpu")
 
 

@@ -33,6 +33,8 @@ from kat_tpu_torch.ops.merge_kernel import merge_sorted_words_payload_plain
 from kat_tpu_torch.ops.sort_kernel import (sort_words_pairs,
                                            sort_words_pairs_plain)
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 CPU = torch.device("cpu")
 
 

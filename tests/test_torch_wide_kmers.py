@@ -13,6 +13,8 @@ import torch
 from kat_tpu.core import kmers as jk
 from kat_tpu_torch.core import kmers as tk
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 WIDE_K = (33, 41, 62, 63, 94, 127, 255)
 
 

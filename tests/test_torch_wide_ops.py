@@ -27,6 +27,8 @@ from kat_tpu_torch.ops.sort_kernel import (sort_words, sort_words_plain,
                                            words_pass_floor_bytes,
                                            words_passes)
 
+torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
+
 W_K = {2: 41, 3: 63, 4: 95}  # W -> a k with that many words
 
 
@@ -149,13 +151,16 @@ def test_reduce_words_matches_jax(W, name):
 
 
 def test_words_pass_structure():
-    """11 passes at k = 41 (8 over the low word, 3 over the 21 bits of the
-    top word and its sentinel bit), 66 at k = 255; the floor counts one
-    read of every word for the histograms and a read and a write per
-    pass."""
-    assert words_passes(2, 21) == 11
-    assert words_passes(9, 15) == 66
-    assert words_pass_floor_bytes(1 << 26, 2, 21) == (1 << 26) * 16 * 23
+    """Three passes over the whole array whatever W (the two split passes
+    and the bucket sort); the floor counts one read of the words that hold
+    the 16-bit prefix for the histogram (the top word at k = 41, the top
+    two at k = 95, whose top word holds 4 bits) and a read and a write of
+    every word (and the value) a pass: 104 bytes a key at k = 41."""
+    assert words_passes(2, 21) == 3
+    assert words_passes(9, 15) == 3
+    assert words_pass_floor_bytes(1 << 26, 2, 21) == (1 << 26) * 104
+    assert words_pass_floor_bytes(1 << 23, 4, 5, True) == \
+        (1 << 23) * (16 + 6 * 36)
 
 
 def test_word_wrappers_reject_bad_input():
