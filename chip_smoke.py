@@ -45,8 +45,20 @@
    value (2^23 pairs at W = 2 and 4) and K2 W-word with one payload plane
    a side (a 2^24-slot table + 2^23 sorted queries) and two (two 2^24-slot
    tables, the wide dual probe, also held as a whole against two
-   searches), five runs each, then on strain inputs at W = 2..9 and at
-   lengths around their tiles; counted in the same profiled window;
+   searches), five runs each, both forms also timed at `filter seq -m
+   41`'s batch (1,007,616 queries against the 2^24-slot table), then on
+   strain inputs at W = 2..9 and at lengths around their tiles; counted
+   in the same profiled window;
+2e. checks K6, the k-way run merge (csrc/merge_runs.cu), one-word and
+   over W words, at the sharded flush's arrival shapes (8 runs of 2^22
+   slots, a quarter of each real keys, the rest SENTINEL: k = 27, one
+   word, and k = 41, W = 2), five runs each with equal outputs, timed
+   beside the tree of pairwise merges it replaced
+   (benchmarks/earlier_kernels.py) and its plain version, with both its
+   bounds (every byte once; the real keys read and every output
+   written); then at W = 2..9 on 8 runs of 2^18 slots, 3/4 SENTINEL, and
+   on strain inputs; its kernels inside one call (also at the bucketed
+   flush's group of 128 chunk runs) counted in the same profiled window;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -95,10 +107,8 @@
    8,389,632-base contig (the halo path) through cli.main, its artifacts
    byte-identical to the one-device sect's.  K1, K6 (one-word and
    W-word), K2 and K3 must each have been launched by the counting runs,
-   which are read between a reset and their end; K6 W-word is held
-   against its plain version and timed at the k = 41 flush's arrival
-   shape (8 runs of 2^22 slots, W = 2) and on strain inputs at W = 2..9
-   with the kernel checks of step 2;
+   which are read between a reset and their end (K6 is held against its
+   plain version at these runs' arrival shapes in step 2e);
 5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
    against numpy) and `hist` from the dumped .jf (same histogram);
 6. runs `sect` of 200 contigs against those reads through the command
@@ -127,7 +137,8 @@
    router reported.  Prints both file-to-table times, the router's host
    windows/s, the device k-mers/s of both flushes over staged input, the
    record fill and the groups per flush; then checks and times K5 at one
-   flush's shape and K6 at the largest hot group that run saw, and runs
+   flush's shape and K6 at the largest hot group that run saw (beside
+   the tree it replaced), and runs
    K7's microbenchmark, whose costliest class is also held against its
    plain version at the full round count.  Then `filter seq --stats -s`
    of that FASTA against its genome's k-mers at k = 27 and 41
@@ -744,25 +755,39 @@ def check_bucketed_kernels(dev, gen, group_chunks: int):
         f"K5 chunk sort {bucketed.MAX_CHUNKS} x 2^{bucketed.SLOTS_LOG} keys"))
 
     # K6: the path's largest hot group of chunk runs out of that stream
-    # (compared and timed), and a pair of runs (compared)
+    # (compared and timed beside the tree it replaced), and a pair of runs
+    # (compared)
+    from kat_tpu_torch.benchmarks import earlier_kernels
+
     errs = []
     for g in (2, group_chunks):
         runs = got[:g * chunk].clone()
         merged = sort_kernel.merge_runs(runs, chunk)
-        errs.append(_max_abs_err(merged,
-                                 sort_kernel.merge_runs_plain(runs, chunk)))
+        errs += [_max_abs_err(merged,
+                              sort_kernel.merge_runs_plain(runs, chunk)),
+                 _max_abs_err(merged,
+                              earlier_kernels.merge_runs(runs, chunk))]
     plain_ms = _timed_ms(lambda: sort_kernel.merge_runs_plain(runs, chunk), 5)
+    n_real = int((runs != SENTINEL).sum())
     results.append(_report(dict(
         name="merge_runs", route="cuda",
         source="kat_tpu_torch/csrc/merge_runs.cu",
         replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=max(errs),
         ms=_timed_ms(lambda: sort_kernel.merge_runs(runs, chunk), 5),
+        earlier_ms=_timed_ms(lambda: earlier_kernels.merge_runs(runs, chunk),
+                             5),
         plain_ms=plain_ms,
-        # one compare per key and level of the merge tree
+        # one compare per key and level of a binary merge tree
         **_bound(_nbytes(runs, merged),
                  runs.numel() * max(1, math.ceil(math.log2(group_chunks)))),
+        touch_bound_ms=_touch_ms(n_real, runs.numel(), 1),
+        real_keys=n_real,
+        passes=len(sort_kernel.merge_passes(runs.numel(), chunk)),
+        tile=sort_kernel.merge_runs_tile(1),
         library_ms=plain_ms),  # torch.sort: no library call merges runs
         f"K6 merge {group_chunks} runs of 2^{bucketed.SLOTS_LOG} keys"))
+    print(f"  the tree it replaced: {results[-1]['earlier_ms']:.3f} ms; the "
+          f"real keys' bound {results[-1]['touch_bound_ms']:.3f} ms")
     return results
 
 
@@ -1005,10 +1030,11 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
     with those sorted queries, one plane a side (the join, W = 2); the
     merge of two such tables sharing about half their keys, two planes a
     side (the dual probe, W = 2), and the dual probe as a whole against two
-    binary searches.  Five runs of each with equal outputs; then every form
-    on workloads.WIDE_STRAIN at the boundary k of W = 2..9 and at lengths
-    around the tiles.  Returns the entries and their (entry, call)
-    pairs."""
+    binary searches.  Five runs of each with equal outputs; the first two
+    forms also timed at `filter seq -m 41`'s batch (1,007,616 queries);
+    then every form on workloads.WIDE_STRAIN at the boundary k of W = 2..9
+    and at lengths around the tiles.  Returns the entries and their
+    (entry, call) pairs."""
     import math
 
     import torch
@@ -1096,6 +1122,44 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
                     merge_kernel.merge_sorted_words_payload(a_, ap_, b_,
                                                             bp_)))
     del mk, mp, joined
+
+    # both forms at `filter seq -m 41`'s batch (each launched once a batch
+    # there): 1024 reads of 1024 bases, 1,007,616 windows, a third of them
+    # the table's, against the 2^24-slot table
+    m_fs = 1024 * (1024 - 41 + 1)
+    q = workloads.wide_keys(41, m_fs, dev, gen)
+    q[:, ::3] = t_keys[:, torch.randint(0, n_real, (len(range(0, m_fs, 3)),),
+                                        device=dev, generator=gen)]
+    idx = torch.arange(m_fs, dtype=torch.int32, device=dev)
+    got = sort_kernel.sort_words_pairs(q, idx, 21)
+    _same(got, sort_kernel.sort_words_pairs_plain(q, idx))
+    results[0]["filter_seq_batch"] = dict(
+        pairs=m_fs,
+        ms=_timed_ms(lambda: sort_kernel.sort_words_pairs(q, idx, 21), 5),
+        plain_ms=_timed_ms(
+            lambda: sort_kernel.sort_words_pairs_plain(q, idx), 3),
+        **_bound(_nbytes(q, idx, *got), m_fs * int(math.log2(m_fs))))
+    bp = (got[1],)
+    mk, mp = merge_kernel.merge_sorted_words_payload(t_keys, ap, got[0], bp)
+    _same((mk, *mp), (lambda k_, p_: (k_, *p_))(
+        *merge_kernel.merge_sorted_words_payload_plain(t_keys, ap, got[0],
+                                                       bp)))
+    results[1]["filter_seq_batch"] = dict(
+        queries=m_fs,
+        ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload(
+            t_keys, ap, got[0], bp), 5),
+        plain_ms=_timed_ms(
+            lambda: merge_kernel.merge_sorted_words_payload_plain(
+                t_keys, ap, got[0], bp), 3),
+        **_bound(_nbytes(t_keys, *ap, got[0], *bp, mk, *mp),
+                 W * mk.shape[1]))
+    for entry, what in ((results[0], "K1 W-word with a value"),
+                        (results[1], "K2 W-word with a plane")):
+        fs = entry["filter_seq_batch"]
+        print(f"{what} at filter seq -m 41's batch ({m_fs} windows): exact, "
+              f"kernel {fs['ms']:.3f} ms, plain {fs['plain_ms']:.3f} ms, "
+              f"bound {fs['bound_ms']:.3f} ms by {fs['bound_by']}")
+    del q, idx, got, mk, mp
 
     # K2 W-word, two planes: two tables, each carrying its counts and its
     # source, as the wide dual probe merges them
@@ -2954,49 +3018,104 @@ def _read_launches(what: str, need: tuple) -> dict:
     return {name: n for name, n in got.items() if n}
 
 
-def check_merge_runs_words(dev, gen):
-    """K6 over W words against its plain version: at the sharded flush's
-    shape (one shard's arrivals in the main path's k = 41 flush on 8
-    shards: 8 runs of 2^22 slots, ~1M real keys each, W = 2), timed, five
-    runs with equal outputs; then on workloads.RUNS_WORDS_STRAIN at the
-    boundary k of every W = 2..9."""
+def _touch_ms(n_real: int, n: int, n_words: int) -> float:
+    """K6's second bound: the bytes its design must touch, the real keys
+    read once and every output slot written once, at the memory rate."""
+    from kat_tpu_torch.benchmarks.workloads import HBM_BYTES_PER_S
+
+    return 8 * n_words * (n_real + n) / HBM_BYTES_PER_S * 1e3
+
+
+def check_merge_runs(dev, gen):
+    """K6, one-word and over W words, against its plain version and the
+    tree of pairwise merges it replaced (benchmarks/earlier/, timed beside
+    it), at the sharded flush's arrival shapes: 8 runs of 2^22 slots, each
+    a quarter of sorted real keys then SENTINEL (one shard's arrivals in
+    the main path's flush on 8 shards: k = 27, one word; k = 41, W = 2),
+    five runs with equal outputs; then at a scaled arrival shape (8 runs
+    of 2^18 slots, 3/4 SENTINEL) at the boundary k of every W = 2..9, and
+    on workloads.RUNS_WORDS_STRAIN there.  Each entry has two bounds:
+    every input byte read and every output byte written once (bound_ms),
+    and what the design must touch, the real keys read and every output
+    written (touch_bound_ms).  Returns the two entries, their (entry,
+    call) pairs, and a call at the bucketed flush's largest group shape
+    (128 chunk runs of 2^14 keys, 30% SENTINEL) for the profiled
+    window."""
+    import math
+
     import torch
 
-    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks import earlier_kernels, workloads
+    from kat_tpu_torch.core import bucketed
+    from kat_tpu_torch.core.kmers import SENTINEL
     from kat_tpu_torch.ops import sort_kernel
 
-    keys = workloads.sharded_runs_words(41, dev, gen)
-    rl = workloads.SHARDED_ROUTE_CAP
-    got = sort_kernel.merge_runs_words(keys, rl)
-    err = _max_abs_err(got, sort_kernel.merge_runs_words_plain(keys, rl))
-    _repeat_equal("K6 W-word", lambda: (sort_kernel.merge_runs_words(
-        keys, rl),))
-    n, W = keys.shape[1], keys.shape[0]
-    levels = (workloads.SHARDED_RUNS - 1).bit_length()
-    entry = _report(dict(
-        name="merge_runs_words", route="cuda",
-        source="kat_tpu_torch/csrc/merge_runs.cu",
-        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
-        ms=_timed_ms(lambda: sort_kernel.merge_runs_words(keys, rl), 5),
-        plain_ms=_timed_ms(
-            lambda: sort_kernel.merge_runs_words_plain(keys, rl), 3),
-        # W word compares per key and level of the merge tree
-        **_bound(_nbytes(keys, got), n * W * levels),
-        library_ms=None),  # no one PyTorch call merges W-word runs
-        f"K6 W-word merge of {workloads.SHARDED_RUNS} runs of 2^22 keys, "
-        f"W={W}")
-    del keys, got
+    rl, R = workloads.SHARDED_ROUTE_CAP, workloads.SHARDED_RUNS
+    results, counted = [], []
+    for k, fn, plain, tree in (
+            (27, sort_kernel.merge_runs, sort_kernel.merge_runs_plain,
+             earlier_kernels.merge_runs),
+            (41, sort_kernel.merge_runs_words,
+             sort_kernel.merge_runs_words_plain,
+             earlier_kernels.merge_runs_words)):
+        keys = workloads.sharded_runs(k, dev, gen)
+        W, n = (keys.shape[0] if keys.dim() == 2 else 1), keys.shape[-1]
+        got = fn(keys, rl)
+        err = max(_max_abs_err(got, plain(keys, rl)),
+                  _max_abs_err(got, tree(keys, rl)))
+        _repeat_equal(f"K6 (W={W})", lambda fn=fn, keys=keys: (
+            fn(keys, rl),))
+        plain_ms = _timed_ms(lambda plain=plain, keys=keys: plain(keys, rl),
+                             3)
+        n_real = R * workloads.sharded_run_real(k)
+        entry = _report(dict(
+            name="merge_runs[sharded]" if W == 1 else "merge_runs_words",
+            route="cuda", source="kat_tpu_torch/csrc/merge_runs.cu",
+            replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+            ms=_timed_ms(lambda fn=fn, keys=keys: fn(keys, rl), 5),
+            earlier_ms=_timed_ms(lambda tree=tree, keys=keys: tree(keys, rl),
+                                 5),
+            plain_ms=plain_ms,
+            # W word compares per key and level of a binary merge tree
+            **_bound(_nbytes(keys, got), n * W * int(math.log2(R))),
+            touch_bound_ms=_touch_ms(n_real, n, W), real_keys=n_real,
+            passes=len(sort_kernel.merge_passes(n, rl)),
+            tile=sort_kernel.merge_runs_tile(W),
+            # torch.sort computes the one-word merge; no one PyTorch call
+            # merges W-word runs
+            library_ms=plain_ms if W == 1 else None),
+            f"K6 merge of {R} runs of 2^22 slots, {n_real} real keys, "
+            f"k={k} (W={W})")
+        print(f"  the tree it replaced: {entry['earlier_ms']:.3f} ms; the "
+              f"real keys' bound {entry['touch_bound_ms']:.3f} ms")
+        results.append(entry)
+        counted.append((entry, lambda fn=fn, keys=keys: fn(keys, rl)))
+        del got
+
     errs = []
     for k in workloads.WIDE_STRAIN_K:
+        keys = workloads.sharded_runs(k, dev, gen, run_len=1 << 18,
+                                      real=1 << 16)
+        errs.append(_max_abs_err(
+            sort_kernel.merge_runs_words(keys, 1 << 18),
+            sort_kernel.merge_runs_words_plain(keys, 1 << 18)))
         for name in workloads.RUNS_WORDS_STRAIN:
             keys, run_len = workloads.runs_words_strain(name, k, dev, gen)
             errs.append(_max_abs_err(
                 sort_kernel.merge_runs_words(keys, run_len),
                 sort_kernel.merge_runs_words_plain(keys, run_len)))
     torch.cuda.synchronize()
-    print(f"K6 W-word: equal to its plain version on "
-          f"{len(errs)} strain inputs (W = 2..9)")
-    return entry
+    print(f"K6 W-word: equal to its plain version on {len(errs)} inputs: 8 "
+          "runs of 2^18 slots, 3/4 SENTINEL, and the strain inputs, at "
+          "W = 2..9")
+
+    chunk = 1 << bucketed.SLOTS_LOG
+    group = torch.randint(0, 1 << 60, (128 * chunk,), dtype=torch.int64,
+                          device=dev, generator=gen)
+    group[torch.rand(group.numel(), device=dev, generator=gen) < 0.3] = \
+        SENTINEL
+    group = sort_kernel.sort_chunks_plain(group, chunk)
+    return results, counted, lambda: sort_kernel.merge_runs(group, chunk)
 
 
 def _check_shards(sc, table, what: str) -> None:
@@ -3321,10 +3440,12 @@ def main() -> int:
     binned, binned_counted = check_binned_kernels(dev, gen)
     dual, dual_counted = check_dual_probe_kernels(dev, gen)
     wjoin, wjoin_counted = check_wide_join_kernels(dev, gen)
-    k6w = check_merge_runs_words(dev, gen)
+    k6s, k6_counted, k6_group_call = check_merge_runs(dev, gen)
+    k6_group = dict(name="merge_runs[128 runs]")
     count_inside(counted + wide_counted + binned_counted + dual_counted
-                 + wjoin_counted)
+                 + wjoin_counted + k6_counted + [(k6_group, k6_group_call)])
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
+    del k6_counted, k6_group_call
     lap("the kernel checks")
     launches, table, genome, ref_keys, ref_counts = main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts
@@ -3343,7 +3464,9 @@ def main() -> int:
     lap("the main, lookup, gcp and comp paths")
     sharded = sharded_path(dev, smi, table, genome)
     sharded["sect --shards 8"] = sharded_sect(dev, smi, genome)
-    k6w["launches"] = sharded["sharded count k=41 on 8 shards"][
+    k6s[0]["launches"] = sharded["sharded count k=27 on 8 shards"][
+        "merge_runs"]
+    k6s[1]["launches"] = sharded["sharded count k=41 on 8 shards"][
         "merge_runs_words"]
     lap("the sharded paths")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3415,11 +3538,13 @@ def main() -> int:
     kernels[3]["launches_filter_seq"] = fs[27][0]
     k5, k6 = check_bucketed_kernels(dev, gen, group_chunks)
     k5["launches"], k6["launches"] = b_launches[:2]
+    # the inside count at 128 runs, the largest group the path reports
+    k6["launches_inside"] = k6_group["launches_inside"]
     # K3, K2 with payload planes and K1 with a value also carry this path
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
     kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual, *wjoin,
-                k6w]
+                *k6s]
     for entry in kernels:  # the sharded paths' launches, by run
         fn = SHARDED_WRAPPER.get(entry["name"].split("[")[0])
         runs = {run: n[fn] for run, n in sharded.items() if n.get(fn)}

@@ -1,10 +1,12 @@
-"""The kernels that the current K4 and W-word K1 replaced (the four-launch
-compaction, the W-word LSD sort over every digit of every word), built
-from benchmarks/earlier/ into a library of their own, so that
-chip_smoke.py and the benchmarks can time the current kernels against them
-on the same card.  The port never calls them.  Same inputs and outputs
-as `reduce_kernel.compact_flagged`, `sort_kernel.sort_words` and
-`sort_kernel.sort_words_pairs`, CUDA tensors only."""
+"""The kernels that the current K4, W-word K1 and K6 replaced (the
+four-launch compaction, the W-word LSD sort over every digit of every word,
+the tree of pairwise run merges), built from benchmarks/earlier/ into a
+library of their own, so that chip_smoke.py and the benchmarks can time
+the current kernels against them on the same card.  The port never calls
+them.  Same inputs and outputs as `reduce_kernel.compact_flagged`,
+`sort_kernel.sort_words`, `sort_kernel.sort_words_pairs`,
+`sort_kernel.merge_runs` and `sort_kernel.merge_runs_words`, CUDA tensors
+only."""
 
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ LIBRARY = _cuda.KernelLibrary(
         "kat_earlier_sort_words_pairs": [_P, _P, _P, _P, _P, _P, _P, _I64,
                                          _INT, _INT, _P],
         "kat_earlier_sort_words_scratch": [_I64, _INT, _INT],
+        "kat_earlier_merge_runs": [_P, _P, _P, _I64, _I64, _P],
+        "kat_earlier_merge_runs_words": [_P, _I64, _P, _P, _I64, _I64, _INT,
+                                         _P],
     })
 
 
@@ -75,3 +80,24 @@ def sort_words(keys: torch.Tensor, top_bits: int,
           values.data_ptr(), out.data_ptr(), vout.data_ptr(), alt.data_ptr(),
           valt.data_ptr(), scratch.data_ptr(), n, W, top_bits)
     return out, vout
+
+
+def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """The merge-path tree over one-word keys [n]: log2(runs) launches."""
+    n = keys.numel()
+    out = torch.empty_like(keys)
+    tmp = torch.empty_like(keys) if n > 2 * run_len else None
+    _call("kat_earlier_merge_runs", keys.device, keys.data_ptr(),
+          out.data_ptr(), None if tmp is None else tmp.data_ptr(), n, run_len)
+    return out
+
+
+def merge_runs_words(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+    """The merge-path tree over [W, n] keys (each plane contiguous)."""
+    W, n = keys.shape
+    out = torch.empty((W, n), dtype=torch.int64, device=keys.device)
+    tmp = torch.empty_like(out) if n > 2 * run_len else None
+    _call("kat_earlier_merge_runs_words", keys.device, keys.data_ptr(),
+          keys.stride(0), out.data_ptr(),
+          None if tmp is None else tmp.data_ptr(), n, run_len, W)
+    return out

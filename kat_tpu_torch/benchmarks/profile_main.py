@@ -28,12 +28,12 @@ import torch
 # how the kernels of csrc/ begin in the profiler's names (after "void "),
 # in the order they are matched: an event joins the first group it fits
 # (K1's W-word sort: the split's histogram, passes and plan, the bucket
-# sort, the fallback's histogram)
+# sort, the fallback's histogram; K6: its plan and merge, `kway_`)
 _NS = "(anonymous namespace)::"
 KERNEL_GROUPS = (("K1 sort", tuple(_NS + p for p in (
                      "radix_", "split_", "words_pass", "sort_units",
                      "segment_histogram"))),
-                 ("K6 run merge", "(anonymous namespace)::merge_runs"),
+                 ("K6 run merge", (_NS + "kway_", _NS + "merge_runs")),
                  ("K2 merge", "(anonymous namespace)::merge_"),
                  ("K3 reduce", "(anonymous namespace)::reduce_"),
                  ("binned sums", "(anonymous namespace)::binned_"))

@@ -415,13 +415,20 @@ def wide_flush_shapes(k: int, dev, gen):
     return t_keys, t_counts, fresh, mk, mw
 
 
-# K6 over W words: the sharded flush's arrival merge (parallel/sharded.py)
+# K6, one-word and over W words: the sharded flush's arrival merge
+# (parallel/sharded.py)
 RUNS_WORDS_STRAIN = ("random", "top_equal", "all_equal", "all_sentinel",
                      "one_run", "unequal_runs")
 SHARDED_RUNS, SHARDED_ROUTE_CAP = 8, 1 << 22
-# real keys a source sends each destination in the main path's k = 41
-# flush on 8 shards: 8,060,928 windows a source over 8 owners
-SHARDED_RUN_REAL = 8_060_928 // 8
+
+
+def sharded_run_real(k: int) -> int:
+    """Real keys a source sends each destination in the main path's flush
+    of 16 batches on SHARDED_RUNS shards: its rows' windows over the
+    owners, 1,021,952 at k = 27 and 1,007,616 at k = 41, a quarter of
+    SHARDED_ROUTE_CAP (the rest is SENTINEL at route slack 4)."""
+    return (16 * (MAIN_ROWS // SHARDED_RUNS) * (MAIN_LENGTH - k + 1)
+            // SHARDED_RUNS)
 
 
 def sorted_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
@@ -457,20 +464,29 @@ def runs_words_strain(name: str, k: int, dev, gen, n_runs: int = 8,
     return sorted_runs(keys, run_len), run_len
 
 
-def sharded_runs_words(k: int, dev, gen):
-    """The arrival buffer of one shard in the main path's k = 41 flush on 8
-    shards: SHARDED_RUNS runs of SHARDED_ROUTE_CAP slots, each
-    SHARDED_RUN_REAL sorted real keys then a SENTINEL tail ([W, 2^25],
-    W = 2 at k = 41)."""
+def sharded_runs(k: int, dev, gen, n_runs: int = SHARDED_RUNS,
+                 run_len: int = SHARDED_ROUTE_CAP, real: int | None = None):
+    """The arrival buffer of one shard in the main path's flush on 8
+    shards: n_runs runs of run_len slots, each `real` (by default
+    sharded_run_real(k)) sorted random keys of k bases, then a SENTINEL
+    tail; int64 [n] at k <= 31, [W, n] words above (W = 2 at k = 41)."""
+    real = sharded_run_real(k) if real is None else real
     runs = []
-    for _ in range(SHARDED_RUNS):
-        run = torch.full((kmers.words_for_k(k), SHARDED_ROUTE_CAP), SENTINEL,
+    for _ in range(n_runs):
+        run = torch.full((kmers.words_for_k(k), run_len), SENTINEL,
                          dtype=torch.int64, device=dev)
-        run[:, :SHARDED_RUN_REAL] = sorted_runs(
-            wide_keys(k, SHARDED_RUN_REAL, dev, gen, sent=0.0),
-            SHARDED_RUN_REAL)
+        if real == 0:
+            pass
+        elif k <= kmers.MAX_K:
+            run[0, :real] = torch.sort(torch.randint(
+                0, 1 << (2 * k), (real,), dtype=torch.int64, device=dev,
+                generator=gen)).values
+        else:
+            run[:, :real] = sorted_runs(
+                wide_keys(k, real, dev, gen, sent=0.0), real)
         runs.append(run)
-    return torch.cat(runs, dim=1)
+    keys = torch.cat(runs, dim=1)
+    return keys if k > kmers.MAX_K else keys[0]
 
 
 def sharded_counter(k: int, mesh):

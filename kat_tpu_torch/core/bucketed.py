@@ -20,8 +20,9 @@ transformed key order (core/minimizer.py), so the device:
      and reduces again (K3).
 
 finish() decodes the table back to plain canonical keys and re-sorts once
-with the counts as values (K1, sort_pairs), returning a standard
-counting.CountTable: nothing downstream sees key'-space.
+with the counts as values (K1, sort_pairs; past counting.MAX_STREAM keys in
+pieces that K2 merges), returning a standard counting.CountTable: nothing
+downstream sees key'-space.
 
 Left behind from kat_tpu on purpose: the deferred-runs mode
 (KAT_TPU_BUCKETED_RUNS, kat_tpu/core/bucketed.py:229-374), which measured a
@@ -47,8 +48,9 @@ from ..ops.merge_kernel import merge_sorted_payload
 from ..ops.reduce_kernel import reduce_by_key
 from ..ops.sort_kernel import merge_runs, sort_chunks, sort_pairs
 from . import minimizer
-from .counting import (MAX_STREAM, CountTable, TableFullError, _same_device,
-                       empty_table, reduce_stream)
+from . import counting
+from .counting import (CountTable, TableFullError, _same_device, empty_table,
+                       reduce_stream)
 from .kmers import SENTINEL
 
 SLOTS_LOG = 14     # log2 of the key' slots of one chunk
@@ -159,18 +161,32 @@ class BucketedCodeCounter:
         """Decode key' -> canonical keys, re-sort ONCE with the counts as
         values, and return a standard-order CountTable."""
         n = self.table.n_unique
-        if n >= MAX_STREAM:  # one K1 launch
-            raise TableFullError(
-                f"{n} distinct keys: the bucketed flush's final re-sort "
-                f"takes fewer than {MAX_STREAM}; count with the classic "
-                "flush")
-        keys, counts = sort_pairs(
+        keys, counts = _sort_counts(
             minimizer.decode_keys(self.table.keys[:n], self.k, self.m),
             self.table.counts[:n].contiguous(), 2 * self.k + 1)
         out = empty_table(self.capacity, device=self.device)
         out.keys[:n] = keys
         out.counts[:n] = counts
         return CountTable(out.keys, out.counts, n)
+
+
+def _sort_counts(keys: torch.Tensor, counts: torch.Tensor, key_bits: int):
+    """The distinct decoded keys sorted, their counts riding: one K1 launch
+    (`sort_pairs`) below counting.MAX_STREAM keys; past it, pieces of fewer
+    than MAX_STREAM keys each sorted by K1, then merged pairwise in a
+    balanced tree by K2 with one count plane on both sides
+    (`merge_sorted_payload`, which takes any length).  The keys are
+    distinct, so the merge's tie order never shows."""
+    n, piece = keys.numel(), counting.MAX_STREAM - 1
+    if n <= piece:
+        return sort_pairs(keys, counts, key_bits)
+    runs = [sort_pairs(keys[lo:lo + piece], counts[lo:lo + piece], key_bits)
+            for lo in range(0, n, piece)]
+    while len(runs) > 1:
+        merged = [merge_sorted_payload(ak, (ac,), bk, (bc,))
+                  for (ak, ac), (bk, bc) in zip(runs[::2], runs[1::2])]
+        runs = [(k, c) for k, (c,) in merged] + runs[len(merged) * 2:]
+    return runs[0]
 
 
 def geometry(k: int, max_chunks: int = MAX_CHUNKS,

@@ -67,13 +67,13 @@ def _unique_reduce(keys: torch.Tensor, w: torch.Tensor,
                    out_size: int) -> CountTable:
     """Sort flat (keys, w) and reduce duplicate keys by summing weights.
 
-    Plain tensor code for the tables built off the flush path (merges of
-    two tables, host tables): a stable `torch.sort` that carries w, then
-    the reduce of ops/reduce_kernel.py.  Sentinel keys sort last; their
-    weights must be 0."""
+    For the tables built off the flush path (merges of two tables, host
+    tables, the shards merged): a stable `torch.sort` that carries w (plain
+    tensor code, as kat_tpu's lax.sort), then K3 over the sorted stream in
+    pieces past MAX_STREAM keys (`reduce_stream`), so such a table may hold
+    2^30 keys or more.  Sentinel keys sort last; their weights must be 0."""
     keys, perm = torch.sort(keys, stable=True)
-    k, c, nu = reduce_by_key(keys, w[perm].contiguous(), out_size)
-    return CountTable(k, c, int(nu))
+    return CountTable(*reduce_stream(keys, w[perm].contiguous(), out_size))
 
 
 def merge_tables(a: CountTable, b: CountTable,
@@ -93,9 +93,11 @@ class TableFullError(RuntimeError):
 # K1 and K3 keep counts in 30 bits of their status words and take fewer
 # than 2^30 keys a launch.  A flush's fresh windows go through K1 in one
 # launch; its merged stream (the table's real entries and the fresh
-# windows) goes through K3 in pieces of fewer than MAX_STREAM keys
-# (`reduce_stream`).  The tests lower it to reach the pieces at small
-# sizes; it is not a setting.
+# windows), and the sorted stream of a table built off the flush path,
+# go through K3 in pieces of fewer than MAX_STREAM keys (`reduce_stream`);
+# the bucketed flush's final re-sort sorts pieces and merges them
+# (core/bucketed.py).  Read it at call time, as `counting.MAX_STREAM`: the
+# tests lower it to reach the pieces at small sizes; it is not a setting.
 MAX_STREAM = 1 << 30
 
 
@@ -132,7 +134,8 @@ def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
 
     A stream of fewer than MAX_STREAM keys is one launch.  A longer one is
     cut into pieces of fewer than MAX_STREAM keys, each ending where the
-    key changes, so no run straddles two pieces; each piece's runs are
+    key changes, so no run straddles two pieces (a run of SENTINEL, never
+    emitted, may); each piece's runs are
     written from the table's fill so far (its offset in the output), and
     the slots after the last run are padded at the end.  Returns (keys,
     counts, n_unique as a host int), n_unique the true number of runs even
@@ -152,7 +155,11 @@ def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     while start < n:
         end = n
         if n - start >= MAX_STREAM:
-            end = _run_start(words, start, start + MAX_STREAM - 1)
+            end = cut = start + MAX_STREAM - 1
+            # a run of SENTINEL (the padding of merged tables) is never
+            # emitted, so a piece may end inside it
+            if _key_at(words, cut)[0] != SENTINEL:
+                end = _run_start(words, start, cut)
             if end == start:
                 raise TableFullError(
                     f"a run of at least {MAX_STREAM} equal keys cannot be "

@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from ..ops.merge_kernel import merge_sorted_words
-from ..ops.reduce_kernel import reduce_by_key_words
 from ..ops.sort_kernel import sort_words, words_order_plain
 from . import kmers
 from .counting import (TableFullError, _same_device, check_stream,
@@ -65,12 +64,12 @@ def empty_table(capacity: int, n_words: int, *, device) -> WideTable:
 def _unique_reduce(keys: torch.Tensor, w: torch.Tensor,
                    out_size: int) -> WideTable:
     """Sort [W, n] keys carrying weights w, then reduce duplicates (K3
-    W-word).  Plain tensor code for tables built off the flush path, as
-    kat_tpu's lax.sort at wide.py:52; sentinel keys must weigh 0."""
+    W-word, in pieces past counting.MAX_STREAM keys: `reduce_stream`).
+    For tables built off the flush path; the sort is plain tensor code, as
+    kat_tpu's lax.sort at wide.py:52.  Sentinel keys must weigh 0."""
     perm = words_order_plain(keys)
-    k, c, nu = reduce_by_key_words(keys[:, perm], w[perm].contiguous(),
-                                   out_size)
-    return WideTable(k, c, int(nu))
+    return WideTable(*reduce_stream(keys[:, perm], w[perm].contiguous(),
+                                    out_size))
 
 
 class WideCodeStreamingCounter:

@@ -14,12 +14,14 @@ mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
 `sort_pairs` launch the one-sweep LSD radix sort of csrc/sort.cu,
 `sort_words` and `sort_words_pairs` its W-word sort (a split on the key's
 16-bit prefix, then a shared-memory sort of each bucket; `sort_words_model`
-is that design step by step in plain PyTorch), `sort_chunks` the shared-memory bitonic sort of csrc/chunk_sort.cu and
-`merge_runs` / `merge_runs_words` (K6 over W words, the arrival merge of
-the sharded flush, parallel/sharded.py) the merge-path tree of
-csrc/merge_runs.cu; on a CPU tensor they
-take the plain versions (`*_plain`).  No padding to a power of two: the radix sort and the
-run merge take any length.
+is that design step by step in plain PyTorch), `sort_chunks` the
+shared-memory bitonic sort of csrc/chunk_sort.cu and `merge_runs` /
+`merge_runs_words` (K6 over W words, the arrival merge of the sharded
+flush, parallel/sharded.py) the k-way merge of csrc/merge_runs.cu (up to
+16 runs a pass, each pass a split plan and a merge of fixed output tiles;
+`merge_runs_model` is that design step by step in plain PyTorch); on a CPU
+tensor they take the plain versions (`*_plain`).  No padding to a power of
+two: the radix sort and the run merge take any length.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..core.kmers import SENTINEL
 from . import _cuda
 
 
@@ -173,10 +176,189 @@ def merge_runs_plain(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     return torch.sort(keys).values
 
 
+MERGE_FAN_IN = 16  # runs one pass of the card's K6 merges
+
+
+def merge_passes(n: int, run_len: int) -> list[tuple[int, int]]:
+    """(run length, runs merged a group) of each pass of the card's K6 over
+    the ceil(n / run_len) runs of n keys: groups of at most MERGE_FAN_IN
+    runs, as even as they go, until one run is left (csrc/merge_runs.cu's
+    plan_passes).  One run takes no pass (a copy)."""
+    out = []
+    runs = -(-n // run_len)
+    while runs > 1:
+        groups = -(-runs // MERGE_FAN_IN)
+        fan = -(-runs // groups)
+        out.append((run_len, fan))
+        run_len *= fan
+        runs = -(-runs // fan)
+    return out
+
+
+def merge_runs_tile(n_words: int) -> int:
+    """Outputs one block of the card's K6 merges, for keys of n_words words
+    (1 for `merge_runs`), as the compiled library reports it."""
+    return int(_cuda.LIBRARY.get().kat_merge_runs_tile(n_words))
+
+
+def _after(x: torch.Tensor, v: torch.Tensor, strict) -> torch.Tensor:
+    """Whether keys x come after keys v in the merge ([W, ...] words,
+    compared lexicographically as signed int64, word 0 first): x > v, or
+    x >= v where `strict` is false."""
+    gt = torch.zeros(x.shape[1:], dtype=torch.bool, device=x.device)
+    eq = torch.ones_like(gt)
+    for q in range(x.shape[0]):
+        gt = gt | eq & (x[q] > v[q])
+        eq = eq & (x[q] == v[q])
+    return gt | eq & ~strict
+
+
+MERGE_SAMPLE = 512  # a run's keys from one sample to the next on the card
+
+
+def _first_after(keys: torch.Tensor, first: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, v: torch.Tensor,
+                 strict: torch.Tensor) -> torch.Tensor:
+    """Binary searches side by side: for each (a, b), the first index of
+    keys[:, first + a : first + b] whose key comes after v (`_after`), or
+    b.  v: [W, ...] broadcast against a."""
+    while bool((a < b).any()):
+        act = a < b
+        mid = (a + b) // 2
+        aft = _after(keys[:, torch.where(act, first + mid, 0)], v, strict)
+        b = torch.where(act & aft, mid, b)
+        a = torch.where(act & ~aft, mid + 1, a)
+    return a
+
+
+def merge_plan_model(keys: torch.Tensor, start: int, run_len: int, fan: int,
+                     length: int, tile: int,
+                     sample: int = MERGE_SAMPLE) -> torch.Tensor:
+    """The split plan of one group of the card's K6 (csrc/merge_runs.cu's
+    kway_sample_kernel and kway_plan_kernel) in plain PyTorch: the group
+    is `length` keys of the [W, n] words `keys` from `start`, in runs of
+    run_len (the last may be short), at most `fan` of them.  Returns int64
+    [ceil(length / tile) + 1, R]: row t holds, for every run r, how many
+    of its keys lie among the first min(t * tile, N_real) keys of the
+    group's stable merge (ties: lower run first), N_real the group's real
+    keys (before each run's all-SENTINEL tail); the last row is each run's
+    real length.
+
+    The key every `sample` keys of a run gets its exact rank in the merge
+    (its index, and its count of keys before it in every other run), and
+    a boundary's window for run r lies between its last sample ranked
+    below d and its first at or above.  The windows then shrink round by
+    round, as one warp does on the card: Q = 32 // G candidate keys (G the
+    power of two at or above R) spread over the widest window (the lowest
+    run among equals) are counted against every run by binary searches
+    clamped to the windows; a candidate whose counts sum below d raises
+    every lo to its counts (its own run's past it), one above lowers every
+    hi, one of d is the split."""
+    dev = keys.device
+    R = -(-length // run_len)
+    if not 1 <= R <= fan:
+        raise ValueError(f"{R} runs in a group of at most {fan}")
+    run = torch.arange(R, device=dev)
+    first = start + run * run_len
+    lens = torch.clamp(length - run * run_len, max=run_len)
+    # each run's real length: the first slot that is SENTINEL in every word
+    sent = (keys[:, start:start + length] == SENTINEL).all(0)
+    real = torch.stack([torch.searchsorted(
+        sent[r * run_len:r * run_len + int(lens[r])].to(torch.int8),
+        torch.tensor(1, dtype=torch.int8, device=dev)) for r in range(R)])
+    n_real = int(real.sum())
+    # the samples' ranks, INT64_MAX past each run's real keys
+    big = torch.iinfo(torch.int64).max
+    pos = torch.arange(-(-run_len // sample), device=dev) * sample  # [S]
+    is_real = pos[None, :] < real[:, None]                        # [R, S]
+    at = torch.where(is_real, first[:, None] + pos, 0)
+    v = keys[:, at]                                               # [W, R, S]
+    other = run[None, None, :]
+    counts = _first_after(keys, first, torch.zeros_like(other),
+                          lens[None, None, :].expand(R, pos.numel(), R),
+                          v[..., None], other < run[:, None, None])
+    own = other == run[:, None, None]
+    rank = torch.where(own, pos[None, :, None], counts).sum(2)
+    rank = torch.where(is_real, rank, big)                        # [R, S]
+
+    tiles = -(-length // tile)
+    d = torch.clamp(torch.arange(tiles + 1, device=dev) * tile, max=n_real)
+    below = (rank[None] < d[:, None, None]).sum(2)                # [B, R]
+    lo = torch.maximum(torch.clamp((below - 1) * sample + 1, min=0),
+                       d[:, None] - (n_real - real))
+    hi = torch.minimum(torch.minimum(below * sample, real[None]),
+                       d[:, None])
+    split = torch.zeros_like(lo)
+    done = torch.zeros(tiles + 1, dtype=torch.bool, device=dev)
+    Q = 32 // (1 << (R - 1).bit_length())
+    q = torch.arange(Q, device=dev)
+    while True:
+        for bound in (lo, hi):
+            fin = ~done & (bound.sum(1) == d)
+            split[fin] = bound[fin]
+            done |= fin
+        if bool(done.all()):
+            return split
+        width = hi - lo
+        p = width.argmax(1)                                 # [B]
+        own = run[None, None, :] == p[:, None, None]        # [B, 1, R]
+        lo_p = lo.gather(1, p[:, None])
+        m = lo_p + width.gather(1, p[:, None]) * (q + 1) // (Q + 1)
+        v = keys[:, first[p][:, None] + m]                  # [W, B, Q]
+        a = torch.where(own, m[..., None], lo[:, None, :])  # [B, Q, R]
+        b = torch.where(own, m[..., None], hi[:, None, :])
+        a = _first_after(keys, first, a, b, v[..., None],
+                         run[None, None, :] < p[:, None, None])
+        sums = a.sum(2)                                     # [B, Q]
+        live = ~done[:, None]
+        hit = live & (sums == d[:, None])
+        found = hit.any(1)
+        pick = hit.to(torch.int8).argmax(1)
+        split[found] = a[found, pick[found]]
+        done |= found
+        ins = live & (sums < d[:, None])
+        out = live & (sums > d[:, None])
+        up = torch.where(ins[..., None], a + own.to(torch.int64), -1)
+        lo = torch.maximum(lo, up.max(1).values)
+        down = torch.where(out[..., None], a, big)
+        hi = torch.minimum(hi, down.min(1).values)
+
+
+def merge_runs_model(keys: torch.Tensor, run_len: int, tile: int,
+                     sample: int = MERGE_SAMPLE) -> torch.Tensor:
+    """The card's K6 step by step in plain PyTorch: `merge_passes`' passes,
+    each group's plan (`merge_plan_model`), then every tile of `tile`
+    outputs: its runs' slices between the plan's two rows, merged (a sort
+    of their concatenation: equal keys are equal in every word), and
+    SENTINEL past the group's real keys.  keys: [n] or [W, n]; equal to
+    `merge_runs_plain` / `merge_runs_words_plain` for every input the
+    kernels take."""
+    words = keys if keys.dim() == 2 else keys[None]
+    n = words.shape[1]
+    for rl, fan in merge_passes(n, run_len):
+        out = torch.full_like(words, SENTINEL)
+        for start in range(0, n, rl * fan):
+            length = min(rl * fan, n - start)
+            plan = merge_plan_model(words, start, rl, fan, length, tile,
+                                    sample)
+            for t in range(plan.shape[0] - 1):
+                parts = [words[:, start + r * rl + int(plan[t, r]):
+                               start + r * rl + int(plan[t + 1, r])]
+                         for r in range(plan.shape[1])]
+                got = torch.cat(parts, dim=1)
+                lo = start + t * tile
+                out[:, lo:lo + got.shape[1]] = got[:, words_order_plain(got)]
+        words = out
+    words = words.clone()
+    return words if keys.dim() == 2 else words[0]
+
+
 def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     """Merge the ascending runs keys[r*run_len : (r+1)*run_len] into one
     ascending stream, returned as a new tensor.  Any length and any
-    run_len >= 1: the last run may be short."""
+    run_len >= 1: the last run may be short.  On the card: one pass a 16
+    runs (`merge_passes`), each three launches (the samples, the plan,
+    the merge)."""
     _cuda.require(keys, "keys", torch.int64)
     if run_len < 1:
         raise ValueError(f"run_len={run_len} < 1")
@@ -188,15 +370,27 @@ def merge_runs(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     out = torch.empty_like(keys)
     if n == 0:
         return out
-    tmp = torch.empty_like(keys) if n > 2 * run_len else None
+    tmp, scratch = _merge_runs_scratch(out, n, run_len, 1)
     _cuda.launch("kat_merge_runs", keys.device, keys.data_ptr(),
-                 out.data_ptr(), tmp.data_ptr() if tmp is not None else None,
-                 n, run_len)
+                 out.data_ptr(), _ptr(tmp), _ptr(scratch), n, run_len)
     merge_runs.launches += 1
     return out
 
 
 merge_runs.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def _merge_runs_scratch(out: torch.Tensor, n: int, run_len: int,
+                        n_words: int):
+    """(the ping-pong buffer of a merge of more than one pass, or None; the
+    passes' scratch (plans, samples' ranks, real lengths), or None for one
+    run)."""
+    tmp = torch.empty_like(out) if len(merge_passes(n, run_len)) > 1 \
+        else None
+    size = _cuda.scratch_len("kat_merge_runs_scratch", n, run_len, n_words)
+    scratch = torch.empty(size, dtype=torch.int64, device=out.device) \
+        if size else None
+    return tmp, scratch
 
 
 def merge_runs_words_plain(keys: torch.Tensor, run_len: int) -> torch.Tensor:
@@ -211,7 +405,8 @@ def merge_runs_words(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     ascending lexicographic stream, returned as a new contiguous [W, n]
     tensor; each word's plane must be contiguous (planes may lie apart).
     Any length and any run_len >= 1: the last run may be short.  Keys
-    compare as signed int64 words, so SENTINEL tails merge last."""
+    compare as signed int64 words, so SENTINEL tails merge last.  On the
+    card, passes and launches as `merge_runs`."""
     _cuda.require_words(keys, "keys")
     if run_len < 1:
         raise ValueError(f"run_len={run_len} < 1")
@@ -225,10 +420,10 @@ def merge_runs_words(keys: torch.Tensor, run_len: int) -> torch.Tensor:
         return out
     if keys.stride(0) < n:  # planes overlap (a broadcast view)
         keys = keys.contiguous()
-    tmp = torch.empty_like(out) if n > 2 * run_len else None
+    tmp, scratch = _merge_runs_scratch(out, n, run_len, W)
     _cuda.launch("kat_merge_runs_words", keys.device, keys.data_ptr(),
-                 keys.stride(0), out.data_ptr(),
-                 tmp.data_ptr() if tmp is not None else None, n, run_len, W)
+                 keys.stride(0), out.data_ptr(), _ptr(tmp), _ptr(scratch), n,
+                 run_len, W)
     merge_runs_words.launches += 1
     return out
 

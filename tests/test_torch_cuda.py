@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
 payload forms of K1 and K2, the W-word forms of K1, K2 and K3, the W-word
 forms of K1 with a value and K2 with payload planes (the wide join), K5
-chunk sort, K6 run merge, one-word and W-word, K7's round classes and the
-binned sums) against their plain PyTorch versions on the card, exactly
+chunk sort, K6 run merge, one-word and W-word (also at the sharded
+flush's arrival shapes and over several passes), K7's round classes and
+the binned sums) against their plain PyTorch versions on the card, exactly
 (integer keys and counts: tolerance 0); K3 in pieces
 (counting.reduce_stream) at a lowered piece length against one launch;
 the mesh-sharded counter on a mesh of 8 shards on the card against the
@@ -637,6 +638,59 @@ def test_merge_runs_duplicates_and_negative_keys(dev):
     keys[keys != SENTINEL] -= 8
     t = torch.from_numpy(keys).to(dev)
     assert torch.equal(merge_runs(t, 4096), merge_runs_plain(t, 4096))
+
+
+@pytest.mark.parametrize("k", [27, *workloads.WIDE_STRAIN_K])
+@pytest.mark.parametrize("run_len,real", [(1 << 16, 1 << 14), (3001, 750),
+                                          (4096, 0), (5000, 5000)])
+def test_merge_runs_sharded_shapes(dev, k, run_len, real):
+    """K6 at the sharded flush's arrival shape, scaled down: 8 runs with
+    SENTINEL tails at 3/4 (and a run length off every tile, no real key at
+    all, no tail), one word (k = 27) and W = 2..9: one launch a call, the
+    input untouched, equal to the plain version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + run_len)
+    keys = workloads.sharded_runs(k, dev, g, run_len=run_len, real=real)
+    fn, plain = ((merge_runs, merge_runs_plain) if keys.dim() == 1 else
+                 (merge_runs_words, merge_runs_words_plain))
+    kept = keys.clone()
+    before = fn.launches
+    got = fn(keys, run_len)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(keys, run_len))
+    assert torch.equal(keys, kept)  # input untouched
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 9])
+@pytest.mark.parametrize("g_runs", [17, 33, 128, 300])
+def test_merge_runs_many_passes(dev, n_words, g_runs):
+    """More than 16 runs take several passes through the ping-pong buffer
+    (2 for 17-256, 3 for 300): runs of 1024 keys with 30% SENTINEL, the
+    last short; equal to the plain version and to merge_runs_model at the
+    card's tile."""
+    from kat_tpu_torch.ops.sort_kernel import (merge_passes,
+                                               merge_runs_model,
+                                               merge_runs_tile)
+
+    rng = np.random.default_rng(g_runs + n_words)
+    run_len = 1024
+    n = g_runs * run_len - 100
+    if n_words == 1:
+        keys = torch.from_numpy(_runs(rng, n, run_len)).to(dev)
+        fn, plain = merge_runs, merge_runs_plain
+    else:
+        g = torch.Generator(device=dev)
+        g.manual_seed(g_runs)
+        k = {2: 41, 9: 255}[n_words]
+        keys = workloads.sorted_runs(
+            workloads.wide_keys(k, n, dev, g, sent=0.3), run_len)
+        fn, plain = merge_runs_words, merge_runs_words_plain
+    assert len(merge_passes(n, run_len)) == (3 if g_runs > 256 else 2)
+    got = fn(keys, run_len)
+    assert torch.equal(got, plain(keys, run_len))
+    assert torch.equal(got, merge_runs_model(keys, run_len,
+                                             merge_runs_tile(n_words)))
 
 
 @pytest.mark.parametrize("mode", MODES)

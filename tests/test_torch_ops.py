@@ -19,9 +19,13 @@ from kat_tpu_torch.ops.merge_kernel import merge_sorted, merge_sorted_payload
 from kat_tpu_torch.ops.reduce_kernel import compact_flagged, reduce_by_key
 from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
                                                      profile_rounds_plain)
-from kat_tpu_torch.ops.sort_kernel import (merge_runs, sort_chunks, sort_keys,
-                                           sort_keys_plain, sort_pairs,
-                                           sort_pairs_plain)
+from kat_tpu_torch.ops.sort_kernel import (merge_passes, merge_plan_model,
+                                           merge_runs, merge_runs_model,
+                                           merge_runs_plain, sort_chunks,
+                                           sort_keys, sort_keys_plain,
+                                           sort_pairs, sort_pairs_plain,
+                                           sort_words_plain,
+                                           words_order_plain)
 
 torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 
@@ -373,6 +377,118 @@ def test_merge_runs_matches_jax(g, run_len):
     np.testing.assert_array_equal(
         got.numpy(), from_planes(np.asarray(hi), np.asarray(lo)))
     np.testing.assert_array_equal(got.numpy(), np.sort(keys))
+
+
+K6_CASES = ("random", "ties", "all_sentinel", "empty_prefixes",
+            "short_last")
+K6_RUNS = (1, 2, 3, 8, 9, 16, 17, 128)
+K6_TILE = 13  # outputs a tile of the model: many boundaries, none aligned
+K6_SAMPLE = 7  # keys between samples: several a run
+
+
+def _k6_runs(name, R, W, rng):
+    """[W, n] words in R ascending runs (W = 1: one word) where the k-way
+    merge's plan can go wrong: random keys with sentinel tails of random
+    length; ties (keys from a universe of 3 per word, equal across runs);
+    every run all SENTINEL; every other run all SENTINEL (no real
+    prefix); a short last run.  Returns (keys, run_len)."""
+    run_len = 20 if R > 17 else 40
+    n = R * run_len - (run_len // 3 if name == "short_last" else 0)
+    vals = 3 if name == "ties" else 1 << 62
+    keys = torch.from_numpy(rng.integers(0, vals, (W, n), dtype=np.int64))
+    for r, lo in enumerate(range(0, n, run_len)):
+        seg = keys[:, lo:lo + run_len]
+        seg = seg[:, words_order_plain(seg)]
+        cut = int(rng.integers(0, seg.shape[1] + 1))
+        if name == "all_sentinel" or (name == "empty_prefixes" and r % 2):
+            cut = 0
+        seg[:, cut:] = SENTINEL
+        keys[:, lo:lo + run_len] = seg
+    return keys, run_len
+
+
+def _stable_split(words, start, run_len, length, d):
+    """The exact split of boundary d (keys of each run among the first d of
+    the stable merge of the group's real keys), by a full stable sort."""
+    parts, runs = [], []
+    for r, lo in enumerate(range(start, start + length, run_len)):
+        seg = words[:, lo:min(lo + run_len, start + length)]
+        real = seg[:, ~(seg == SENTINEL).all(0)]
+        parts.append(real)
+        runs.append(torch.full((real.shape[1],), r))
+    cat = torch.cat(parts, dim=1)
+    rid = torch.cat(runs)[words_order_plain(cat)]
+    return torch.bincount(rid[:d], minlength=len(parts)), cat
+
+
+@pytest.mark.parametrize("W", [1, 2, 9])
+@pytest.mark.parametrize("R", K6_RUNS)
+@pytest.mark.parametrize("name", K6_CASES)
+def test_k6_plan_model_against_a_full_sort(name, R, W):
+    """csrc/merge_runs.cu's k-way merge step by step (merge_runs_model,
+    a sample every 7 keys): in every pass and group, each boundary's
+    per-run starts sum to the boundary (the group's real keys past the
+    last), equal the exact split of a full stable sort, the sorted
+    concatenation of each tile's slices is that slice of the group's
+    merge, and the whole merge equals the plain version; R = 17 and 128
+    take two passes."""
+    rng = np.random.default_rng(R * 10 + W)
+    keys, run_len = _k6_runs(name, R, W, rng)
+    n = keys.shape[1]
+    words = keys
+    for rl, fan in merge_passes(n, run_len):
+        nxt = torch.full_like(words, SENTINEL)
+        for start in range(0, n, rl * fan):
+            length = min(rl * fan, n - start)
+            plan = merge_plan_model(words, start, rl, fan, length, K6_TILE,
+                                    K6_SAMPLE)
+            real = plan[-1]
+            n_real = int(real.sum())
+            for t in range(plan.shape[0]):
+                d = min(t * K6_TILE, n_real)
+                assert int(plan[t].sum()) == d
+                want, cat = _stable_split(words, start, rl, length, d)
+                assert torch.equal(plan[t], want)
+            merged = cat[:, words_order_plain(cat)]
+            for t in range(plan.shape[0] - 1):
+                got = torch.cat([words[:, start + r * rl + int(plan[t, r]):
+                                       start + r * rl + int(plan[t + 1, r])]
+                                 for r in range(plan.shape[1])], dim=1)
+                lo = t * K6_TILE
+                assert torch.equal(got[:, words_order_plain(got)],
+                                   merged[:, lo:lo + got.shape[1]])
+            nxt[:, start:start + n_real] = merged
+        words = nxt
+    want = (sort_words_plain(keys) if W > 1
+            else merge_runs_plain(keys[0], 1)[None])
+    assert torch.equal(words, want)
+    got = merge_runs_model(keys if W > 1 else keys[0], run_len, K6_TILE,
+                           K6_SAMPLE)
+    assert torch.equal(got, want if W > 1 else want[0])
+
+
+def test_k6_passes():
+    """Up to 16 runs a pass, the groups as even as they go: one pass for a
+    mesh of 8 or 16, two for the bucketed flush's 128 runs, none for one
+    run."""
+    assert merge_passes(8 << 22, 1 << 22) == [(1 << 22, 8)]
+    assert merge_passes(16 * 5, 5) == [(5, 16)]
+    assert merge_passes(128 << 14, 1 << 14) == [(1 << 14, 16), (1 << 18, 8)]
+    assert merge_passes(17, 1) == [(1, 9), (9, 2)]
+    assert merge_passes(999, 1000) == [] == merge_passes(1, 1)
+    assert len(merge_passes(300, 1)) == 3
+
+
+def test_k6_plan_model_flipped_keyp_and_duplicates():
+    """The bucketed flush's key' of k = 29 is negative where bit 63 is
+    flipped: the plan orders signed words, SENTINEL (INT64_MAX) last."""
+    rng = np.random.default_rng(29)
+    keys = rng.integers(-(1 << 62), 1 << 62, 16 * 64)
+    keys[rng.random(keys.size) < 0.2] = SENTINEL
+    keys[::5] = keys[7]
+    keys = np.sort(keys.reshape(16, 64), axis=1).reshape(-1)
+    t = torch.from_numpy(keys)
+    assert torch.equal(merge_runs_model(t, 64, 17), torch.sort(t).values)
 
 
 def test_chunk_and_run_wrappers_reject_bad_input():

@@ -283,6 +283,46 @@ def test_merge_runs_words_plain_matches_bitonic_merge_runs(k):
     assert (got.numpy() == want).all()
 
 
+@pytest.mark.parametrize("k", [13, 27, 31, 41, 95])
+def test_k6_model_on_the_arrival_buffers(k, monkeypatch):
+    """The card's k-way K6 step by step (sort_kernel.merge_runs_model) on
+    the buffers a sharded flush really hands K6: 8 runs of route_cap
+    slots, each a sorted real prefix and a SENTINEL tail (3/4 of the slots
+    at route slack 4).  The plan's last row is each run's real length, and
+    the model's merge equals the plain one the flush ran."""
+    seen = []
+
+    def spy(real):
+        def merge(arr, run_len):
+            seen.append((arr.clone(), run_len))
+            return real(arr, run_len)
+        return merge
+
+    monkeypatch.setattr(sharded, "merge_runs", spy(sharded.merge_runs))
+    monkeypatch.setattr(sharded, "merge_runs_words",
+                        spy(sharded.merge_runs_words))
+    tc = sharded.ShardedCounter(_mesh(8), k, shard_capacity=1 << 10,
+                                route_slack=4.0, flush_batches=2)
+    for b in _batches(k, n_batches=2, length=200):
+        tc.add_codes(b)
+    tc.check()
+    assert seen and len(seen) % 8 == 0  # 8 destinations a flush
+    sent = 0
+    for arr, rc in seen:
+        words = arr if arr.dim() == 2 else arr[None]
+        n = words.shape[1]
+        assert n == 8 * rc
+        plan = sort_kernel.merge_plan_model(words, 0, rc, 8, n, 64, 16)
+        real = (words[0] != kmers.SENTINEL).reshape(8, rc).sum(1)
+        assert torch.equal(plan[-1], real)
+        sent += n - int(real.sum())
+        want = (sort_kernel.merge_runs_words_plain(arr, rc) if arr.dim() == 2
+                else sort_kernel.merge_runs_plain(arr, rc))
+        assert torch.equal(sort_kernel.merge_runs_model(arr, rc, 64, 16),
+                           want)
+    assert sent > 0.6 * len(seen) * n  # mostly SENTINEL tails
+
+
 def test_merge_runs_words_plain_cases():
     """Any run length, a short last run, one run, ties across runs."""
     rng = np.random.default_rng(2)
