@@ -33,10 +33,12 @@
    and 255 (W = 2..9); their kernels and memsets inside one call are
    counted in the same profiled window as the others;
 2c. checks the binned-sums kernel (csrc/binned.cu, the binned form of
-   kat_tpu's K1 + K3) against its plain version at the main path's shapes:
-   2^24 slots binned into the histogram's 10,001 bins, gcp's 28,028, and
-   comp's 1,002,001 with three masks at the reads-against-assembly skew
-   and uniform; and K2 with two payload planes and the two K4 compactions
+   kat_tpu's K1 + K3) against its plain version and the window kernel it
+   replaced (benchmarks/earlier/, timed beside it) at the main path's
+   shapes: 2^24 slots binned into the histogram's 10,001 bins, gcp's
+   28,028, and comp's 1,002,001 with three masks at the
+   reads-against-assembly skew and uniform; and K2 with two payload planes
+   and the two K4 compactions
    of the fused dual probe at its shape (two 2^24-slot tables), the probe
    as a whole against two binary searches; each timed beside its library
    call, five runs with equal outputs, counted in the same profiled
@@ -77,7 +79,9 @@
    of 24 batches (Comp.compare_tables, default bins and scales, the dual
    probe engaged), cold and warm, held against numpy over the tables' keys
    and counts; the binned-sums, K2-with-payload and K4 launches of each
-   run are read;
+   run are read; the packed form of the binned sums (`packed_sums`) is
+   then held against its plain version and the window kernel on the
+   inputs comp pass 1 and pass 2 gave it over that table, and timed;
 4b. drives wide-key counting through WideCodeStreamingCounter on the main
    path's reads at k = 41 (193,462,272 windows, table grown from 2^20 to
    2^24 slots, W = 2) and on 8 of its batches at k = 95 (W = 4, a top word
@@ -137,8 +141,10 @@
    router reported.  Prints both file-to-table times, the router's host
    windows/s, the device k-mers/s of both flushes over staged input, the
    record fill and the groups per flush; then checks and times K5 at one
-   flush's shape and K6 at the largest hot group that run saw (beside
-   the tree it replaced), and runs
+   flush's shape (uniform 60-bit keys, and that run's first flush, whose
+   chunks' keys share their high bits), beside the bitonic kernel it
+   replaced, and K6 at the largest hot group that run saw (beside the tree
+   it replaced); then runs
    K7's microbenchmark, whose costliest class is also held against its
    plain version at the full round count.  Then `filter seq --stats -s`
    of that FASTA against its genome's k-mers at k = 27 and 41
@@ -177,13 +183,21 @@ ALU_OPS_PER_S = 67e12      # H100 SXM, published float32 rate outside the
 #                            compares and adds, which have no published rate
 
 
+SPIN_CYCLES = 50_000_000  # ~25 ms of the card's clock
+
+
 def _timed_ms(fn, reps: int) -> float:
+    """ms of one call of fn on the card: CUDA events around `reps` calls
+    after a warm-up, queued behind a spin kernel so that the events time
+    the card's work, not the host's launches (a packed_sums call takes
+    0.04-0.1 ms of host time, its kernels 0.06 ms at comp pass 2)."""
     import torch
 
     fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -601,14 +615,16 @@ def check_binned_kernels(dev, gen):
     entries and their (entry, call) pairs."""
     import torch
 
-    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.benchmarks import earlier_kernels, workloads
     from kat_tpu_torch.ops import binned_kernel as bk
 
     results, counted = [], []
     for shape in workloads.BINNED_SHAPES:
         bins, masks, total = workloads.binned_inputs(shape, dev, gen)
         got = bk.binned_sums(bins, masks, total)
-        err = _max_abs_err(got, bk.binned_sums_plain(bins, masks, total))
+        err = max(_max_abs_err(got, bk.binned_sums_plain(bins, masks, total)),
+                  _max_abs_err(got, earlier_kernels.binned_sums(bins, masks,
+                                                                total)))
         _repeat_equal(f"binned sums ({shape})",
                       lambda: (bk.binned_sums(bins, masks, total),))
         # the library call per mask: torch.bincount of the masked bins
@@ -620,6 +636,8 @@ def check_binned_kernels(dev, gen):
             source="kat_tpu_torch/csrc/binned.cu", replaces=BINNED_REPLACES,
             max_abs_err=err,
             ms=_timed_ms(lambda: bk.binned_sums(bins, masks, total), 10),
+            earlier_ms=_timed_ms(
+                lambda: earlier_kernels.binned_sums(bins, masks, total), 10),
             plain_ms=_timed_ms(
                 lambda: bk.binned_sums_plain(bins, masks, total), 5),
             # one add per set mask element; a read of the bins and masks,
@@ -638,8 +656,89 @@ def check_binned_kernels(dev, gen):
                         lambda bins=bins, masks=masks, total=total:
                         bk.binned_sums(bins, masks, total)))
         del got, lib_bins
-    print(f"binned sums: a block holds {bk.window_len()} shared counters")
+    print(f"binned sums: a block holds {bk.window_len()} counters of the "
+          f"one-pass groups; the window kernel they replaced took "
+          + ", ".join(f"{e['earlier_ms']:.3f}" for e in results) + " ms")
     return results, counted
+
+
+def check_packed_sums(dev, captured):
+    """The binned-sums kernel's packed form (`packed_sums`) against its
+    plain version and the window kernel it replaced on the inputs comp
+    pass 1 and pass 2 gave it over the main table (captured in
+    comp_path), five runs each with equal outputs, timed beside one
+    `torch.bincount` per request.  Returns the entries; each entry's
+    launches are the calls one two-input comp made with that request
+    set."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import earlier_kernels
+    from kat_tpu_torch.ops import binned_kernel as bk
+
+    results = []
+    for what, (packed, masks, reqs) in zip(("comp pass 1", "comp pass 2"),
+                                           captured, strict=True):
+        got = bk.packed_sums(packed, masks, reqs)
+        err = max(_same(got, bk.packed_sums_plain(packed, masks, reqs)),
+                  _same(got, earlier_kernels.packed_sums(packed, masks,
+                                                         reqs)))
+        _repeat_equal(f"packed sums ({what})",
+                      lambda: bk.packed_sums(packed, masks, reqs))
+        lib_in = [torch.where(masks[mi], (packed.to(torch.int64) // d) % m,
+                              m) for d, m, mi in reqs]
+        results.append(_report(dict(
+            name=f"packed_sums[{what}]", route="cuda",
+            source="kat_tpu_torch/csrc/binned.cu", replaces=BINNED_REPLACES,
+            max_abs_err=err,
+            ms=_timed_ms(lambda: bk.packed_sums(packed, masks, reqs), 10),
+            earlier_ms=_timed_ms(lambda: earlier_kernels.packed_sums(
+                packed, masks, reqs), 10),
+            plain_ms=_timed_ms(
+                lambda: bk.packed_sums_plain(packed, masks, reqs), 5),
+            # one add per request whose mask is set; a read of the keys and
+            # the masks, a write of every request's bins
+            **_bound(_nbytes(packed, masks, *got),
+                     sum(int(masks[mi].sum()) for _d, _m, mi in reqs)),
+            library_ms=_timed_ms(lambda: [
+                torch.bincount(b, minlength=m + 1)
+                for b, (_d, m, _i) in zip(lib_in, reqs)], 5),
+            requests=[list(r) for r in reqs], shape=[*masks.shape],
+            launches=sum(c[2] == reqs for c in captured)),
+            f"packed sums [{what}] {packed.numel()} keys, requests {reqs}"))
+        del got, lib_in
+    return results
+
+
+def later_rows_inside(dev, gen):
+    """(entry, call) pairs for count_inside of the rows checked after the
+    profiled window (a later one traced nothing once), on inputs of their
+    shapes: the packed sums at comp pass 1's and pass 2's request sets on
+    a table of the main path's size (workloads.packed_inputs), and K5 on
+    one flush of uniform keys.  The entries are named as those rows and
+    carry the request sets and shapes counted, which main holds against
+    the rows' own (what a call launches depends on nothing else)."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core import bucketed
+    from kat_tpu_torch.ops import binned_kernel as bk
+    from kat_tpu_torch.ops import sort_kernel
+
+    pairs = []
+    for what, shape in zip(("comp pass 1", "comp pass 2"),
+                           workloads.PACKED_SHAPES):
+        packed, masks, reqs = workloads.packed_inputs(shape, dev, gen)
+        pairs.append((dict(name=f"packed_sums[{what}]",
+                           requests=[list(r) for r in reqs],
+                           shape=[*masks.shape]),
+                      lambda packed=packed, masks=masks, reqs=reqs:
+                      bk.packed_sums(packed, masks, reqs)))
+    chunk = 1 << bucketed.SLOTS_LOG
+    keys = torch.randint(0, 1 << 60, (bucketed.MAX_CHUNKS * chunk,),
+                         dtype=torch.int64, device=dev, generator=gen)
+    pairs.append((dict(name="chunk_sort", shape=[keys.numel(), chunk]),
+                  lambda: sort_kernel.sort_chunks(keys, chunk)))
+    return pairs
 
 
 def check_dual_probe_kernels(dev, gen):
@@ -719,15 +818,19 @@ def check_dual_probe_kernels(dev, gen):
     return results, counted
 
 
-def check_bucketed_kernels(dev, gen, group_chunks: int):
+def check_bucketed_kernels(dev, gen, group_chunks: int, k5_real):
     """K5 and K6 against their plain versions at the bucketed flush's
-    shapes: one flush of MAX_CHUNKS chunks of 2^SLOTS_LOG key' slots, and
-    one hot group of `group_chunks` chunk runs, the largest group the
-    router reported to the bucketed path."""
+    shapes: one flush of MAX_CHUNKS chunks of 2^SLOTS_LOG key' slots (60-bit
+    uniform keys, and the bucketed path's first flush, `k5_real`, whose
+    chunks' keys share their high bits), K5 beside the bitonic kernel it
+    replaced; and one hot group of `group_chunks` chunk runs, the largest
+    group the router reported to the bucketed path.  Returns the entries
+    (K5 uniform, K5 on the real flush, K6)."""
     import math
 
     import torch
 
+    from kat_tpu_torch.benchmarks import earlier_kernels
     from kat_tpu_torch.core import bucketed
     from kat_tpu_torch.core.kmers import SENTINEL
     from kat_tpu_torch.ops import sort_kernel
@@ -736,29 +839,38 @@ def check_bucketed_kernels(dev, gen, group_chunks: int):
     n = bucketed.MAX_CHUNKS * chunk
     results = []
 
-    # K5: 60-bit key' (k=27), 30% empty slots, as a flush's record fill
+    # K5: 60-bit key' (k=27), 30% empty slots, as a flush's record fill;
+    # then a real flush's key' stream
     keys = torch.randint(0, 1 << 60, (n,), dtype=torch.int64, device=dev,
                          generator=gen)
     keys[torch.rand(n, device=dev, generator=gen) < 0.3] = SENTINEL
+    for what, (k5, c5) in (("uniform", (keys, chunk)),
+                           ("a real flush", k5_real)):
+        got = sort_kernel.sort_chunks(k5, c5)
+        err = max(_max_abs_err(got, sort_kernel.sort_chunks_plain(k5, c5)),
+                  _max_abs_err(got, earlier_kernels.sort_chunks(k5, c5)))
+        plain_ms = _timed_ms(lambda: sort_kernel.sort_chunks_plain(k5, c5),
+                             3)
+        results.append(_report(dict(
+            name="chunk_sort" + ("" if what == "uniform" else "[real]"),
+            route="cuda", source="kat_tpu_torch/csrc/chunk_sort.cu",
+            replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
+            ms=_timed_ms(lambda: sort_kernel.sort_chunks(k5, c5), 5),
+            earlier_ms=_timed_ms(lambda: earlier_kernels.sort_chunks(k5, c5),
+                                 5),
+            plain_ms=plain_ms,
+            **_bound(_nbytes(k5, got), k5.numel() * int(math.log2(c5))),
+            # the plain version IS the one library call (a row-wise sort)
+            library_ms=plain_ms, shape=[k5.numel(), c5],
+            sentinel_share=float((k5 == SENTINEL).float().mean())),
+            f"K5 chunk sort {k5.numel() // c5} x {c5} keys, {what} (the "
+            "bitonic kernel it replaced: earlier_ms)"))
+        del got
+
+    # K6: the path's largest hot group of chunk runs out of the uniform
+    # stream (compared and timed beside the tree it replaced), and a pair
+    # of runs (compared)
     got = sort_kernel.sort_chunks(keys, chunk)
-    err = _max_abs_err(got, sort_kernel.sort_chunks_plain(keys, chunk))
-    plain_ms = _timed_ms(lambda: sort_kernel.sort_chunks_plain(keys, chunk), 3)
-    results.append(_report(dict(
-        name="chunk_sort", route="cuda",
-        source="kat_tpu_torch/csrc/chunk_sort.cu",
-        replaces="kat_tpu/ops/sort_kernel.py:182", max_abs_err=err,
-        ms=_timed_ms(lambda: sort_kernel.sort_chunks(keys, chunk), 5),
-        plain_ms=plain_ms,
-        **_bound(_nbytes(keys, got), n * int(math.log2(chunk))),
-        # the plain version IS the one library call (a row-wise sort)
-        library_ms=plain_ms),
-        f"K5 chunk sort {bucketed.MAX_CHUNKS} x 2^{bucketed.SLOTS_LOG} keys"))
-
-    # K6: the path's largest hot group of chunk runs out of that stream
-    # (compared and timed beside the tree it replaced), and a pair of runs
-    # (compared)
-    from kat_tpu_torch.benchmarks import earlier_kernels
-
     errs = []
     for g in (2, group_chunks):
         runs = got[:g * chunk].clone()
@@ -1622,6 +1734,23 @@ def comp_path(dev, table, genome, smi: str):
     if two != [2, 1, 2] or three != [3, 1, 2]:
         raise AssertionError(f"comp launched binned/merge_payload/compact "
                              f"{two} (two inputs), {three} (three)")
+    # the packed sums' inputs of one more two-input run, for their check
+    captured, packed_sums = [], binned_kernel.packed_sums
+
+    def capture(packed, masks, requests):
+        captured.append((packed.clone(), masks.clone(),
+                         tuple(tuple(r) for r in requests)))
+        return packed_sums(packed, masks, requests)
+
+    binned_kernel.packed_sums = capture
+    try:
+        run(False)
+    finally:
+        binned_kernel.packed_sums = packed_sums
+    if len(captured) != 2:
+        raise AssertionError(f"comp made {len(captured)} packed sums, not "
+                             "pass 1's and pass 2's")
+    launches["packed"] = captured
     return launches
 
 
@@ -2188,7 +2317,8 @@ def bucketed_path(dev, tmp: str, n_reads: int = 196_608,
     """The bucketed flush against the classic one on the same FASTA file
     (written into `tmp`), through tools.common.Input; then both over staged
     input.  Returns the launches of the bucketed run, the largest hot
-    group's chunks, the FASTA's path and the genome's codes."""
+    group's chunks, the FASTA's path, the genome's codes and K5's input in
+    the first flush (the key' stream and its chunk length)."""
     import torch
 
     from kat_tpu_torch.benchmarks.sweep_bucketed import write_reads
@@ -2267,6 +2397,11 @@ def bucketed_path(dev, tmp: str, n_reads: int = 196_608,
     group_chunks = max(1 << int(lg) for _c, g in staged for _s, lg in g)
     staged = [(torch.from_numpy(c.view(np.int64)).to(dev), g)
               for c, g in staged]
+    # K5's input in the first flush, as _sorted_stream hands it over
+    rec = staged[0][0]
+    k5_real = (minimizer.expand_records(rec, k, minimizer.M_DEFAULT)
+               .transpose(0, 1).reshape(-1),
+               rec.shape[1] * minimizer.rec_windows(k))
     batches = [torch.from_numpy(b).to(dev)
                for b in native.stream_code_batches([fa], k)]
 
@@ -2306,7 +2441,7 @@ def bucketed_path(dev, tmp: str, n_reads: int = 196_608,
           f"{rates['classic again']:.1f} k-mers/s; router (one thread) "
           f"{n_windows / route_dt:.1f} host windows/s; the largest hot group "
           f"holds {group_chunks} chunks")
-    return launches, group_chunks, fa, genome
+    return launches, group_chunks, fa, genome, k5_real
 
 
 def _numpy_windows(seq: np.ndarray, k: int):
@@ -3442,10 +3577,13 @@ def main() -> int:
     wjoin, wjoin_counted = check_wide_join_kernels(dev, gen)
     k6s, k6_counted, k6_group_call = check_merge_runs(dev, gen)
     k6_group = dict(name="merge_runs[128 runs]")
+    late = later_rows_inside(dev, gen)
     count_inside(counted + wide_counted + binned_counted + dual_counted
-                 + wjoin_counted + k6_counted + [(k6_group, k6_group_call)])
+                 + wjoin_counted + k6_counted + [(k6_group, k6_group_call)]
+                 + late)
+    late_inside = {e["name"]: e for e, _fn in late}
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
-    del k6_counted, k6_group_call
+    del k6_counted, k6_group_call, late
     lap("the kernel checks")
     launches, table, genome, ref_keys, ref_counts = main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts
@@ -3455,6 +3593,7 @@ def main() -> int:
               ref_counts.cpu().numpy())
     del ref_keys, ref_counts
     comp = comp_path(dev, table, genome, smi)
+    packed = check_packed_sums(dev, comp.pop("packed"))
     for entry in binned[2:]:
         entry["launches"] = comp["three inputs"][0]
     for entry, n in zip(dual, comp["two inputs"][1:], strict=True):
@@ -3511,7 +3650,8 @@ def main() -> int:
     lap("the CLI phases")
 
     with tempfile.TemporaryDirectory() as tmp:
-        b_launches, group_chunks, fa, bgenome = bucketed_path(dev, tmp)
+        b_launches, group_chunks, fa, bgenome, k5_real = bucketed_path(
+            dev, tmp)
         reads = _read_fasta_rows(fa, 1024)
         codes = torch.from_numpy(bgenome).to(dev)
         del bgenome
@@ -3536,15 +3676,27 @@ def main() -> int:
     wjoin[0]["launches_filter_seq"], wjoin[1]["launches_filter_seq"] = \
         fs[41][:2]
     kernels[3]["launches_filter_seq"] = fs[27][0]
-    k5, k6 = check_bucketed_kernels(dev, gen, group_chunks)
-    k5["launches"], k6["launches"] = b_launches[:2]
+    k5, k5r, k6 = check_bucketed_kernels(dev, gen, group_chunks, k5_real)
+    del k5_real
+    k5["launches"] = k5r["launches"] = b_launches[0]
+    k6["launches"] = b_launches[1]
+    # the kernels inside one call, counted in the one profiled window on
+    # inputs of the same shapes
+    for entry in (*packed, k5, k5r):
+        on = late_inside[entry["name"].split("[real")[0]]
+        for key in ("requests", "shape"):
+            if key in on and on[key] != entry[key]:
+                raise AssertionError(f"{entry['name']}: its launches inside "
+                                     f"one call were counted at {key} "
+                                     f"{on[key]}, its call has {entry[key]}")
+        entry["launches_inside"] = on["launches_inside"]
     # the inside count at 128 runs, the largest group the path reports
     k6["launches_inside"] = k6_group["launches_inside"]
     # K3, K2 with payload planes and K1 with a value also carry this path
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
-    kernels += [k5, k6, check_rounds_kernel(dev), *binned, *dual, *wjoin,
-                *k6s]
+    kernels += [k5, k5r, k6, check_rounds_kernel(dev), *binned, *packed,
+                *dual, *wjoin, *k6s]
     for entry in kernels:  # the sharded paths' launches, by run
         fn = SHARDED_WRAPPER.get(entry["name"].split("[")[0])
         runs = {run: n[fn] for run, n in sharded.items() if n.get(fn)}

@@ -1,11 +1,14 @@
-"""The kernels that the current K4, W-word K1 and K6 replaced (the
-four-launch compaction, the W-word LSD sort over every digit of every word,
-the tree of pairwise run merges), built from benchmarks/earlier/ into a
-library of their own, so that chip_smoke.py and the benchmarks can time
-the current kernels against them on the same card.  The port never calls
-them.  Same inputs and outputs as `reduce_kernel.compact_flagged`,
-`sort_kernel.sort_words`, `sort_kernel.sort_words_pairs`,
-`sort_kernel.merge_runs` and `sort_kernel.merge_runs_words`, CUDA tensors
+"""The kernels that the current K4, W-word K1, K6, binned sums and K5
+replaced (the four-launch compaction, the W-word LSD sort over every digit
+of every word, the tree of pairwise run merges, the window of shared
+counters with u64 atomics past it, the bitonic chunk sort), built from
+benchmarks/earlier/ into a library of their own, so that chip_smoke.py and
+the benchmarks can time the current kernels against them on the same
+card.  The port never calls them.  Same inputs and outputs as
+`reduce_kernel.compact_flagged`, `sort_kernel.sort_words`,
+`sort_kernel.sort_words_pairs`, `sort_kernel.merge_runs`,
+`sort_kernel.merge_runs_words`, `binned_kernel.binned_sums`,
+`binned_kernel.packed_sums` and `sort_kernel.sort_chunks`, CUDA tensors
 only."""
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ LIBRARY = _cuda.KernelLibrary(
         "kat_earlier_merge_runs": [_P, _P, _P, _I64, _I64, _P],
         "kat_earlier_merge_runs_words": [_P, _I64, _P, _P, _I64, _I64, _INT,
                                          _P],
+        "kat_earlier_binned_sums": [_P, _P, _INT, _I64, _P, _INT, _P, _P],
+        "kat_earlier_sort_chunks": [_P, _P, _I64, _INT, _P],
     })
 
 
@@ -100,4 +105,40 @@ def merge_runs_words(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     _call("kat_earlier_merge_runs_words", keys.device, keys.data_ptr(),
           keys.stride(0), out.data_ptr(),
           None if tmp is None else tmp.data_ptr(), n, run_len, W)
+    return out
+
+
+def _binned(packed: torch.Tensor, masks: torch.Tensor, requests):
+    """The one-pass window kernel: the requests' bins back to back."""
+    out = torch.zeros(sum(mod for _d, mod, _m in requests),
+                      dtype=torch.int64, device=packed.device)
+    req = (ctypes.c_int64 * (3 * len(requests)))(
+        *[v for r in requests for v in r])
+    _call("kat_earlier_binned_sums", packed.device, packed.data_ptr(),
+          masks.view(torch.uint8).data_ptr(), masks.shape[0],
+          packed.numel(), ctypes.addressof(req), len(requests),
+          out.data_ptr())
+    return out
+
+
+def packed_sums(packed: torch.Tensor, masks: torch.Tensor, requests):
+    """The one-pass window kernel: one int64 [mod] tensor per request."""
+    return tuple(_binned(packed, masks, requests).split(
+        [mod for _d, mod, _m in requests]))
+
+
+def binned_sums(bins: torch.Tensor, masks: torch.Tensor,
+                total_bins: int) -> torch.Tensor:
+    """The one-pass window kernel: int64 [M, total_bins]."""
+    return _binned(bins, masks, [(1, total_bins, m)
+                                 for m in range(masks.shape[0])]).view(
+        masks.shape[0], total_bins)
+
+
+def sort_chunks(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """The bitonic chunk sort."""
+    out = torch.empty_like(keys)
+    _call("kat_earlier_sort_chunks", keys.device, keys.data_ptr(),
+          out.data_ptr(), keys.numel() // chunk_elems,
+          chunk_elems.bit_length() - 1)
     return out

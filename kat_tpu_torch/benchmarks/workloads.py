@@ -95,6 +95,49 @@ def binned_inputs(name: str, dev, gen):
     return bins.to(torch.int32), masks, total
 
 
+PACKED_SHAPES = ("comp_pass1", "comp_pass2")
+# their request sets (div, mod, mask) as comp_engine.pass1 and pass2 make
+# them at the defaults under the dual probe
+PACKED_REQUESTS = {
+    "comp_pass1": ((1001, 1001, 0), (1001, 1001, 1), (1, 1001 * 1001, 0)),
+    "comp_pass2": ((1001, 1001, 0), (1, 1001, 1), (1001, 1001, 2))}
+
+
+def packed_inputs(name: str, dev, gen):
+    """(packed int32 [n], masks bool [M, n], requests) of comp's packed
+    binned sums (core/comp_engine.py: pass1, pass2; PACKED_REQUESTS):
+    pass 1 at the main path's table size (hash1 = the reads: 2^24 slots
+    with 8,389,530 real ones whose counts are Poisson at the reads' depth,
+    about 23.4, against an assembly that holds half of them once; the
+    column the assembly's count: requests (1001, 1001, real), (1001, 1001,
+    shared), (1, 1,002,001, real)) and pass 2 under the dual
+    probe (hash2 = the assembly's table, as comp_path in chip_smoke.py
+    builds it from the genome: 2^23 slots, all but one real, each k-mer
+    once and all but ~50 of them also in the reads; binned by its own
+    count: requests (1001, 1001, real), (1, 1001, only in hash2), (1001,
+    1001, shared))."""
+    cap, n_real = 1 << 24, 8_389_530
+    real = torch.zeros(cap, dtype=torch.bool, device=dev)
+    real[:n_real] = True
+    reads = torch.poisson(torch.full((cap,), 196_214_784 / n_real,
+                                     device=dev), generator=gen)
+    reads = torch.where(real, reads.to(torch.int64), 0)
+    asm = torch.where(real & (torch.rand(cap, device=dev, generator=gen)
+                              < 0.5), 1, 0)
+    if name == "comp_pass1":
+        packed = reads.clamp_max(1000) * 1001 + asm
+        return (packed.to(torch.int32), torch.stack([real, real & (asm > 0)]),
+                PACKED_REQUESTS[name])
+    cap2, n_real2 = 1 << 23, (1 << 23) - 1
+    real2 = torch.zeros(cap2, dtype=torch.bool, device=dev)
+    real2[:n_real2] = True
+    only = real2 & (torch.rand(cap2, device=dev, generator=gen)
+                    < 50 / n_real2)
+    packed = torch.where(real2, 1 * 1001 + 1, 0)  # count 1: bin 1, row 1
+    return (packed.to(torch.int32), torch.stack([real2, only, real2 & ~only]),
+            PACKED_REQUESTS[name])
+
+
 def dual_probe_shapes(dev, gen):
     """The fused dual probe's inputs: two 2^24-slot tables of ~2^23
     distinct 54-bit keys each from one 1.5 x 2^23 key universe (so about

@@ -15,7 +15,9 @@ mode of `_window_kernel`), `bitonic_sort_chunks` (chunk mode) and
 `sort_words` and `sort_words_pairs` its W-word sort (a split on the key's
 16-bit prefix, then a shared-memory sort of each bucket; `sort_words_model`
 is that design step by step in plain PyTorch), `sort_chunks` the
-shared-memory bitonic sort of csrc/chunk_sort.cu and `merge_runs` /
+shared-memory merge sort of csrc/chunk_sort.cu (16 keys a thread sorted in
+registers, then merge-path levels; `sort_chunks_model` is that design step
+by step in plain PyTorch) and `merge_runs` /
 `merge_runs_words` (K6 over W words, the arrival merge of the sharded
 flush, parallel/sharded.py) the k-way merge of csrc/merge_runs.cu (up to
 16 runs a pass, each pass a split plan and a merge of fixed output tiles;
@@ -131,12 +133,79 @@ sort_pairs.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 MIN_CHUNK, MAX_CHUNK = 1 << 5, 1 << 14  # what csrc/chunk_sort.cu takes
+CHUNK_ITEMS, CHUNK_TILE = 16, 1 << 14  # its keys a thread, keys a block
 
 
 def sort_chunks_plain(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
     """Plain PyTorch version: a row-wise sort of the [chunks, chunk_elems]
     view."""
     return keys.view(-1, chunk_elems).sort(dim=1).values.reshape(-1)
+
+
+def sort_chunks_model(keys: torch.Tensor, chunk_elems: int,
+                      items: int = CHUNK_ITEMS,
+                      tile: int = CHUNK_TILE) -> torch.Tensor:
+    """The card's K5 step by step in plain PyTorch, equal to
+    `sort_chunks_plain` for every input the kernel takes: tiles of `tile`
+    keys (fewer for a short input, at least one chunk and 32 threads),
+    `items` keys a thread taken striped over its chunk (SENTINEL past the
+    input); each chunk's real keys packed to its front (thread by thread)
+    and SENTINEL behind them; each live thread (one whose slots start
+    before the chunk's SENTINEL tail) sorts its `items` slots (the
+    registers' network); then merge-path levels that double the runs up
+    to the chunk, each live thread finding its split of its `items`
+    outputs by a binary search (ties to the left run) and merging them
+    serially, the rest keeping their SENTINELs."""
+    n, c = keys.numel(), chunk_elems
+    tile = max(c, 32 * items, min(tile, 1 << max(0, n - 1).bit_length()))
+    threads, c_threads = tile // items, c // items
+    t = torch.arange(threads, device=keys.device)
+    j = torch.arange(items, device=keys.device)
+    first = (t & ~(c_threads - 1)) * items + (t & (c_threads - 1))
+    mine = items * t - (t & ~(c_threads - 1)) * items
+    out = torch.empty_like(keys)
+    for base in range(0, n, tile):
+        pos = base + first[:, None] + j[None] * c_threads
+        v = torch.where(pos < n, keys[pos.clamp(max=max(n - 1, 0))],
+                        SENTINEL)
+        # per chunk, its real keys in thread order, then SENTINEL
+        per_chunk = v.reshape(-1, c)
+        real = per_chunk != SENTINEL
+        order = torch.sort((~real).to(torch.int8), dim=1, stable=True)
+        s = per_chunk.gather(1, order.indices).reshape(-1)
+        real_c = real.sum(1).repeat_interleave(c_threads)
+        live = mine < real_c
+        runs = s.view(threads, items)
+        s = torch.where(live[:, None], runs.sort(dim=1).values,
+                        runs).reshape(-1)
+        run = items
+        while run < c:
+            a0 = (items * t) & ~(2 * run - 1)
+            b0 = a0 + run
+            diag = items * t - a0
+            lo = (diag - run).clamp(min=0)
+            hi = torch.minimum(diag, torch.full_like(diag, run))
+            while bool((lo < hi).any()):
+                act = lo < hi
+                mid = (lo + hi) // 2
+                le = s[torch.where(act, a0 + mid, 0)] <= \
+                    s[torch.where(act, b0 + diag - 1 - mid, 0)]
+                lo = torch.where(act & le, mid + 1, lo)
+                hi = torch.where(act & ~le, mid, hi)
+            ia, ib = a0 + lo, b0 + diag - lo
+            merged = []
+            for _ in range(items):
+                ka = s[torch.minimum(ia, b0 - 1)]
+                kb = s[torch.minimum(ib, b0 + run - 1)]
+                take_a = (ib >= b0 + run) | ((ia < b0) & (ka <= kb))
+                merged.append(torch.where(take_a, ka, kb))
+                ia, ib = ia + take_a.to(ia.dtype), ib + (~take_a).to(ib.dtype)
+            s = torch.where(live[:, None], torch.stack(merged, 1),
+                            s.view(threads, items)).reshape(-1)
+            run *= 2
+        got = min(tile, n - base)
+        out[base:base + got] = s[:got]
+    return out
 
 
 def sort_chunks(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
@@ -146,7 +215,8 @@ def sort_chunks(keys: torch.Tensor, chunk_elems: int) -> torch.Tensor:
     no key_bits to pass).
 
     chunk_elems: a power of two in [32, 16384] (one thread block holds a
-    chunk in shared memory) that divides len(keys)."""
+    chunk in shared memory) that divides len(keys).  On the card one
+    launch of csrc/chunk_sort.cu's merge sort (`sort_chunks_model`)."""
     _cuda.require(keys, "keys", torch.int64)
     if not (MIN_CHUNK <= chunk_elems <= MAX_CHUNK) or \
             chunk_elems & (chunk_elems - 1):

@@ -586,6 +586,11 @@ def _chunk_case(name, rng, chunk, n_chunks):
         k = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
         k[rng.random(n) < 0.2] = SENTINEL
         return k
+    if name == "shared_high_bits":  # a real chunk: 8 router buckets
+        top = (np.arange(n) // chunk) * 8 + rng.integers(0, 8, n)
+        k = (top << 40) | rng.integers(0, 1 << 40, n)
+        k[rng.random(n) < 0.3] = SENTINEL
+        return k
     raise KeyError(name)
 
 
@@ -594,7 +599,7 @@ def _chunk_case(name, rng, chunk, n_chunks):
                                             (16384, 133)])
 @pytest.mark.parametrize("name", ["random", "all_sentinel_chunks",
                                   "duplicates", "sorted", "reversed",
-                                  "flipped_keyp"])
+                                  "flipped_keyp", "shared_high_bits"])
 def test_sort_chunks_matches_plain(dev, name, chunk, n_chunks):
     keys = _chunk_case(name, np.random.default_rng(chunk), chunk, n_chunks)
     t = torch.from_numpy(keys).to(dev)
@@ -1154,19 +1159,26 @@ def test_reduce_in_pieces_equals_one_launch(dev, W, monkeypatch):
 # -- binned sums (csrc/binned.cu), the binned form of K1 + K3 --
 
 def _binned_case(name, rng, dev):
-    """(bins int32, masks [M, n], total_bins) on the card."""
+    """(bins int32, masks [M, n], total_bins) on the card; the views of
+    "unaligned_views" start at odd offsets of larger tensors."""
     if name == "empty":
         n, total, m = 0, 10_001, 2
     elif name == "ragged":  # not a multiple of the block or the warp
         n, total, m = 3 * 512 + 17, 10_001, 1
     elif name == "one_bin":
         n, total, m = 1 << 20, 28_028, 1
-    elif name == "comp_three_masks":
+    elif name in ("comp_three_masks", "one_hot_past_window"):
         n, total, m = 1 << 22, 1_002_001, 3
+    elif name == "unaligned_views":
+        n, total, m = (1 << 20) + 5, 1_002_001, 2
+    elif name in ("n_mod16_1", "n_mod16_15"):
+        n, total, m = (1 << 18) + int(name[-2:].strip("_")), 10_001, 3
     else:  # "all_masks_zero"
         n, total, m = 100_003, 1_002_001, 3
     if name == "one_bin":
         bins = np.full(n, 24 * 1001 + 1, np.int32)
+    elif name == "one_hot_past_window":  # every element in the last bin
+        bins = np.full(n, total - 1, np.int32)
     elif name == "comp_three_masks":
         # reads against an assembly: nearly all in a few dozen cells, the
         # rest spread over the matrix (outside the shared window too)
@@ -1182,12 +1194,20 @@ def _binned_case(name, rng, dev):
         masks = np.stack([pick == i for i in range(m)])
     else:
         masks = rng.random((m, n)) < 0.7
+    if name == "unaligned_views":
+        # keys from a slice at an odd offset, mask planes from masks[1:]
+        # of three planes: neither starts 16-byte aligned
+        kb = torch.from_numpy(np.concatenate([np.zeros(3, np.int32), bins]))
+        mb = torch.from_numpy(np.concatenate([np.ones((1, n), bool), masks]))
+        return kb.to(dev)[3:], mb.to(dev)[1:], total
     return (torch.from_numpy(bins).to(dev), torch.from_numpy(masks).to(dev),
             total)
 
 
 @pytest.mark.parametrize("name", ["empty", "ragged", "one_bin",
-                                  "comp_three_masks", "all_masks_zero"])
+                                  "comp_three_masks", "all_masks_zero",
+                                  "unaligned_views", "n_mod16_1",
+                                  "n_mod16_15", "one_hot_past_window"])
 def test_binned_sums_matches_plain(dev, name):
     from kat_tpu_torch.ops.binned_kernel import (binned_sums,
                                                  binned_sums_plain)
@@ -1204,6 +1224,8 @@ def test_binned_sums_matches_plain(dev, name):
     if name == "one_bin":
         assert int(got[0, 24 * 1001 + 1]) == bins.numel() - int(
             (~masks[0]).sum())
+    if name == "one_hot_past_window":
+        assert torch.equal(got[:, -1], masks.sum(1))
 
 
 def test_binned_sums_uint8_masks_and_repeats(dev):
@@ -1225,7 +1247,11 @@ def test_binned_sums_uint8_masks_and_repeats(dev):
 @pytest.mark.parametrize("reqs", [
     ((1001, 1001, 0), (1001, 1001, 1), (1, 1001 * 1001, 0)),
     ((1001, 1001, 0), (1, 1001, 1), (1001, 1001, 2)),
-    ((7, 50_000, 2),)], ids=["comp_pass1", "comp_pass2", "one_request"])
+    ((7, 50_000, 2),),
+    ((1, 1, 0), ((1 << 31) - 1, 3, 1), ((1 << 31) - 2, 1 << 20, 2)),
+    ((1, 1 << 28, 0), (3, 1 << 22, 1))],
+    ids=["comp_pass1", "comp_pass2", "one_request", "div_near_2_31",
+         "ranges_widened"])
 def test_packed_sums_matches_plain(dev, reqs):
     from kat_tpu_torch.ops.binned_kernel import packed_sums, packed_sums_plain
 
@@ -1233,7 +1259,11 @@ def test_packed_sums_matches_plain(dev, reqs):
     n = (1 << 22) + 333
     s1 = np.minimum(rng.poisson(24, n), 1000)
     s2 = np.minimum(rng.poisson(1, n), 1000)
-    packed = torch.from_numpy((s1 * 1001 + s2).astype(np.int32)).to(dev)
+    packed = (s1 * 1001 + s2).astype(np.int32)
+    if max(d * m for d, m, _i in reqs) > 1 << 27:  # keys across all int32
+        packed = np.where(rng.random(n) < 0.5, packed,
+                          rng.integers(0, 1 << 31, n)).astype(np.int32)
+    packed = torch.from_numpy(packed).to(dev)
     masks = torch.from_numpy(rng.random((3, n)) < 0.6).to(dev)
     got = packed_sums(packed, masks, reqs)
     want = packed_sums_plain(packed, masks, reqs)

@@ -22,6 +22,8 @@ from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
 from kat_tpu_torch.ops.sort_kernel import (merge_passes, merge_plan_model,
                                            merge_runs, merge_runs_model,
                                            merge_runs_plain, sort_chunks,
+                                           sort_chunks_model,
+                                           sort_chunks_plain,
                                            sort_keys, sort_keys_plain,
                                            sort_pairs, sort_pairs_plain,
                                            sort_words_plain,
@@ -349,6 +351,70 @@ def test_sort_chunks_matches_jax(n, chunk):
         got.numpy(), from_planes(np.asarray(hi), np.asarray(lo)))
     np.testing.assert_array_equal(
         got.numpy(), np.sort(keys.reshape(-1, chunk), axis=1).reshape(-1))
+    assert torch.equal(sort_chunks_model(torch.from_numpy(keys), chunk), got)
+
+
+def _chunk_model_case(name, rng, n):
+    """(keys for the port, keys for kat_tpu's unsigned planes): the two
+    differ only for the flipped key' form, whose bit 63 the port flips."""
+    if name == "all_sentinel":
+        keys = np.full(n, SENTINEL, np.int64)
+    elif name == "all_equal":
+        keys = np.full(n, 12345, np.int64)
+    elif name == "shared_top_20_bits":
+        keys = (np.int64(0xABCDE) << 40) | rng.integers(0, 1 << 40, n)
+        keys[rng.random(n) < 0.3] = SENTINEL
+    elif name == "flipped_keyp":  # negative key' sort below the rest
+        u = rng.integers(0, 1 << 64 - 1, n, dtype=np.uint64)
+        sent = rng.random(n) < 0.2
+        keys = (u ^ np.uint64(1 << 63)).astype(np.int64)
+        keys[sent] = SENTINEL
+        u[sent] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        return keys, (u >> np.uint64(32)).astype(np.uint32), \
+            (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    else:  # "mixed": 30% sentinels, duplicates
+        keys = _keys(rng, n, bits=60, sent_frac=0.3)
+        keys[: n // 4] = keys[n // 4]
+    return (keys, *to_planes(keys))
+
+
+@pytest.mark.parametrize("name", ["all_sentinel", "all_equal",
+                                  "shared_top_20_bits", "flipped_keyp"])
+def test_sort_chunks_model_matches_jax(name):
+    """K5's design step by step (`sort_chunks_model`: 16 keys a thread in
+    registers, then merge-path levels) against kat_tpu's chunk-mode
+    kernel in interpret mode and the plain version, at 2 chunks of 1024
+    keys: one tile of both chunks at the default geometry (6 merge
+    levels), and 4 keys a thread in tiles of one chunk each (a tile
+    boundary between the chunks; 8 merge levels)."""
+    keys, hi, lo = _chunk_model_case(name, np.random.default_rng(11), 2048)
+    jhi, jlo = bitonic_sort_chunks((jnp.asarray(hi), jnp.asarray(lo)), 2,
+                                   1024, block_rows=8, interpret=True)
+    u = (np.asarray(jhi).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(jlo).astype(np.uint64)
+    t = torch.from_numpy(keys)
+    want = sort_chunks_plain(t, 1024)
+    if name == "flipped_keyp":
+        back = want.numpy().astype(np.uint64) ^ np.uint64(1 << 63)
+        np.testing.assert_array_equal(back, u)
+    else:
+        np.testing.assert_array_equal(want.numpy(), from_planes(jhi, jlo))
+    assert torch.equal(sort_chunks_model(t, 1024), want)
+    assert torch.equal(sort_chunks_model(t, 1024, items=4, tile=1024), want)
+
+
+@pytest.mark.parametrize("name", ["mixed", "all_sentinel", "all_equal",
+                                  "shared_top_20_bits", "flipped_keyp"])
+@pytest.mark.parametrize("chunk,n_chunks", [(32, 5), (64, 3), (512, 3)])
+def test_sort_chunks_model_small_chunks(name, chunk, n_chunks):
+    """The model at chunk sizes kat_tpu's kernel does not take (below its
+    1024-key block): many chunks a tile, a tile padded past the input."""
+    keys, _hi, _lo = _chunk_model_case(name, np.random.default_rng(chunk),
+                                       chunk * n_chunks)
+    t = torch.from_numpy(keys)
+    want = sort_chunks_plain(t, chunk)
+    assert torch.equal(sort_chunks_model(t, chunk), want)
+    assert torch.equal(sort_chunks_model(t, chunk, items=4, tile=128), want)
 
 
 def test_sort_chunks_orders_the_flipped_keyp_form():

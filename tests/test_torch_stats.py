@@ -70,6 +70,11 @@ def test_binned_sums_match_jax(jax_path, n, total, n_masks):
         assert g.dtype == torch.int64 and g.shape == (total,)
         np.testing.assert_array_equal(_u64(g), _u64(w))
     assert sum(int(g.sum()) for g in got) == sum(int(m.sum()) for m in masks)
+    model = bk.partition_model(_t(bins), _t(np.stack(masks)),
+                               [(1, total, m) for m in range(n_masks)],
+                               **TINY)
+    for g, w in zip(model, got, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("jax_path,n", [("scatter", 4127),
@@ -93,6 +98,9 @@ def test_monotone_packed_sums_match_jax(jax_path, n):
                                       [_t(m) for m in masks])
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(_u64(g), _u64(w))
+    for g, w in zip(bk.partition_model(_t(packed), _t(np.stack(masks)), reqs,
+                                       **TINY), got, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("jax_path,n", [("scatter", 4133), ("kernel", 4093)],
@@ -115,6 +123,96 @@ def test_monotone_packed_sums_nested_request_matches_jax(jax_path, n):
                                       [_t(m) for m in masks])
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(_u64(g), _u64(w))
+    for g, w in zip(bk.partition_model(_t(packed), _t(np.stack(masks)), reqs,
+                                       **TINY), got, strict=True):
+        assert torch.equal(g, w)
+
+
+# the card's geometry, and one small enough that ~4K elements cut ranges
+# into pieces, widen ranges past their window and span many tiles
+TINY = dict(small=0, max_ranges=16, window_bits=(6, 5), blocks=3, tile=256)
+
+
+def _partition_case(name, rng):
+    """(keys int32, masks bool [M, n], requests, kat_tpu's sums)."""
+    if name in ("one_hot_past_window", "all_masks_zero"):
+        n, total = (4097, 1_002_001) if name[0] == "o" else (4111, 1_002_001)
+        m = 3 if name[0] == "o" else 2
+        keys = np.full(n, total - 1, np.int32) if name[0] == "o" else \
+            rng.integers(0, total, n).astype(np.int32)
+        masks = rng.random((m, n)) < 0.6 if name[0] == "o" else \
+            np.zeros((m, n), bool)
+        reqs = [(1, total, i) for i in range(m)]
+        want = jstats.binned_sums(total, jnp.asarray(keys),
+                                  tuple(jnp.asarray(x) for x in masks))
+        return keys, masks, reqs, want
+    n = 4129
+    if name == "div_edges":  # keys across int32, divisors 1 to 2^31 - 1
+        keys = rng.integers(0, 1 << 31, n).astype(np.int32)
+        keys[:4] = [0, 1, (1 << 31) - 1, (1 << 31) - 2]
+        masks = rng.random((3, n)) < 0.6
+        reqs = [(1, 1, 0), ((1 << 31) - 1, 3, 1), (1001, 1001, 2)]
+        want = [jstats.binned_sum(mod, jnp.asarray((keys.astype(np.int64)
+                                                    // div) % mod),
+                                  jnp.asarray(masks[mi]))
+                for div, mod, mi in reqs]
+        return keys, masks, reqs, want
+    s1 = np.minimum(rng.poisson(24, n), 1000)
+    s2 = np.minimum(rng.poisson(1, n), 1000)
+    masks = rng.random((3, n)) < np.array([[0.9], [0.5], [0.3]])
+    if name == "comp_pass1":  # the spectrum is the matrix key's high part
+        reqs = [(1001, 1001, 0), (1001, 1001, 1), (1, 1001 * 1001, 0)]
+        packed, cap = s1 * 1001 + s2, 0
+    else:  # comp_pass2: spectrum and column both from hash2's count
+        reqs = [(1001, 1001, 0), (1, 1001, 1), (1001, 1001, 2)]
+        packed, cap = s1 * 1001 + np.minimum(s1 + 2, 1000), 2 * 1001 + 8
+    keys = packed.astype(np.int32)
+    want = jstats.monotone_packed_sums(
+        jnp.asarray(keys), 1001 * 1001, tuple(reqs),
+        tuple(jnp.asarray(x) for x in masks), runs_cap=cap)
+    return keys, masks, reqs, want
+
+
+@pytest.mark.parametrize("jax_path", ["scatter"], indirect=True)
+@pytest.mark.parametrize("name", ["one_hot_past_window", "all_masks_zero",
+                                  "div_edges", "comp_pass1", "comp_pass2"])
+def test_partition_model_matches_jax(jax_path, name):
+    """The card's binned sums step by step (`bk.partition_model`: one-pass
+    groups, range counts, the plan, the scatter of words tile by tile,
+    the count of each range or piece) against kat_tpu and the plain
+    version: every element in the last bin (past any window), all masks
+    zero, n % 16 of 1 and 15 (the masks' planes unaligned), divisors of 1,
+    1001 and 2^31 - 1 with mod 1, comp pass 1's and pass 2's requests; at
+    the card's geometry and at TINY's."""
+    keys, masks, reqs, want = _partition_case(
+        name, np.random.default_rng(len(name)))
+    kt, mt = _t(keys), _t(masks)
+    plain = bk.packed_sums_plain(kt, mt, reqs)
+    for geometry in ({}, TINY):
+        got = bk.partition_model(kt, mt, reqs, **geometry)
+        for g, p, w in zip(got, plain, want, strict=True):
+            assert torch.equal(g, p)
+            np.testing.assert_array_equal(_u64(g), _u64(w))
+
+
+def test_partition_plan_and_magic_numbers():
+    """`bk.plan` as csrc/binned.cu's make_plan sizes comp's requests, and
+    the multiply-high division exact at the edges of int32."""
+    one, parted = bk.plan(((1001, 1001, 0), (1001, 1001, 1),
+                           (1, 1001 * 1001, 0)))
+    assert [len(g["masks"]) for g in one] == [2]
+    assert [(g["rb"], g["nr"]) for g in parted] == [(14, 62)]
+    one, parted = bk.plan([(1, 1001 * 1001, m) for m in range(3)])
+    assert not one and [(g["rb"], g["nr"]) for g in parted] == [(13, 123)]
+    _one, parted = bk.plan([(1, 1 << 28, 0), (3, 1 << 22, 1)])
+    assert sum(g["nr"] for g in parted) <= bk.MAX_RANGES
+    x = torch.tensor([0, 1, 1000, 1001, 1002000, 1 << 30, (1 << 31) - 2,
+                      (1 << 31) - 1], dtype=torch.int64)
+    for d in (1, 2, 3, 7, 1000, 1001, 1 << 20, (1 << 30) + 1, (1 << 31) - 1):
+        m, sh = bk.magic(d)
+        assert 0 <= m < 1 << 32
+        for mod in (1, 3, 1001, (1 << 31) - 1):
+            assert torch.equal(bk.bin_of(x, d, mod), (x // d) % mod)
 
 
 @pytest.mark.parametrize("jax_path,n,nb", [
