@@ -113,8 +113,17 @@
    W-word), K2 and K3 must each have been launched by the counting runs,
    which are read between a reset and their end (K6 is held against its
    plain version at these runs' arrival shapes in step 2e);
-5. runs `python -m kat_tpu_torch` on synthetic files: `hist -d` (held
-   against numpy) and `hist` from the dumped .jf (same histogram);
+5. runs `python -m kat_tpu_torch` on synthetic files (200,000 reads of
+   150 bases from a 2^20-base genome): `hist -d` (held against numpy) and
+   `hist` from the dumped .jf (same histogram), and `hist --flush
+   bucketed` through cli.main.  hist, gcp, comp and cold here and in 6b
+   plot and analyse peaks as kat_tpu's default runs do: every plot and
+   the analysis's figure is a PNG, or, where matplotlib is not installed,
+   `Plotting failed: ...` is on stderr once per plot (kat_tpu's contract
+   for the optional library; the first CLI line says which libraries are
+   installed); every `.dist_analysis.json` names a homozygous peak within
+   PEAK_TOLERANCE of the read model's k-mer coverage; the seconds the
+   plots and analysis add are printed per mode;
 6. runs `sect` of 200 contigs against those reads through the command
    line's entry point (kat_tpu_torch.cli.main) inside this process, so
    that the tool's own launches can be read: the six counts are set to 0
@@ -124,13 +133,19 @@
    against numpy; then `gcp`, `comp` of the reads against the contigs
    (with `-d`), with a third read set, and of the two dumped .jf through
    cli.main, every artifact against numpy;
-   `cold`, `filter kmer -c 5 -d 100` and `filter seq --stats` through
-   cli.main against numpy;
-6b. the same at k = 41: `hist -m 41 -d` and `hist` of its .jf as
-   processes, `sect -m 41` through cli.main with the W-word kernels' and
-   the wide join's launch counts read around it (the wide join once per
-   length bucket the policy takes), `gcp -m 41`, `comp -m 41`, `cold`,
-   `filter kmer` and `filter seq`; every artifact against numpy.
+   `cold` (of the contigs that hold a k-mer), `filter kmer -c 5 -d 100`
+   and `filter seq --stats` through cli.main against numpy;
+6a. runs `python -m kat_tpu_torch.jf_cli` (kat_jellyfish) on those reads:
+   `count -m 27 -C` in a process of its own (file to .jf, against
+   numpy), `count` of each half of the reads in this process with K1/K2/K3's
+   launches read around it, `merge` of the halves (the count of all),
+   `histo`, `stats`, `query` and `dump -c -L 40` against numpy;
+6b. the same at k = 41 (200,000 reads): `hist -m 41 -d` as a process and
+   `hist` of its .jf through cli.main, `sect -m 41` through cli.main with
+   the W-word kernels' and the wide join's launch counts read around it
+   (the wide join once per length bucket the policy takes), `gcp -m 41`,
+   `comp -m 41`, `cold`, `filter kmer` and `filter seq`; every artifact
+   against numpy.
 
 7. drives the minimizer-bucketed flush at full width: the main path's read
    model (k=27 canonical, 196,608 reads of 1024 bases from the 2^23-base
@@ -2474,18 +2489,19 @@ def _numpy_hist_text(counts: np.ndarray, k: int, path: str) -> str:
     return "\n".join(lines) + "\n"
 
 
-def _run_cli(args: list[str]) -> float:
-    """`python -m kat_tpu_torch <args>` on the card; returns its seconds."""
+def _run_cli(args: list[str], module: str = "kat_tpu_torch"):
+    """`python -m <module> <args>` on the card; returns its seconds and its
+    standard error."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "kat_tpu_torch", *args],
+    proc = subprocess.run([sys.executable, "-m", module, *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=600)
     dt = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"CLI {args[0]} failed ({proc.returncode}):\n"
                              f"{proc.stdout}\n{proc.stderr}")
-    return dt
+    return dt, proc.stderr
 
 
 def _read(path: str) -> str:
@@ -2540,11 +2556,15 @@ def _join_share(contigs, k: int, n_keys: int, dev, n_words: int = 1):
     return n_join, w_join, w_all
 
 
-def cli_run(dev, smi: str, n_reads: int = 200_000):
+def cli_run(dev, smi: str, n_reads: int = 200_000,
+            genome_len: int = 1 << 20):
     """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`
     and `hist` from the dumped .jf in processes of their own, then `sect`
     through the same entry point inside this process, between a reset and a
-    reading of every kernel's launch count.  Returns those six counts."""
+    reading of every kernel's launch count; then the other modes and the
+    jellyfish utilities.  hist, gcp, comp and cold plot and analyse peaks
+    as kat_tpu's do (_check_extras).  Returns sect's six counts and the
+    K1/K2/K3 launches of `kat_jellyfish count` in this process."""
     import contextlib
     import io
 
@@ -2558,7 +2578,12 @@ def cli_run(dev, smi: str, n_reads: int = 200_000):
     k, read_len = 27, 150
     rng = np.random.default_rng(SEED + 1)
     genome = np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, 1 << 20)]
+        rng.integers(0, 4, genome_len)]
+    cov = read_model_coverage(n_reads, read_len, genome.size, k)
+    libs = {m: (__import__(m).__version__ if _have(m) else "not installed")
+            for m in ("matplotlib", "tabulate")}
+    print(f"CLI: host libraries of the plots and peak analysis: matplotlib "
+          f"{libs['matplotlib']}, tabulate {libs['tabulate']}")
     off = rng.integers(0, genome.size - read_len, n_reads)
     seqs = genome[off[:, None] + np.arange(read_len)]
     noisy = rng.random(n_reads) < 0.01
@@ -2574,31 +2599,36 @@ def cli_run(dev, smi: str, n_reads: int = 200_000):
                 f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
 
         out = os.path.join(tmp, "out.hist")
-        dt = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
+        dt, err = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
         got = _read(out)
         if got != _numpy_hist_text(ucounts, k, fq):
             raise AssertionError("CLI hist differs from the numpy histogram")
         print(f"CLI: hist -d of {n_reads} x {read_len} bp reads equals "
               f"numpy's; {n_kmers} k-mers file-to-artifact in {dt:.4f} s = "
-              f"{n_kmers / dt:.1f} k-mers/s (process start included)")
+              f"{n_kmers / dt:.1f} k-mers/s (process start, plots and peak "
+              f"analysis included); "
+              f"{_check_extras('hist -d', err, coverage=cov, **_hist_extras(out))}")
 
         jf = f"{out}-hash.jf{k}"
         out2 = os.path.join(tmp, "from_jf.hist")
-        dt = _run_cli(["hist", "-o", out2, jf])
+        dt, err = _run_cli(["hist", "-o", out2, jf])
         if _read(out2).split("###")[1] != got.split("###")[1]:
             raise AssertionError("hist of the dumped .jf differs from the "
                                  "hist of the reads")
         print(f"CLI: hist of the dumped .jf ({os.path.getsize(jf)} bytes, "
-              f"{uniq.size} records) equals the first, in {dt:.4f} s")
+              f"{uniq.size} records) equals the first, in {dt:.4f} s; "
+              f"{_check_extras('hist of .jf', err, coverage=cov, **_hist_extras(out2))}")
 
         out3 = os.path.join(tmp, "bucketed.hist")
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(["--flush", "bucketed", "hist", "-m", str(k), "-o",
-                           out3, fq])
-        if rc != 0 or _read(out3) != got:
+        run = _cli_in_process(["--flush", "bucketed", "hist", "-m", str(k),
+                               "-o", out3, fq], "hist --flush bucketed")
+        if _read(out3) != got:
             raise AssertionError("CLI hist --flush bucketed differs from "
                                  "the numpy histogram")
         print("CLI: hist --flush bucketed (in-process) equals numpy's too")
+        _extras_line(f"hist -m {k} --flush bucketed", run, _check_extras(
+            "hist --flush bucketed", run["err"], coverage=cov,
+            **_hist_extras(out3)), smi)
 
         fa = os.path.join(tmp, "asm.fa")
         contigs = _write_contigs(fa, genome, rng)
@@ -2645,9 +2675,11 @@ def cli_run(dev, smi: str, n_reads: int = 200_000):
                                  "numpy's")
         if not os.path.getsize(f"{prefix}-contamination.mx"):
             raise AssertionError("sect wrote no contamination matrix")
-        cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng)
+        cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng,
+                     cov, smi)
         cli_cold_filter(tmp, fq, fa, contigs, stats, (keys, valid),
                         (uniq, ucounts), k, smi)
+        jf_launches = jellyfish_cli(tmp, fq, seqs, uniq, ucounts, k, smi)
     n_bases = sum(seq.size for _, seq in contigs)
     print(f"CLI: sect of {len(contigs)} contigs ({n_bases} bases, longest "
           f"{max(s.size for _, s in contigs)}) against the reads equals "
@@ -2655,7 +2687,7 @@ def cli_run(dev, smi: str, n_reads: int = 200_000):
           f"{n_bases / dt:.1f} bases/s (counting included); launches "
           f"sort/merge/reduce/sort_pairs/merge_payload/compact {launches}; "
           f"{n_join} buckets with {w_join} of {w_all} windows took the join")
-    return launches
+    return launches, jf_launches
 
 
 def _popcount(x: np.ndarray) -> np.ndarray:
@@ -2730,24 +2762,141 @@ def _write_fastq(path: str, seqs: np.ndarray) -> None:
             f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
 
 
-def _cli_in_process(args: list[str], what: str,
-                    plots: bool = True) -> float:
-    """cli.main(args) on the card, its banner swallowed; returns seconds.
-    plots: the mode is one that kat_tpu plots after (the port says it
-    skipped them)."""
+# The plots and the peak analysis import matplotlib (and, verbose, tabulate)
+# inside their functions, as kat_tpu's do.  Where matplotlib is absent the
+# CLI prints PLOT_FAILED on stderr for each plot and goes on, and the
+# analysis still writes its JSON (its own figures fail inside it): kat_tpu's
+# contract for an optional host library, which _check_extras holds the
+# port to on this machine.
+PLOT_FAILED = "Plotting failed: "
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# The homozygous peak's fitted mean against the read model's k-mer
+# coverage: hist and comp report it on the spectrum's list index, one below
+# the frequency, gcp on the frequency itself, and the Gaussian fit to
+# Poisson counts sits ~0.25 below the mean (CPU, 12,500 reads of a 64 kbp
+# genome: 22.42-23.47 against 23.71 at k = 27, 19.71-20.77 against 21.03
+# at k = 41).  At ~10x and no error tail the analysis finds no peak at
+# all, so both CLI read sets are 200,000 reads (~24x and ~21x).
+PEAK_TOLERANCE = 0.10  # of the coverage
+
+
+def _have(module: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(module) is not None
+
+
+def read_model_coverage(n_reads: int, read_len: int, genome_len: int,
+                        k: int) -> float:
+    """The mean count of a genome k-mer when n_reads reads of read_len
+    bases start at uniform offsets in [0, genome_len - read_len)."""
+    return n_reads * (read_len - k + 1) / (genome_len - read_len)
+
+
+def _check_extras(what: str, err: str, plots=(), analyses=(),
+                  coverage: float | None = None) -> str:
+    """What a mode's default run writes beside its text artifacts, held to
+    kat_tpu's behaviour.  plots: the files `_plot` writes; analyses:
+    (JSON path, the figure the analysis draws of its fitted peaks, the key
+    of the k-mer spectrum's stats or None).  With matplotlib every plot
+    and figure is a PNG; without, stderr holds PLOT_FAILED once per plot
+    and no figure exists.  Each JSON parses, names a homozygous peak, and
+    that peak's mean lies within PEAK_TOLERANCE of coverage.  Returns what
+    was found, for the mode's line."""
+    mpl = _have("matplotlib")
+    if mpl and PLOT_FAILED in err:
+        raise AssertionError(f"{what}: a plot failed:\n{err}")
+    figures = list(plots) + [fig for _j, fig, _key in analyses]
+    for path in figures:
+        if mpl:
+            with open(path, "rb") as f:
+                if f.read(8) != PNG_MAGIC:
+                    raise AssertionError(f"{what}: {path} is no PNG")
+        elif os.path.exists(path):
+            raise AssertionError(f"{what}: {path} without matplotlib")
+    if not mpl and err.count(PLOT_FAILED) != len(plots):
+        raise AssertionError(f"{what}: {len(plots)} plots without "
+                             f"matplotlib, stderr says:\n{err}")
+    found = [f"{len(figures)} PNGs" if mpl else
+             f"{PLOT_FAILED.strip()} (matplotlib absent) x {len(plots)}"]
+    for path, _fig, key in analyses:
+        with open(path) as f:
+            stats = json.load(f)
+        stats = stats[key] if key else stats
+        i = stats["hom_peak"]["index"]
+        if i < 1:
+            raise AssertionError(f"{what}: {path} names no homozygous "
+                                 f"peak: {stats}")
+        mean = stats["peaks"][i - 1]["mean_freq"]
+        if abs(mean - coverage) > PEAK_TOLERANCE * coverage:
+            raise AssertionError(f"{what}: homozygous peak at {mean:.3f}x, "
+                                 f"the read model's coverage is "
+                                 f"{coverage:.3f}x")
+        found.append(f"{os.path.basename(path)}: homozygous peak "
+                     f"{mean:.3f}x of {stats['nb_peaks']} (read model "
+                     f"{coverage:.3f}x, tolerance "
+                     f"{PEAK_TOLERANCE * 100:.0f}%)")
+    return "; ".join(found)
+
+
+def _hist_extras(prefix: str) -> dict:
+    """hist's plot and analysis files (kat_tpu/cli.py:108-112)."""
+    return dict(plots=[f"{prefix}.png"], analyses=[(
+        f"{prefix}.dist_analysis.json",
+        f"{prefix}.kmerfreq_distributions.png", None)])
+
+
+def _comp_extras(prefix: str) -> dict:
+    """comp's spectra-cn plot and the analysis of its main matrix (the
+    default branch of kat_tpu/cli.py:228-249)."""
+    return dict(plots=[f"{prefix}-main.mx.spectra-cn.png"], analyses=[(
+        f"{prefix}.dist_analysis.json", f"{prefix}.kmerfreq_general.png",
+        "main_dist")])
+
+
+def _cli_in_process(args: list[str], what: str) -> dict:
+    """cli.main(args) on the card, its banner and stderr swallowed, its
+    plots and peak analysis timed.  Returns the run's seconds (`s`),
+    those of its plots and analysis (`extras_s`) and its stderr
+    (`err`)."""
     import contextlib
     import io
 
     from kat_tpu_torch import cli
 
+    spent = [0.0]
+    real = {name: getattr(cli, name) for name in ("_plot", "_analyse_peaks")}
+
+    def timed(fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t
+        return run
+
+    for name, fn in real.items():
+        setattr(cli, name, timed(fn))
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        rc = cli.main(args)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out, \
+                contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = cli.main(args)
+    finally:
+        for name, fn in real.items():
+            setattr(cli, name, fn)
     dt = time.perf_counter() - t0
-    if rc != 0 or plots != ("Plot and peak analysis skipped"
-                            in out.getvalue()):
-        raise AssertionError(f"{what} returned {rc}:\n{out.getvalue()}")
-    return dt
+    if rc != 0:
+        raise AssertionError(f"{what} returned {rc}:\n{out.getvalue()}\n"
+                             f"{err.getvalue()}")
+    return dict(s=dt, extras_s=spent[0], err=err.getvalue())
+
+
+def _extras_line(what: str, run: dict, found: str, smi: str) -> None:
+    print(f"CLI: {what}: plots and peak analysis took "
+          f"{run['extras_s']:.4f} s of the run's {run['s']:.4f} s; {found} "
+          f"({smi})")
 
 
 def cli_cold_filter(tmp, fq, fa, contigs, sect_stats: dict, windows, host,
@@ -2774,28 +2923,40 @@ def cli_cold_filter(tmp, fq, fa, contigs, sect_stats: dict, windows, host,
         ckeys, ccounts = np.unique(np.concatenate(
             [p[0][p[1]] for p in per if p]), return_counts=True)
 
-    cp = os.path.join(tmp, f"cold{k}")
-    dt = _cli_in_process(["cold", "-m", str(k), "-o", cp, fa, fq],
-                         f"cold -m {k}")
+    # cold of the contigs whose copy number is 1 or more: kat_tpu's cold
+    # plot refuses a copy number of 0 (kat_tpu/plot/cold.py), which a
+    # contig shorter than k, or one whose windows mostly hold an N, gets
     want = {}
     for (name, seq), p in zip(contigs, per):
-        if p is None:
-            want[name] = (*sect_stats[name], "0")
-            continue
-        ac = _numpy_counts_of(ckeys, ccounts, p[0], p[1])[0]
-        want[name] = (*sect_stats[name], str(int(np.sort(ac)[ac.size // 2])))
+        if p is not None:
+            ac = _numpy_counts_of(ckeys, ccounts, p[0], p[1])[0]
+            cn = int(np.sort(ac)[ac.size // 2])
+            if cn:
+                want[name] = (*sect_stats[name], str(cn))
+    cp = os.path.join(tmp, f"cold{k}")
+    fa_cold = os.path.join(tmp, f"asm_cold{k}.fa")
+    with open(fa_cold, "wb") as f:
+        for name, seq in contigs:
+            if name in want:
+                f.write(b">%s\n" % name.encode())
+                for o in range(0, seq.size, 80):
+                    f.write(seq[o:o + 80].tobytes() + b"\n")
+    run = _cli_in_process(["cold", "-m", str(k), "-o", cp, fa_cold, fq],
+                          f"cold -m {k}")
     rows = [ln.split("\t") for ln in _read(f"{cp}-stats.tsv").splitlines()[1:]]
     if {r[0]: (r[1], r[2], r[3]) for r in rows} != want \
-            or len(rows) != len(contigs):
+            or len(rows) != len(want):
         raise AssertionError(f"CLI cold -m {k}: read median/mean or copy "
                              "number differ from numpy's")
-    print(f"CLI: cold -m {k} of {len(contigs)} contigs against the reads "
-          f"equals numpy's in {dt:.4f} s (counting included; {smi})")
+    print(f"CLI: cold -m {k} of the {len(want)} contigs of copy number 1 "
+          f"or more against the reads equals numpy's in {run['s']:.4f} s "
+          f"(counting included; {smi})")
+    _extras_line(f"cold -m {k}", run, _check_extras(
+        f"cold -m {k}", run["err"], plots=[f"{cp}.png"]), smi)
 
     fk = os.path.join(tmp, f"fk{k}")
     dt = _cli_in_process(["filter", "kmer", "-m", str(k), "-c", "5", "-d",
-                          "100", "-o", fk, fq], f"filter kmer -m {k}",
-                         plots=False)
+                          "100", "-o", fk, fq], f"filter kmer -m {k}")["s"]
     keys, counts = host
     c = np.asarray(counts, np.int64)
     gc = (sum(_numpy_gc(np.asarray(w).astype(np.uint64)) for w in keys)
@@ -2808,8 +2969,7 @@ def cli_cold_filter(tmp, fq, fa, contigs, sect_stats: dict, windows, host,
 
     fs = os.path.join(tmp, f"fs{k}")
     dt = _cli_in_process(["filter", "seq", "-m", str(k), "--stats", "--seq",
-                          fq, "-o", fs, fa], f"filter seq -m {k}",
-                         plots=False)
+                          fq, "-o", fs, fa], f"filter seq -m {k}")["s"]
     rkeys, rvalid = windows
     hits = (_numpy_counts_of(ckeys, ccounts, rkeys, rvalid) > 0).sum(-1)
     nb = rvalid.shape[-1]
@@ -2856,21 +3016,137 @@ def _check_kept_jf(path: str, keys, counts, keep, k: int) -> None:
 
 
 
-def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng):
+JF_DUMP_LOW = 40  # dump -c -L: the k-mers well past the read coverage
+
+
+def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
+                  ucounts: np.ndarray, k: int, smi: str) -> list:
+    """`python -m kat_tpu_torch.jf_cli` (the `kat_jellyfish` utilities) on
+    the CLI read set, each against numpy (uniq, ucounts: the reads'
+    canonical k-mers and counts): `count -m k -C` of all reads in a process
+    of its own (the entry point; file to .jf), then in this process
+    `count` of each half of the reads, between a reset and a reading of
+    K1/K2/K3's launch counts, `merge` of the halves (the count of all
+    reads), `histo` (the histogram of _numpy_hist_text), `stats`, `query`
+    of k-mers present (either strand) and absent, and `dump -c -L
+    JF_DUMP_LOW` of the merged table.  Returns the halves' launches."""
+    import contextlib
+    import io
+
+    from kat_tpu_torch import jf_cli
+    from kat_tpu_torch.core.kmers import canonical_np, rc_int, unpack_string
+    from kat_tpu_torch.io import jellyfish
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+
+    def run(args):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = jf_cli.main(args)
+        if rc != 0:
+            raise AssertionError(f"jf_cli {args[0]} returned {rc}")
+        return out.getvalue()
+
+    def same_table(path, what):
+        _hdr, keys, counts = jellyfish.read_jf(path)
+        if not (np.array_equal(keys, uniq)
+                and np.array_equal(counts.astype(np.int64), ucounts)):
+            raise AssertionError(f"jf_cli {what}: the .jf holds other keys "
+                                 "or counts than numpy's")
+
+    all_jf = os.path.join(tmp, "all.jf")
+    dt, _err = _run_cli(["count", "-m", str(k), "-C", "-o", all_jf, fq],
+                        module="kat_tpu_torch.jf_cli")
+    same_table(all_jf, "count")
+    print(f"jf CLI: count -m {k} -C of {seqs.shape[0]} reads equals numpy's "
+          f"{uniq.size} keys and counts; file to .jf in {dt:.4f} s (process "
+          f"start included; {smi})")
+
+    half = seqs.shape[0] // 2
+    fqs = [os.path.join(tmp, f"half{i}.fq") for i in range(2)]
+    _write_fastq(fqs[0], seqs[:half])
+    _write_fastq(fqs[1], seqs[half:])
+    jfs = [os.path.join(tmp, f"half{i}.jf") for i in range(2)]
+    kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
+               reduce_kernel.reduce_by_key)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for src, dst in zip(fqs, jfs):
+        run(["count", "-m", str(k), "-C", "-o", dst, src])
+    dt = time.perf_counter() - t0
+    launches = [fn.launches for fn in kernels]
+    if min(launches) < 1:
+        raise AssertionError(f"jf_cli count of two halves launched "
+                             f"K1/K2/K3 {launches}")
+    merged = os.path.join(tmp, "merged.jf")
+    run(["merge", "-o", merged, *jfs])
+    same_table(merged, "merge of the halves")
+
+    data = _numpy_hist_text(ucounts, k, fq).split("###\n")[1]
+    want = "".join(f"{ln}\n" for ln in data.splitlines()
+                   if ln.split()[1] != "0")
+    if run(["histo", merged]) != want:
+        raise AssertionError("jf_cli histo differs from numpy's histogram")
+    want = (f"Unique:    {int((ucounts == 1).sum())}\n"
+            f"Distinct:  {uniq.size}\nTotal:     {int(ucounts.sum())}\n"
+            f"Max_count: {int(ucounts.max())}\n")
+    if run(["stats", merged]) != want:
+        raise AssertionError("jf_cli stats differ from numpy's")
+
+    rng = np.random.default_rng(SEED + 7)
+    present = [int(v) for v in uniq[rng.choice(uniq.size, 24,
+                                                replace=False)]]
+    present[::2] = [rc_int(v, k) for v in present[::2]]  # either strand
+    absent = rng.integers(0, 1 << (2 * k), 24, dtype=np.uint64)
+    query = np.array(present, np.uint64).tolist() + absent.tolist()
+    canon = canonical_np(np.array(query, np.uint64), k)
+    pos = np.minimum(np.searchsorted(uniq, canon), uniq.size - 1)
+    hits = np.where(uniq[pos] == canon, ucounts[pos], 0)
+    mers = [unpack_string(int(v), k) for v in query]
+    want = "".join(f"{m} {int(c)}\n" for m, c in zip(mers, hits))
+    if run(["query", merged, *mers]) != want:
+        raise AssertionError("jf_cli query differs from numpy's counts")
+
+    high = ucounts >= JF_DUMP_LOW
+    want = "".join(f"{unpack_string(int(v), k)} {int(c)}\n"
+                   for v, c in zip(uniq[high], ucounts[high]))
+    if run(["dump", "-c", "-L", str(JF_DUMP_LOW), merged]) != want:
+        raise AssertionError("jf_cli dump -c -L differs from numpy's")
+    print(f"jf CLI: count of each half in this process in {dt:.4f} s, "
+          f"launches K1/K2/K3 {launches}; merge of the halves equals the "
+          f"count of all; histo, stats, query of {len(mers)} k-mers "
+          f"({int((hits > 0).sum())} present) and dump -c -L {JF_DUMP_LOW} "
+          f"({int(high.sum())} k-mers) equal numpy's ({smi})")
+    return launches
+
+
+def _gcp_extras(prefix: str) -> dict:
+    """gcp's density plot and the analysis of its matrix
+    (kat_tpu/cli.py:150-155)."""
+    return dict(plots=[f"{prefix}.mx.png"], analyses=[(
+        f"{prefix}.dist_analysis.json",
+        f"{prefix}.kmerfreq_distributions.png", "coverage")])
+
+
+def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng,
+                 cov: float, smi: str):
     """`gcp` and `comp` (two inputs, three, and of the two .jf that `comp
     -d` dumps) of the CLI read set through cli.main, every artifact against
-    numpy; the binned-sums kernel's launches read around each run."""
+    numpy, the plots and peak analysis checked (cov: the read model's
+    k-mer coverage); the binned-sums kernel's launches read around each
+    run."""
     from kat_tpu_torch.ops import binned_kernel
 
     kernel = binned_kernel.binned_sums
     kernel.launches = 0
     gp = os.path.join(tmp, "gcp")
-    dt = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp")
+    run = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp")
     if not np.array_equal(_read_mx(f"{gp}.mx"),
                           _numpy_gcp(_numpy_gc(uniq), ucounts, k)):
         raise AssertionError("CLI gcp differs from numpy's matrix")
-    print(f"CLI: gcp of the reads equals numpy's in {dt:.4f} s (counting "
-          f"included); binned-sums launches {kernel.launches}")
+    print(f"CLI: gcp of the reads equals numpy's in {run['s']:.4f} s "
+          f"(counting included); binned-sums launches {kernel.launches}")
+    _extras_line(f"gcp -m {k}", run, _check_extras(
+        "gcp", run["err"], coverage=cov, **_gcp_extras(gp)), smi)
 
     ckeys = np.concatenate([w[v] for w, v in (
         _numpy_windows(seq, k) for _n, seq in contigs if seq.size >= k)])
@@ -2885,23 +3161,27 @@ def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng):
         what = "three inputs" if three else "two inputs"
         cp = os.path.join(tmp, f"comp{int(three)}")
         kernel.launches = 0
-        dt = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa]
-                             + ([fq3] if three else ["-d"]), f"comp, {what}")
+        run = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa]
+                              + ([fq3] if three else ["-d"]),
+                              f"comp, {what}")
         launches = kernel.launches
         _check_comp_files(cp, _numpy_comp(uniq, ucounts, k2, c2,
                                           *((k3, c3) if three
                                             else (None, None))),
                           three, f"CLI comp, {what}")
         print(f"CLI: comp of the reads against the contigs, {what}, "
-              f"equals numpy's in {dt:.4f} s (counting included); "
+              f"equals numpy's in {run['s']:.4f} s (counting included); "
               f"binned-sums launches {launches}")
+        _extras_line(f"comp -m {k}, {what}", run, _check_extras(
+            f"comp, {what}", run["err"], coverage=cov, **_comp_extras(cp)),
+            smi)
         if launches < 2 + three:
             raise AssertionError(f"comp, {what}: {launches} binned-sums "
                                  "launches")
     cp = os.path.join(tmp, "comp0")
     cj = os.path.join(tmp, "comp_jf")
-    dt = _cli_in_process(["comp", "-o", cj, f"{cp}-hash1.jf{k}",
-                          f"{cp}-hash2.jf{k}"], "comp of two .jf")
+    run = _cli_in_process(["comp", "-o", cj, f"{cp}-hash1.jf{k}",
+                           f"{cp}-hash2.jf{k}"], "comp of two .jf")
     if (_read(f"{cj}-main.mx").split("###")[1]
             != _read(f"{cp}-main.mx").split("###")[1]
             or _read(f"{cj}.stats").split("Total K-mers in")[1]
@@ -2909,7 +3189,10 @@ def cli_gcp_comp(tmp, fq, fa, contigs, genome, uniq, ucounts, k, rng):
         raise AssertionError("comp of the dumped .jf differs from comp of "
                              "the reads")
     print(f"CLI: comp of the two dumped .jf equals comp of the files, in "
-          f"{dt:.4f} s")
+          f"{run['s']:.4f} s")
+    _extras_line("comp of two .jf", run, _check_extras(
+        "comp of two .jf", run["err"], coverage=cov, **_comp_extras(cj)),
+        smi)
 
 
 def _numpy_wide_windows(seq: np.ndarray, k: int):
@@ -2948,11 +3231,14 @@ def _numpy_wide_windows(seq: np.ndarray, k: int):
     return [np.where(less, r, f) for f, r in zip(fwd, rc)], ~bad
 
 
-def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
-    """`python -m kat_tpu_torch hist -m 41 -d` and `hist` of its .jf in
-    processes of their own, then `sect -m 41` through cli.main inside this
-    process between a reset and a reading of the W-word kernels' launch
-    counts; every artifact held against numpy.  Returns those counts."""
+def wide_cli_run(dev, smi: str, n_reads: int = 200_000,
+                 genome_len: int = 1 << 20):
+    """`python -m kat_tpu_torch hist -m 41 -d` in a process of its own and
+    `hist` of its .jf through cli.main, then `sect -m 41` through cli.main
+    inside this process between a reset and a reading of the W-word
+    kernels' launch counts; then gcp, comp, cold and filter at k = 41;
+    every artifact held against numpy, the plots and peak analysis
+    checked (_check_extras).  Returns those counts."""
     import contextlib
     import io
 
@@ -2961,7 +3247,9 @@ def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
 
     k, read_len = 41, 150
     rng = np.random.default_rng(SEED + 4)
-    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 20)]
+    genome = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, genome_len)]
+    cov = read_model_coverage(n_reads, read_len, genome.size, k)
     off = rng.integers(0, genome.size - read_len, n_reads)
     seqs = genome[off[:, None] + np.arange(read_len)]
     noisy = rng.random(n_reads) < 0.01
@@ -2985,20 +3273,26 @@ def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
             for i in range(n_reads):
                 f.write(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual))
         out = os.path.join(tmp, "out.hist")
-        dt = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
+        dt, err = _run_cli(["hist", "-d", "-m", str(k), "-o", out, fq])
         got = _read(out)
         if got != _numpy_hist_text(ucounts, k, fq):
             raise AssertionError("CLI hist -m 41 differs from numpy's")
         print(f"wide CLI: hist -d -m {k} of {n_reads} x {read_len} bp reads "
               f"equals numpy's; {int(valid.sum())} k-mers file-to-artifact "
-              f"in {dt:.4f} s (process start included)")
+              f"in {dt:.4f} s (process start, plots and peak analysis "
+              f"included); "
+              f"{_check_extras('hist -d -m 41', err, coverage=cov, **_hist_extras(out))}")
         jf = f"{out}-hash.jf{k}"
         out2 = os.path.join(tmp, "from_jf.hist")
-        dt = _run_cli(["hist", "-o", out2, jf])
+        run = _cli_in_process(["hist", "-o", out2, jf], "hist of the k=41 .jf")
         if _read(out2).split("###")[1] != got.split("###")[1]:
             raise AssertionError("hist of the dumped k=41 .jf differs")
         print(f"wide CLI: hist of the dumped .jf ({os.path.getsize(jf)} "
-              f"bytes, {len(table)} records) equals the first, in {dt:.4f} s")
+              f"bytes, {len(table)} records) equals the first, in "
+              f"{run['s']:.4f} s (in-process)")
+        _extras_line(f"hist of the k={k} .jf", run, _check_extras(
+            "hist of the k=41 .jf", run["err"], coverage=cov,
+            **_hist_extras(out2)), smi)
 
         fa = os.path.join(tmp, "asm.fa")
         contigs = _write_contigs(fa, genome, rng)
@@ -3047,7 +3341,7 @@ def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
         if ({r[0]: (r[1], r[2]) for r in rows} != stats
                 or len(rows) != len(contigs)):
             raise AssertionError("sect -m 41 stats.tsv differs from numpy's")
-        wide_cli_gcp_comp(tmp, fq, fa, contigs, table, k)
+        wide_cli_gcp_comp(tmp, fq, fa, contigs, table, k, cov, smi)
         host = (list(np.array(list(table)).T),
                 np.array(list(table.values()), np.int64))
         cli_cold_filter(tmp, fq, fa, contigs, stats, (words, valid), host, k,
@@ -3060,10 +3354,12 @@ def wide_cli_run(dev, smi: str, n_reads: int = 100_000):
     return launches
 
 
-def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int):
+def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int, cov: float,
+                      smi: str):
     """`gcp -m 41` and `comp -m 41` of the reads against the contigs through
     cli.main, against numpy over the k-mers as word tuples (`table`: the
-    reads' counts by key)."""
+    reads' counts by key); their plots and peak analysis checked (cov:
+    the read model's k-mer coverage)."""
     from kat_tpu_torch.ops import binned_kernel
 
     kernel = binned_kernel.binned_sums
@@ -3072,11 +3368,13 @@ def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int):
     gc = sum(_numpy_gc(np.array(w, np.uint64)) for w in zip(*keys))
     kernel.launches = 0
     gp = os.path.join(tmp, "gcp")
-    dt = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp -m 41")
+    run = _cli_in_process(["gcp", "-m", str(k), "-o", gp, fq], "gcp -m 41")
     if not np.array_equal(_read_mx(f"{gp}.mx"), _numpy_gcp(gc, counts, k)):
         raise AssertionError("CLI gcp -m 41 differs from numpy's matrix")
-    print(f"wide CLI: gcp -m {k} equals numpy's in {dt:.4f} s (counting "
-          f"included); binned-sums launches {kernel.launches}")
+    print(f"wide CLI: gcp -m {k} equals numpy's in {run['s']:.4f} s "
+          f"(counting included); binned-sums launches {kernel.launches}")
+    _extras_line(f"gcp -m {k}", run, _check_extras(
+        "gcp -m 41", run["err"], coverage=cov, **_gcp_extras(gp)), smi)
 
     cont = {}
     for _name, seq in contigs:
@@ -3097,12 +3395,14 @@ def wide_cli_gcp_comp(tmp, fq, fa, contigs, table: dict, k: int):
     want = _numpy_comp(*side(table), *side(cont))
     cp = os.path.join(tmp, "comp")
     kernel.launches = 0
-    dt = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa],
-                         "comp -m 41")
+    run = _cli_in_process(["comp", "-m", str(k), "-o", cp, fq, fa],
+                          "comp -m 41")
     _check_comp_files(cp, want, False, "CLI comp -m 41")
     print(f"wide CLI: comp -m {k} of the reads against the contigs equals "
-          f"numpy's in {dt:.4f} s (counting included); binned-sums "
+          f"numpy's in {run['s']:.4f} s (counting included); binned-sums "
           f"launches {kernel.launches}")
+    _extras_line(f"comp -m {k}", run, _check_extras(
+        "comp -m 41", run["err"], coverage=cov, **_comp_extras(cp)), smi)
     if kernel.launches < 2:
         raise AssertionError("comp -m 41 did not run the binned-sums kernel")
 
@@ -3639,9 +3939,11 @@ def main() -> int:
     kernels[5]["launches_cold"] = [cold27[2], cold41[2]]
     profile_wide(41)
     lap("the k=41 profile")
-    sect_launches = cli_run(dev, smi)
+    sect_launches, jf_launches = cli_run(dev, smi)
     for entry, n in zip(kernels, sect_launches, strict=True):
         entry["launches_sect"] = n
+    for entry, n in zip(kernels[:3], jf_launches, strict=True):
+        entry["launches_jf_count"] = n
     wide_sect = wide_cli_run(dev, smi)
     for entry, n in zip(wide, wide_sect[:3], strict=True):
         entry["launches_sect"] = n

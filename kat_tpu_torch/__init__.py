@@ -13,10 +13,14 @@ layout mirrors `kat_tpu`, module for module:
                             + plain versions, and the sort-merge join
     kat_tpu_torch.io     -- FASTA/FASTQ readers (Python + native C++), mme
                             headers, the .jf codec
-    kat_tpu_torch.tools  -- the `kat hist`, `gcp`, `comp` and `sect`
-                            workloads and input handling
-    kat_tpu_torch.cli    -- `kat`-compatible command line (hist, gcp, comp,
-                            sect)
+    kat_tpu_torch.tools  -- the `kat hist`, `gcp`, `comp`, `sect`, `cold`
+                            and `filter` workloads and input handling
+    kat_tpu_torch.parallel -- counting and analysis on a mesh of shards
+    kat_tpu_torch.analysis -- peak fitting and distribution analysis
+                            (host numpy/scipy)
+    kat_tpu_torch.plot   -- the six plot modes (host matplotlib)
+    kat_tpu_torch.cli    -- `kat`-compatible command line (every mode)
+    kat_tpu_torch.jf_cli -- the jellyfish-compatible `.jf` utilities
 
 Keys are int64 (k <= 31 fits in 62 bits) with INT64_MAX as the sentinel;
 wide keys (31 < k <= 255) are ceil(k / 31) int64 words of 31 bases.

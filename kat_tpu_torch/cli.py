@@ -1,11 +1,12 @@
 """`kat`-compatible command line (reference src/kat.cc mode dispatch).
 
-Port of kat_tpu/cli.py with the `hist`, `gcp`, `comp`, `sect`, `cold` and
-`filter {kmer,seq}` modes, same flags and defaults, plus a top-level `--device` (the card unless the
-CPU is asked for), `--shards N` (count on a mesh of N shards: the
-counterpart of kat_tpu's KAT_TPU_SHARD=1 on an N-device mesh) and
-`--flush` (the classic counting flush unless the minimizer-bucketed one is
-asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
+Port of kat_tpu/cli.py with every mode (`hist`, `gcp`, `comp`, `sect`,
+`cold`, `filter {kmer,seq}` and `plot`), the same flags, defaults, plots
+and peak analysis, plus a top-level `--device` (the card unless the CPU is
+asked for; `plot` touches no device), `--shards N` (count on a mesh of N
+shards: the counterpart of kat_tpu's KAT_TPU_SHARD=1 on an N-device mesh)
+and `--flush` (the classic counting flush unless the minimizer-bucketed
+one is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
 Usage: python -m kat_tpu_torch [--device {cuda,cpu}] [--shards N]
        [--flush {classic,bucketed}] <mode> [options] ...
 """
@@ -17,7 +18,40 @@ import io
 import sys
 
 from . import DEFAULT_HASH_SIZE, DEFAULT_MER_LEN, __version__
-from .utils.timer import total
+from .utils.timer import stage, total
+
+
+def _plot(mode: str, argv: list[str], quiet: bool = False) -> None:
+    """Run a plot module, tolerating plotting errors like the reference's
+    embedded-python path (failures print but don't kill the tool run): a
+    host without matplotlib prints `Plotting failed: ...` and goes on."""
+    from .plot import run_plot
+
+    try:
+        with stage("Creating plot", quiet=quiet):
+            run_plot(mode, argv)
+    except Exception as e:  # noqa: BLE001
+        print(f"Plotting failed: {e}", file=sys.stderr)
+
+
+def _analyse_peaks(input_file: str, output_prefix: str, banner: str,
+                   verbose: bool = False) -> None:
+    """Run distribution analysis on a tool artifact (the reference shells
+    into kat/distanalysis.py via the embedded interpreter,
+    e.g. histogram.cc:201-231)."""
+    from .analysis import distanalysis
+
+    print(banner)
+    print("-" * len(banner))
+    argv = []
+    if verbose:
+        argv.append("--verbose")
+    argv += ["--from_kat", f"--output_prefix={output_prefix}", input_file]
+    try:
+        distanalysis.main(argv)
+    except Exception as e:  # noqa: BLE001
+        print(f"Peak analysis failed: {e}", file=sys.stderr)
+    print()
 
 
 def _common_count_flags(p: argparse.ArgumentParser, prefix_default: str):
@@ -92,16 +126,12 @@ def _run_hist(args) -> int:
         h.verbose = args.verbose
         h.execute()
         h.save()
-        _plots_skipped()
+        _plot("spectra-hist",
+              [f"--output={args.output_prefix}.{args.output_type}",
+               args.output_prefix])
+        _analyse_peaks(args.output_prefix, args.output_prefix,
+                       "Analysing peaks", args.verbose)
     return 0
-
-
-def _plots_skipped() -> None:
-    """kat_tpu plots and analyses peaks after hist, gcp and comp, and plots
-    after cold (kat_tpu/cli.py:104-111,150-154,224-249,356-357); the port
-    has neither yet."""
-    print("Plot and peak analysis skipped: not ported yet "
-          "(ROADMAP.md §1 item 4).")
 
 
 def _add_gcp(sub):
@@ -141,7 +171,11 @@ def _run_gcp(args) -> int:
         g.input.dump_hash = args.dump_hash
         g.execute()
         g.save()
-        _plots_skipped()
+        _plot("density",
+              [f"--output={args.output_prefix}.mx.{args.output_type}",
+               f"{args.output_prefix}.mx"])
+        _analyse_peaks(f"{args.output_prefix}.mx", args.output_prefix,
+                       "Analysing peaks", args.verbose)
     return 0
 
 
@@ -168,7 +202,6 @@ def _add_comp(sub):
     p.add_argument("-J", "--hash_size_3", type=int, default=DEFAULT_HASH_SIZE)
     p.add_argument("-d", "--dump_hashes", action="store_true")
     p.add_argument("-g", "--disable_hash_grow", action="store_true")
-    # -n picks kat_tpu's density plot over spectra-cn: no plots here yet
     p.add_argument("-n", "--density_plot", action="store_true")
     p.add_argument("-p", "--output_type", default="png")
     p.add_argument("-h", "--output_hists", action="store_true")
@@ -220,7 +253,29 @@ def _run_comp(args) -> int:
         print("------------------")
         print()
         c.print_counters(sys.stdout)
-        _plots_skipped()
+
+        main_mx = f"{args.output_prefix}-main.mx"
+        if args.density_plot:
+            _plot("density",
+                  [f"--output={main_mx}.density.{args.output_type}",
+                   main_mx])
+        else:
+            _plot("spectra-cn",
+                  [f"--output={main_mx}.spectra-cn.{args.output_type}",
+                   main_mx])
+        if args.density_plot and args.output_hists:
+            _analyse_peaks(f"{args.output_prefix}.1.hist",
+                           f"{args.output_prefix}.1",
+                           "Analysing peaks for dataset 1", args.verbose)
+            _analyse_peaks(f"{args.output_prefix}.2.hist",
+                           f"{args.output_prefix}.2",
+                           "Analysing peaks for dataset 2", args.verbose)
+        elif not args.density_plot:
+            _analyse_peaks(main_mx, args.output_prefix,
+                           "Analysing peaks for spectra copy number matrix",
+                           args.verbose)
+        else:
+            print("Current configuration does not support peak analysis.")
     return 0
 
 
@@ -332,7 +387,8 @@ def _run_cold(args) -> int:
         c.dump_hashes = args.dump_hashes
         c.verbose = args.verbose
         c.execute()
-        _plots_skipped()
+        _plot("cold", [f"--output={args.output_prefix}.{args.output_type}",
+                       f"{args.output_prefix}-stats.tsv"])
     return 0
 
 
@@ -428,6 +484,25 @@ def _run_filter_seq(args) -> int:
     return 0
 
 
+def _add_plot(sub):
+    p = sub.add_parser("plot", add_help=True,
+                       description="Plotting tools: density, profile, "
+                                   "spectra-cn, spectra-hist, spectra-mx, "
+                                   "cold.")
+    p.add_argument("plot_mode",
+                   choices=["density", "profile", "spectra-cn",
+                            "spectra-hist", "spectra-mx", "cold"])
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    p.set_defaults(func=_run_plot)
+
+
+def _run_plot(args) -> int:
+    """Host work on the artifacts alone: --device and --shards do not
+    apply."""
+    from .plot import run_plot
+    return run_plot(args.plot_mode, args.args)
+
+
 def main(argv: list[str] | None = None) -> int:
     # Fatal-signal backtraces, the analogue of the reference's SIGSEGV
     # handler (src/kat.cc:158-170 prints a backtrace and aborts).
@@ -441,7 +516,7 @@ def main(argv: list[str] | None = None) -> int:
         prog="kat", add_help=False,
         description="The K-mer Analysis Toolkit (KAT), PyTorch/CUDA port. "
                     "The first argument should be the tool/mode you wish to "
-                    "use: hist, gcp, comp, sect, cold, filter.")
+                    "use: hist, gcp, comp, sect, cold, filter, plot.")
     parser.add_argument("--version", action="version",
                         version=f"kat {__version__} (kat_tpu_torch)")
     parser.add_argument("--help", action="help")
@@ -465,7 +540,7 @@ def main(argv: list[str] | None = None) -> int:
                              "error otherwise).")
     sub = parser.add_subparsers(dest="mode")
     for adder in (_add_hist, _add_gcp, _add_comp, _add_sect, _add_cold,
-                  _add_filter):
+                  _add_filter, _add_plot):
         adder(sub)
     args = parser.parse_args(argv)
     if args.mode is None:

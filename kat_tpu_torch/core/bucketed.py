@@ -1,7 +1,7 @@
 """Minimizer-bucketed streaming counter: the chunked counting flush.
 
 Port of kat_tpu/core/bucketed.py.  The native supermer router
-(io/native.SupermerRouter over kat_tpu/native/fastxio.cpp) delivers each
+(io/native.SupermerRouter over native/fastxio.cpp) delivers each
 flush pre-grouped into minimizer-hash buckets that are a PREFIX of the
 transformed key order (core/minimizer.py), so the device:
 

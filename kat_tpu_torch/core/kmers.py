@@ -330,6 +330,19 @@ def unpack_string(v: int, k: int) -> str:
     return "".join(out)
 
 
+def rc_int(v: int, k: int) -> int:
+    """Reverse complement of a packed k-mer held as a Python int (any k)."""
+    r = 0
+    for _ in range(k):
+        r = (r << 2) | (3 - (v & 3))
+        v >>= 2
+    return r
+
+
+def canonical_int(v: int, k: int) -> int:
+    return min(v, rc_int(v, k))
+
+
 def split_u64(v) -> tuple[np.uint32, np.uint32]:
     v = int(v)
     return np.uint32(v >> 32), np.uint32(v & 0xFFFFFFFF)

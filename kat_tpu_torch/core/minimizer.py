@@ -5,7 +5,7 @@ into buckets that are a prefix of the sort order, each aligned chunk sorts
 on its own inside one thread block's shared memory, in ONE pass over device
 memory (ops/sort_kernel.sort_chunks): the KMC2 / minimizer super-k-mer
 idea.  The variable-length grouping happens on the host (the router of
-kat_tpu/native/fastxio.cpp, bound in io/native.py); the device only sees a
+native/fastxio.cpp, bound in io/native.py); the device only sees a
 fixed [chunks, records] geometry.
 
 All k-mers of one bucket share an m-base minimizer, so the key is
@@ -58,7 +58,7 @@ _U32 = 0xFFFFFFFF
 
 # Invertible 26-bit mixer constants (odd multipliers; the xorshift by 13 is
 # its own inverse since 13 >= 26/2).  They must match the router's
-# (kat_tpu/native/fastxio.cpp SMR_MIX_A / SMR_MIX_B).
+# (native/fastxio.cpp SMR_MIX_A / SMR_MIX_B).
 _MIX_A = 41474379
 _MIX_B = 56006713
 _MIX_A_INV = pow(_MIX_A, -1, 1 << 26)

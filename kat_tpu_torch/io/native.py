@@ -1,11 +1,11 @@
-"""ctypes binding to the native FASTX reader, kat_tpu/native/fastxio.cpp.
+"""ctypes binding to the native FASTX reader, kat_tpu_torch/native/fastxio.cpp.
 
-The C++ file holds no JAX, so the port compiles it by path into its own
-build directory instead of importing kat_tpu.io.native (which would pull
-JAX in).  Both halves of the file are bound: the `kat_fastx_*` reader of
-the classic flush, and the `kat_smr_*` supermer router that feeds the
-minimizer-bucketed flush (core/bucketed.py) through `SupermerRouter` and
-`route_flushes`.
+The C++ file is the port's own copy of kat_tpu's reader (kat_tpu's
+io/native.py would pull JAX in); it is compiled with g++ at first use into
+the port's build directory.  Both halves of the file are bound: the
+`kat_fastx_*` reader of the classic flush, and the `kat_smr_*` supermer
+router that feeds the minimizer-bucketed flush (core/bucketed.py) through
+`SupermerRouter` and `route_flushes`.
 
 A failed g++ build leaves `available()` false, and the classic flush then
 reads through the Python encoder as in kat_tpu; the compiler's output is
@@ -40,7 +40,7 @@ from typing import Iterator
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "kat_tpu", "native", "fastxio.cpp")
+_SRC = os.path.join(_PKG, "native", "fastxio.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # Minimum bytes of one range piece: small enough to load-balance, large
@@ -328,7 +328,7 @@ def reader_threads_default(n_paths: int) -> int:
 
 class SupermerRouter:
     """Native minimizer supermer router: the host half of the bucketed
-    counting flush (core/minimizer.py, kat_tpu/native/fastxio.cpp).
+    counting flush (core/minimizer.py, native/fastxio.cpp).
 
     Streams one FASTX(.gz) file and yields per-flush chunk layouts:
     (records u64 [n_chunks, rec_per_chunk], hot groups int32 [n, 2]

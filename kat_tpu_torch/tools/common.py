@@ -364,7 +364,7 @@ class Input:
 
     def _code_batches(self):
         """2-bit code batches for counting: the native densely packed
-        reader when available (kat_tpu/native/fastxio.cpp), else the
+        reader when available (native/fastxio.cpp), else the
         pure-Python bucketed encoder (always for generator pipes, FIFOs
         and stdin).  A background thread keeps the parser a few batches
         ahead of device compute (io/prefetch.py)."""

@@ -39,7 +39,14 @@ def _hist_bytes(main, tmp_path, tag, argv_head, path, k="27"):
 
 def test_hist_cli_flush_bucketed_is_byte_identical(tmp_path, monkeypatch):
     """`hist --flush bucketed` writes the bytes that `--flush classic` and
-    kat_tpu's hist (classic and minimizer-bucketed) write."""
+    kat_tpu's hist (classic and minimizer-bucketed) write, and asks for
+    the same plot and peak analysis (recorded instead of run for the
+    port; test_torch_default_cli.py runs them)."""
+    calls = []
+    monkeypatch.setattr(cli, "_plot", lambda mode, argv, quiet=False:
+                        calls.append((mode, *argv)))
+    monkeypatch.setattr(cli, "_analyse_peaks", lambda *a, **kw:
+                        calls.append(("peaks", *a, *kw.values())))
     rng = np.random.default_rng(21)
     genome = _rand_seq(rng, 600)
     seqs = [genome[int(rng.integers(0, 500)):][:90] for _ in range(80)]
@@ -57,6 +64,12 @@ def test_hist_cli_flush_bucketed_is_byte_identical(tmp_path, monkeypatch):
     j_mini = _hist_bytes(jcli.main, tmp_path, "j_mini", [], path)
     assert buck == classic == default == j_classic == j_mini
     assert b"###" in buck
+    mapped = [[tuple(a.replace(tag, "t") if isinstance(a, str) else a
+                     for a in c) for c in calls[i:i + 2]]
+              for i, tag in ((0, "t_classic"), (2, "t_bucketed"),
+                             (4, "t_default"))]
+    assert len(calls) == 6 and mapped[0] == mapped[1] == mapped[2]
+    assert calls[2][0] == "spectra-hist" and calls[3][0] == "peaks"
 
 
 @pytest.mark.parametrize("why,argv,stdin", [

@@ -2,8 +2,9 @@
 against kat_tpu: every artifact written for the same synthetic reads and
 contigs must be byte-identical (gzip output: its decompressed bytes, since
 a gzip header records the file's name and the moment).  Both CLIs run in
-this process on the CPU (kat_tpu's plots stubbed out, the port's with
-`--device cpu`), at k = 27 and k = 41.  Subsampling (`-f`) draws from one
+this process on the CPU (the port's with `--device cpu`), at k = 27 and
+k = 41, their plots recorded instead of run: both must ask for the same
+ones with the same arguments (test_torch_default_cli.py runs them).  Subsampling (`-f`) draws from one
 seeded generator in each tool (random.Random is pinned while both run).
 
 On the CPU the port's lookups take the binary search; with the join policy
@@ -29,18 +30,20 @@ SMALL = ["-H", "5000"]  # tables grow from 8192
 @pytest.fixture(autouse=True)
 def pinned(monkeypatch):
     """What a dumped .jf header records about the machine and the moment;
-    kat_tpu's plots recorded instead of run; one seed for both tools'
-    subsampling generators."""
+    both CLIs' plots recorded instead of run (kat_tpu's under "j", the
+    port's under "t"); one seed for both tools' subsampling
+    generators."""
     monkeypatch.setattr("socket.gethostname", lambda: "host")
     monkeypatch.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
     monkeypatch.setattr("getpass.getuser", lambda: "user")
     monkeypatch.setattr("sys.argv", ["kat"])
     real = random.Random
     monkeypatch.setattr(random, "Random", lambda *a: real(11))
-    plots = []
-    monkeypatch.setattr(jcli, "_plot", lambda mode, argv, quiet=False:
-                        plots.append(mode))
-    return plots
+    calls = {"j": [], "t": []}
+    for side, cli in (("j", jcli), ("t", tcli)):
+        monkeypatch.setattr(cli, "_plot", lambda mode, argv, quiet=False,
+                            side=side: calls[side].append((mode, *argv)))
+    return calls
 
 
 def _fastq(path, seqs):
@@ -113,7 +116,7 @@ def _same(jp, tp, suffixes, opener=open):
 
 @pytest.mark.parametrize("k,dump", [(27, True), (41, False), (41, True)],
                          ids=["k27_dump", "k41", "k41_dump"])
-def test_cold_matches_jax(tmp_path, inputs, pinned, capsys, k, dump):
+def test_cold_matches_jax(tmp_path, inputs, pinned, k, dump):
     flags = [*SMALL, "-m", str(k)] + (["-d"] if dump else [])
     jp, tp = _both(tmp_path, ["cold"], flags, [inputs["asm"],
                                                inputs["reads"]])
@@ -121,8 +124,9 @@ def test_cold_matches_jax(tmp_path, inputs, pinned, capsys, k, dump):
                                      f"-asm_hash.jf{k}"] if dump else []))
     rows = (tmp_path / "t-stats.tsv").read_text().splitlines()
     assert len(rows) == 6 and rows[4].startswith("short\t0\t0.00000")
-    assert pinned == ["cold"]
-    assert "Plot and peak analysis skipped" in capsys.readouterr().out
+    assert pinned["j"] == [("cold", f"--output={jp}.png", f"{jp}-stats.tsv")]
+    assert [tuple(a.replace(str(tp), str(jp)) for a in c)
+            for c in pinned["t"]] == pinned["j"]
 
 
 @pytest.mark.parametrize("k,flags", [

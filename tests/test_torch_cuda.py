@@ -1401,3 +1401,30 @@ def test_sharded_counter_on_the_card(dev, k):
         assert torch.equal(tc.keys.cpu(), tp.keys)
         assert torch.equal(tc.counts.cpu(), tp.counts)
     assert card.shard_capacity == cpu.shard_capacity > 1 << 10
+
+
+def test_jf_count_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
+    """`python -m kat_tpu_torch.jf_cli count` on the card launches K1, K2
+    and K3 and writes the .jf that `--device cpu` writes (the header's
+    moment and machine pinned)."""
+    from kat_tpu_torch import jf_cli
+
+    monkeypatch.setattr("socket.gethostname", lambda: "host")
+    monkeypatch.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
+    rng = np.random.default_rng(13)
+    genome = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 20_000)]
+    fq = tmp_path / "r.fq"
+    with open(fq, "wb") as f:
+        for j, o in enumerate(rng.integers(0, 19_850, 3000)):
+            s = genome[o:o + 150].tobytes()
+            f.write(b"@r%d\n%s\n+\n%s\n" % (j, s, b"I" * 150))
+    kernels = (sort_keys, merge_sorted, reduce_by_key)
+    before = [fn.launches for fn in kernels]
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = tmp_path / f"{device}.jf"
+        assert jf_cli.main(["--device", device, "count", "-m", "27", "-C",
+                            "-o", str(out[device]), str(fq)]) == 0
+        if device == "cuda":
+            assert all(fn.launches > b for fn, b in zip(kernels, before))
+    assert out["cuda"].read_bytes() == out["cpu"].read_bytes()

@@ -1,7 +1,9 @@
 """`kat gcp` and `kat comp` in kat_tpu_torch against kat_tpu: every artifact
 written for the same synthetic reads and contigs must be byte-identical.
-Both CLIs run in this process on the CPU (kat_tpu's with its plots and peak
-analysis stubbed out, the port's with `--device cpu`), for two and three
+Both CLIs run in this process on the CPU (the port's with `--device cpu`),
+their plots and peak analysis recorded instead of run: both must ask for
+the same ones with the same arguments (test_torch_default_cli.py runs
+them), for two and three
 inputs, reads and `.jf`, -N/-O (the pass-2 always-canonical quirk), bins
 and scales, -h, -d and k = 27 and 41.  The comp engine is also held against
 kat_tpu's on tables carried across from kat_tpu's, and the fused dual probe
@@ -32,19 +34,42 @@ COMP_THREE = ("-ends.mx", "-middle.mx", "-mixed.mx")
 COMP_HISTS = (".1.hist", ".2.hist")
 
 
+def _record(mp, cli, calls):
+    """cli's plots and peak analysis recorded into calls, each a flat tuple
+    of its arguments, instead of run."""
+    mp.setattr(cli, "_plot", lambda mode, argv, quiet=False:
+               calls.append(("plot", mode, *argv)))
+    mp.setattr(cli, "_analyse_peaks", lambda *a, **kw:
+               calls.append(("peaks", *a, *kw.values())))
+
+
+def _mapped(calls, src, dst):
+    """calls with the output prefix src written as dst."""
+    return [tuple(a.replace(str(src), str(dst)) if isinstance(a, str) else a
+                  for a in c) for c in calls]
+
+
 def _pin(mp):
     """What a dumped .jf header records about the machine and the moment;
-    kat_tpu's plots and peak analysis (the port has neither) recorded
-    instead of run.  Returns the plot modes kat_tpu asked for."""
+    both CLIs' plots and peak analysis recorded instead of run.  Returns
+    the calls, kat_tpu's under "j" and the port's under "t"."""
     mp.setattr("socket.gethostname", lambda: "host")
     mp.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
     mp.setattr("getpass.getuser", lambda: "user")
     mp.setattr("sys.argv", ["kat"])
-    plots = []
-    mp.setattr(jcli, "_plot", lambda mode, argv, quiet=False:
-               plots.append(mode))
-    mp.setattr(jcli, "_analyse_peaks", lambda *a, **kw: None)
-    return plots
+    calls = {"j": [], "t": []}
+    _record(mp, jcli, calls["j"])
+    _record(mp, tcli, calls["t"])
+    return calls
+
+
+def _same_calls(calls, jp, tp):
+    """Both CLIs asked for the same plots and peak analyses, in the same
+    order, with the same arguments (the output prefix mapped); returns
+    the plot modes."""
+    assert calls["j"]
+    assert _mapped(calls["t"], tp, jp) == calls["j"]
+    return [c[1] for c in calls["j"] if c[0] == "plot"]
 
 
 @pytest.fixture(autouse=True)
@@ -111,15 +136,15 @@ def _same(jp, tp, suffixes):
     ["-m", "41", "-x", "3", "-y", "7"]],
     ids=["k27", "k27_scaled", "k25_non_canonical", "k25_dump", "k41",
          "k41_scaled"])
-def test_gcp_matches_jax(tmp_path, inputs, flags, pinned, capsys):
+def test_gcp_matches_jax(tmp_path, inputs, flags, pinned):
     jp, tp = _both(tmp_path, "gcp", ["-H", "5000", *flags], [inputs["a"]])
     k = int(flags[1])
     _same(jp, tp, (".mx",) + ((f"-hash.jf{k}",) if "-d" in flags else ()))
     rows = [ln for ln in (tmp_path / "t.mx").read_text().splitlines()
             if not ln.startswith("#")]
     assert len(rows) == k  # the GC == k row is never printed
-    assert pinned == ["density"]
-    assert "Plot and peak analysis skipped" in capsys.readouterr().out
+    assert _same_calls(pinned, jp, tp) == ["density"]
+    assert pinned["t"][1][:3] == ("peaks", f"{tp}.mx", str(tp))
 
 
 @pytest.mark.parametrize("flags,three", [
@@ -141,9 +166,15 @@ def test_comp_matches_jax(tmp_path, inputs, flags, three, pinned, capsys):
         COMP_HISTS if "-h" in flags else ())
     _same(jp, tp, suffixes)
     out = capsys.readouterr().out
-    assert "Plot and peak analysis skipped" in out
     assert "Distance between spectra 1 and 2" in out  # the summary
-    assert pinned == ["density" if "-n" in flags else "spectra-cn"]
+    assert _same_calls(pinned, jp, tp) == [
+        "density" if "-n" in flags else "spectra-cn"]
+    density, hists = "-n" in flags, "-h" in flags
+    peaks = [c[1] for c in pinned["t"] if c[0] == "peaks"]
+    assert peaks == ([f"{tp}.1.hist", f"{tp}.2.hist"] if density and hists
+                     else [] if density else [f"{tp}-main.mx"])
+    assert ("Current configuration does not support peak analysis."
+            in out) == (density and not hists)
     stats = (tmp_path / "t.stats").read_text()
     assert (" - Hash 3: " in stats) == three
 
@@ -195,20 +226,6 @@ def test_comp_refuses_a_jf_of_another_k(tmp_path, inputs, dumped):
         tcli.main(["--device", "cpu", "comp", *SMALL, "-m", "27", "-o",
                    str(tmp_path / "y"), jf1, inputs["b"]])
     assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("mode", ["hist", "gcp", "comp"])
-def test_skipped_plots_name_their_roadmap_item(tmp_path, inputs, mode,
-                                               capsys):
-    """hist, gcp and comp print one line for the plots and peak analysis
-    kat_tpu would run, pointing at the ROADMAP item that ports them."""
-    paths = [inputs["a"]] + ([inputs["b"]] if mode == "comp" else [])
-    assert tcli.main(["--device", "cpu", mode, "-o", str(tmp_path / "x"),
-                      *(SMALL[:2] if mode != "comp" else SMALL),
-                      *paths]) == 0
-    lines = capsys.readouterr().out.splitlines()
-    assert lines.count("Plot and peak analysis skipped: not ported yet "
-                       "(ROADMAP.md §1 item 4).") == 1
 
 
 @pytest.mark.parametrize("mode", ["gcp", "comp"])

@@ -2,7 +2,9 @@
 for the same synthetic FASTQ must be byte-identical.  Both sides run their
 Histogram tool (kat_tpu's CLI would also plot); the port's CLI runs once.
 Inputs cover the native reader (plain and gz FASTQ) and the Python reader
-(a gz stream through a `gen:` pipe)."""
+(a gz stream through a `gen:` pipe).  Where both CLIs run, their plots and
+peak analysis are recorded instead of run (test_torch_default_cli.py runs
+them) and must be the same calls."""
 
 import gzip
 
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from kat_tpu import cli as jcli
 from kat_tpu.io import jellyfish
 from kat_tpu.tools import hist as jhist
 from kat_tpu_torch import cli as tcli
@@ -67,13 +70,27 @@ def test_hist_gz_inputs_match_jax(tmp_path, reader):
     assert got == want
 
 
-def test_cli_hist_matches_jax(tmp_path, capsys):
+def test_cli_hist_matches_jax(tmp_path, monkeypatch):
+    """Both CLIs write the same histogram and ask for the same plot
+    (spectra-hist) and peak analysis, with the output prefix mapped."""
+    calls = {"j": [], "t": []}
+    for side, cli in (("j", jcli), ("t", tcli)):
+        monkeypatch.setattr(cli, "_plot", lambda mode, argv, quiet=False,
+                            side=side: calls[side].append((mode, *argv)))
+        monkeypatch.setattr(cli, "_analyse_peaks", lambda *a, side=side:
+                            calls[side].append(("peaks", *a)))
     fq = _write_fastq(tmp_path / "reads.fq", seed=9)
-    out = tmp_path / "cli.hist"
+    out, jout = tmp_path / "cli.hist", tmp_path / "jcli.hist"
     assert tcli.main(["--device", "cpu", "hist", "-m", "27", "-o", str(out),
                       fq]) == 0
-    assert "Plot and peak analysis skipped" in capsys.readouterr().out
+    assert jcli.main(["hist", "-m", "27", "-o", str(jout), fq]) == 0
     assert out.read_text() == _hist_text(jhist, tmp_path, [fq], 27)
+    assert out.read_text() == jout.read_text()
+    assert calls["j"] == [
+        ("spectra-hist", f"--output={jout}.png", str(jout)),
+        ("peaks", str(jout), str(jout), "Analysing peaks", False)]
+    assert [tuple(a.replace(str(out), str(jout)) if isinstance(a, str)
+                  else a for a in c) for c in calls["t"]] == calls["j"]
 
 
 def test_unported_modes_raise(tmp_path):

@@ -20,11 +20,26 @@ SECT_EXTRA = ("-counts.gc", "-non_repetitive.fa", "-repetitive.fa")
 
 @pytest.fixture(autouse=True)
 def pinned(monkeypatch):
-    """What a dumped .jf header records about the machine and the moment."""
+    """What a dumped .jf header records about the machine and the moment;
+    the port's plots and peak analysis recorded instead of run
+    (test_torch_default_cli.py runs them).  Returns those calls, each a
+    flat tuple of its arguments."""
     monkeypatch.setattr("socket.gethostname", lambda: "host")
     monkeypatch.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
     monkeypatch.setattr("getpass.getuser", lambda: "user")
     monkeypatch.setattr("sys.argv", ["kat"])
+    calls = []
+    monkeypatch.setattr(tcli, "_plot", lambda mode, argv, quiet=False:
+                        calls.append((mode, *argv)))
+    monkeypatch.setattr(tcli, "_analyse_peaks", lambda *a, **kw:
+                        calls.append(("peaks", *a, *kw.values())))
+    return calls
+
+
+def hist_calls(prefix) -> list:
+    """What kat_tpu's `hist -o prefix` plots and analyses."""
+    return [("spectra-hist", f"--output={prefix}.png", str(prefix)),
+            ("peaks", str(prefix), str(prefix), "Analysing peaks", False)]
 
 
 def _write_inputs(tmp_path, seed, long_contig=False):
@@ -129,7 +144,7 @@ def _jax_hist(tmp_path, paths, k, dump=False):
     return tmp_path / "j.hist"
 
 
-def test_hist_dump_and_hist_from_jf_match_jax(tmp_path, capsys):
+def test_hist_dump_and_hist_from_jf_match_jax(tmp_path, capsys, pinned):
     _fa, fq = _write_inputs(tmp_path, seed=5)
     want = _jax_hist(tmp_path, [fq], 27, dump=True)
     got = tmp_path / "t.hist"
@@ -150,6 +165,7 @@ def test_hist_dump_and_hist_from_jf_match_jax(tmp_path, capsys):
     assert "Loading hashes into memory" in capsys.readouterr().out
     assert got2.read_text().split("###")[1] == \
         got.read_text().split("###")[1]
+    assert pinned == hist_calls(got) + hist_calls(got2)
 
 
 @pytest.mark.parametrize("mode", ["hist", "sect"])

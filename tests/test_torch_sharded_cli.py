@@ -25,13 +25,30 @@ SECT_FILES = ("-counts.cvg", "-counts.gc", "-stats.tsv", "-contamination.mx")
 @pytest.fixture(autouse=True)
 def pinned(monkeypatch):
     """What a dumped .jf header records about the machine and the moment;
-    kat_tpu's plots recorded instead of run."""
+    kat_tpu's plots and peak analysis stubbed out, the port's recorded
+    instead of run (test_torch_default_cli.py runs them).  Returns the
+    port's calls, each a flat tuple of its arguments."""
     monkeypatch.setattr("socket.gethostname", lambda: "host")
     monkeypatch.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
     monkeypatch.setattr("getpass.getuser", lambda: "user")
     monkeypatch.setattr("sys.argv", ["kat"])
     monkeypatch.setattr(jcli, "_plot", lambda *a, **kw: None)
     monkeypatch.setattr(jcli, "_analyse_peaks", lambda *a, **kw: None)
+    calls = []
+    monkeypatch.setattr(tcli, "_plot", lambda mode, argv, quiet=False:
+                        calls.append(("plot", mode, *argv)))
+    monkeypatch.setattr(tcli, "_analyse_peaks", lambda *a, **kw:
+                        calls.append(("peaks", *a, *kw.values())))
+    return calls
+
+
+def _same_calls(calls, n, tp, one):
+    """The first n calls (the mesh's run, prefix tp) are the rest (the
+    one-device run, prefix one) with the prefix mapped: a mesh plots and
+    analyses what one device does."""
+    assert n and len(calls) == 2 * n
+    assert [tuple(a.replace(str(tp), str(one)) if isinstance(a, str)
+                  else a for a in c) for c in calls[:n]] == calls[n:]
 
 
 def _reads(path, genome, rng, n, length=120):
@@ -81,7 +98,8 @@ def _port(tmp_path, name, mode, args, shards=("--shards", "8")):
 
 
 @pytest.mark.parametrize("k", [27, 41])
-def test_hist_matches_kat_tpu_sharded(tmp_path, inputs, monkeypatch, k):
+def test_hist_matches_kat_tpu_sharded(tmp_path, inputs, monkeypatch, k,
+                                      pinned):
     """hist -d: the histogram equals kat_tpu's sharded one, byte for byte,
     and the .jf dumped from the merged shards equals the one-device
     port's."""
@@ -96,7 +114,9 @@ def test_hist_matches_kat_tpu_sharded(tmp_path, inputs, monkeypatch, k):
     assert h.input.shards is not None
     args = ["-m", str(k), "-H", "4096", "-d", inputs["a"]]
     tp = _port(tmp_path, "t", ["hist"], args)
+    n = len(pinned)
     one = _port(tmp_path, "one", ["hist"], args, shards=())
+    _same_calls(pinned, n, tp, one)
     assert (tmp_path / "t").read_bytes() == (tmp_path / "j").read_bytes()
     jf = f"-hash.jf{k}"
     assert _files(tp, (jf,)) == _files(one, (jf,))
@@ -132,7 +152,7 @@ def test_sect_halo_matches_kat_tpu_sharded(tmp_path, inputs, monkeypatch, k):
      ("-main.mx", ".stats")),
 ], ids=["gcp", "comp", "comp_three", "comp_k41_non_canonical"])
 def test_analysis_matches_one_device(tmp_path, inputs, mode, args,
-                                     suffixes, monkeypatch):
+                                     suffixes, monkeypatch, pinned):
     """gcp and comp on the mesh (the passes per shard, summed) write what
     the one-device port writes; the tables never leave their shards."""
     from kat_tpu_torch.core import counting
@@ -146,7 +166,9 @@ def test_analysis_matches_one_device(tmp_path, inputs, mode, args,
     cli_mode = ["comp" if mode == "comp3" else mode]
     tp = _port(tmp_path, "t", cli_mode, [*args, *paths])
     assert not merged  # no shard merge: finish() was never called
+    n = len(pinned)
     one = _port(tmp_path, "one", cli_mode, [*args, *paths], shards=())
+    _same_calls(pinned, n, tp, one)
     assert _files(tp, suffixes) == _files(one, suffixes)
 
 
@@ -158,13 +180,18 @@ def test_analysis_matches_one_device(tmp_path, inputs, mode, args,
                          "a", "asm"], (".in.fq", ".out.fq", ".stats")),
 ], ids=["cold", "filter_kmer", "filter_seq"])
 def test_lookup_tools_match_one_device(tmp_path, inputs, mode, args,
-                                       suffixes):
+                                       suffixes, pinned):
     """cold and filter seq answer through routed window counts, filter
     kmer exports the merged shards: each writes what the one-device port
     writes."""
     args = [inputs.get(a, a) for a in args]
     tp = _port(tmp_path, "t", mode, args)
+    n = len(pinned)
     one = _port(tmp_path, "one", mode, args, shards=())
+    if mode == ["cold"]:
+        _same_calls(pinned, n, tp, one)
+    else:
+        assert not pinned
     assert _files(tp, suffixes) == _files(one, suffixes)
 
 

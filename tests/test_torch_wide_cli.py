@@ -21,11 +21,26 @@ SECT_ARTIFACTS = ("-counts.cvg", "-stats.tsv", "-contamination.mx",
 
 @pytest.fixture(autouse=True)
 def pinned(monkeypatch):
-    """What a dumped .jf header records about the machine and the moment."""
+    """What a dumped .jf header records about the machine and the moment;
+    the port's plots and peak analysis recorded instead of run
+    (test_torch_default_cli.py runs them).  Returns those calls, each a
+    flat tuple of its arguments."""
     monkeypatch.setattr("socket.gethostname", lambda: "host")
     monkeypatch.setattr("time.ctime", lambda: "Thu Jan  1 00:00:00 1970")
     monkeypatch.setattr("getpass.getuser", lambda: "user")
     monkeypatch.setattr("sys.argv", ["kat"])
+    calls = []
+    monkeypatch.setattr(tcli, "_plot", lambda mode, argv, quiet=False:
+                        calls.append((mode, *argv)))
+    monkeypatch.setattr(tcli, "_analyse_peaks", lambda *a, **kw:
+                        calls.append(("peaks", *a, *kw.values())))
+    return calls
+
+
+def hist_calls(prefix) -> list:
+    """What kat_tpu's `hist -o prefix` plots and analyses."""
+    return [("spectra-hist", f"--output={prefix}.png", str(prefix)),
+            ("peaks", str(prefix), str(prefix), "Analysing peaks", False)]
 
 
 def _write_inputs(tmp_path, seed):
@@ -69,7 +84,7 @@ def _jax_hist(tmp_path, paths, k, canonical=True, dump=False):
 
 @pytest.mark.parametrize("k,canonical", [(33, True), (41, True),
                                          (41, False)])
-def test_wide_hist_dump_and_load_match_jax(tmp_path, k, canonical):
+def test_wide_hist_dump_and_load_match_jax(tmp_path, k, canonical, pinned):
     """hist -d: the histogram and the dumped .jf equal kat_tpu's byte for
     byte; hist of that .jf (LOAD, k from the file) gives the histogram."""
     _fa, fq = _write_inputs(tmp_path, seed=k)
@@ -87,6 +102,7 @@ def test_wide_hist_dump_and_load_match_jax(tmp_path, k, canonical):
                       str(jf)]) == 0
     assert loaded.read_text().split("###")[1] == \
         got.read_text().split("###")[1]
+    assert pinned == hist_calls(got) + hist_calls(loaded)
 
 
 def test_wide_sect_matches_jax(tmp_path):
