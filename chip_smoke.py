@@ -167,6 +167,21 @@
    every read, its hits for all low-complexity reads and every 64th other
    one against numpy, the kept and discarded counts against the ratios
    and the records written;
+7b. starts two processes on the one card (this script with
+   `--two-process-worker`), one shard each, in one torch.distributed gloo
+   group over a file:// store (they share the card, which NCCL refuses):
+   each reads its slice of a shard:// group of the CLI phase's 200,000
+   reads split into two FASTQs of 120,000 and 80,000 reads, and runs `hist
+   -m 27`, `hist -m 41`, `comp -m 27` (against step 6's contigs) and `sect
+   -m 27` through cli.main; every artifact of each process must equal one
+   process's `--shards 2` run on the card byte for byte, and each
+   process's counting flushes must launch K1, K6, K2 and K3 (read around
+   each run, as the sharded phases' are).  A worker that fails or outlives
+   WORKER_TIMEOUT fails the run.  Their counter, saved by
+   save_sharded_counter, is loaded here on a mesh of 2 shards and must
+   equal the live table; then ops/verify.verify_kernels and
+   verify_kernels_wide (4, 8 and 16 of kat_tpu's words) must pass on the
+   card.  Each step's seconds are printed with the card's name and limit;
 8. the route sweep (benchmarks/sweep_lookup.route_table: join
    against search for 1, 2 and 4 words, 2^20 and 2^24 slots, 2^16-2^23
    queries, and the dual probe), and one count past 2^30 distinct keys:
@@ -2556,6 +2571,24 @@ def _join_share(contigs, k: int, n_keys: int, dev, n_words: int = 1):
     return n_join, w_join, w_all
 
 
+CLI_READ_LEN = 150
+
+
+def cli_reads(n_reads: int, genome_len: int):
+    """The CLI phases' read model: a random genome of genome_len bases and
+    n_reads reads of CLI_READ_LEN bases from it, 1% of them with one N.
+    Returns (genome letters, reads [n_reads, CLI_READ_LEN] letters, the
+    generator after these draws: the contigs come from it next)."""
+    rng = np.random.default_rng(SEED + 1)
+    genome = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, genome_len)]
+    off = rng.integers(0, genome.size - CLI_READ_LEN, n_reads)
+    seqs = genome[off[:, None] + np.arange(CLI_READ_LEN)]
+    noisy = rng.random(n_reads) < 0.01
+    seqs[noisy, rng.integers(0, CLI_READ_LEN, noisy.sum())] = ord("N")
+    return genome, seqs, rng
+
+
 def cli_run(dev, smi: str, n_reads: int = 200_000,
             genome_len: int = 1 << 20):
     """`python -m kat_tpu_torch` end to end on synthetic files: `hist -d`
@@ -2575,19 +2608,13 @@ def cli_run(dev, smi: str, n_reads: int = 200_000,
 
     if not native.available():  # build the reader outside the timed run
         raise AssertionError("native FASTX reader did not build")
-    k, read_len = 27, 150
-    rng = np.random.default_rng(SEED + 1)
-    genome = np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, genome_len)]
+    k, read_len = 27, CLI_READ_LEN
+    genome, seqs, rng = cli_reads(n_reads, genome_len)
     cov = read_model_coverage(n_reads, read_len, genome.size, k)
     libs = {m: (__import__(m).__version__ if _have(m) else "not installed")
             for m in ("matplotlib", "tabulate")}
     print(f"CLI: host libraries of the plots and peak analysis: matplotlib "
           f"{libs['matplotlib']}, tabulate {libs['tabulate']}")
-    off = rng.integers(0, genome.size - read_len, n_reads)
-    seqs = genome[off[:, None] + np.arange(read_len)]
-    noisy = rng.random(n_reads) < 0.01
-    seqs[noisy, rng.integers(0, read_len, noisy.sum())] = ord("N")
     keys, valid = _numpy_windows(seqs, k)
     n_kmers = int(valid.sum())
     uniq, ucounts = np.unique(keys[valid], return_counts=True)
@@ -3840,9 +3867,249 @@ def sharded_sect(dev, smi: str, genome) -> dict:
     return launches
 
 
+# -- two processes on one card: parallel/distributed.py -------------------
+
+# (name, the mode's arguments, k): {reads} is the shard:// group, {fa} the
+# contigs; every process and the one-process reference run each in turn
+TWO_PROC_MODES = (
+    ("hist27", ["hist", "-m", "27", "{reads}"], 27),
+    ("hist41", ["hist", "-m", "41", "{reads}"], 41),
+    ("comp27", ["comp", "-m", "27", "{reads}", "{fa}"], 27),
+    ("sect27", ["sect", "-m", "27", "{fa}", "{reads}"], 27),
+)
+# the counting flush's kernels by k: K1, K6, K2, K3
+FLUSH_KERNELS = {
+    27: ("sort_keys", "merge_runs", "merge_sorted", "reduce_by_key"),
+    41: ("sort_words", "merge_runs_words", "merge_sorted_words",
+         "reduce_by_key_words")}
+TWO_PROC_SPLIT = (120_000, 80_000)  # reads of r1.fq and r2.fq
+WORKER_TIMEOUT = 600  # seconds a worker may take, start to end
+
+
+def _mode_args(args: list[str], out: str, reads: str, fa: str) -> list[str]:
+    """A mode's arguments with `-o out` after the mode's name."""
+    filled = [a.format(reads=reads, fa=fa) for a in args]
+    return [filled[0], "-o", out, *filled[1:]]
+
+
+def _artifacts(d: str) -> dict:
+    """{file name: bytes} of every file in d."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def two_process_worker(rank: int, tmp: str, device: str) -> int:
+    """One of two processes of one gloo group on the card: init_distributed
+    over a file:// store in tmp, then every mode of TWO_PROC_MODES through
+    cli.main on the shard:// group (its artifacts into tmp/p<rank>), the
+    counting flush's K1, K6, K2 and K3 launches read around each, then the
+    reads counted once more through Input and saved by
+    save_sharded_counter (tmp/ckpt; process 0 also writes the live finished
+    table to tmp/live.npz).  Writes tmp/worker<rank>.json."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from kat_tpu_torch.io import checkpoint
+    from kat_tpu_torch.parallel import distributed
+    from kat_tpu_torch.tools.common import Input, glob_files
+
+    started = time.time()
+    backend = distributed.init_distributed(
+        f"file://{tmp}/store", 2, rank,
+        device="cpu" if device == "cpu" else None)
+    if backend != "gloo":
+        raise AssertionError(f"two processes on one card took {backend}")
+    ready = time.time()
+    reads, fa = f"shard://{tmp}/r{{1,2}}.fq", os.path.join(tmp, "asm.fa")
+    out_dir = os.path.join(tmp, f"p{rank}")
+    os.makedirs(out_dir)
+    pre = ["--device", "cpu"] if device == "cpu" else []
+    runs = {}
+    for name, args, k in TWO_PROC_MODES:
+        _zero_launches()
+        run = _cli_in_process(
+            pre + _mode_args(args, os.path.join(out_dir, name), reads, fa),
+            f"process {rank}: {name}")
+        runs[name] = dict(s=run["s"], launches=_read_launches(
+            f"process {rank}: {name}", FLUSH_KERNELS[k]))
+    t0 = time.perf_counter()
+    inp = Input(paths=glob_files(reads), mer_len=27,
+                device=torch.device(device if device == "cpu" else "cuda:0"))
+    inp.validate()
+    inp.count(quiet=True)
+    checkpoint.save_sharded_counter(os.path.join(tmp, "ckpt"), inp.shards)
+    live = inp.shards.finish()
+    if rank == 0:
+        n = live.n_unique
+        np.savez(os.path.join(tmp, "live.npz"),
+                 keys=live.keys[:n].cpu().numpy(),
+                 counts=live.counts[:n].cpu().numpy())
+    distributed.barrier()
+    with open(os.path.join(tmp, f"worker{rank}.json"), "w") as f:
+        json.dump(dict(started=started, ready=ready, runs=runs,
+                       checkpoint_s=time.perf_counter() - t0,
+                       shards=[inp.shards.mesh.first,
+                               inp.shards.mesh.n_local, inp.shards.n],
+                       ended=time.time()), f)
+    return 0
+
+
+def _run_workers(tmp: str, device: str) -> list[dict]:
+    """Both workers, started together; each must end with code 0 within
+    WORKER_TIMEOUT seconds, or both are killed and this raises with the
+    failing worker's log."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    logs = [open(os.path.join(tmp, f"log{r}.txt"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--two-process-worker", str(r), tmp, device], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    bad = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = next((r for r, p in enumerate(procs)
+                        if p.poll() not in (None, 0)), None)
+            if bad is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            why = ("failed" if bad == r or p.returncode > 0 else
+                   f"did not end within {WORKER_TIMEOUT} s")
+            raise AssertionError(f"two-process worker {r} {why} "
+                                 f"({p.returncode}):\n{texts[r][-6000:]}")
+    out = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"worker{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def two_process_path(dev, smi: str, n_reads: int = 200_000,
+                     genome_len: int = 1 << 20) -> dict:
+    """Two processes on the one card, one shard each on it, over gloo (they
+    share the card): the CLI phases' reads as a shard:// group of two
+    FASTQs of 120,000 and 80,000 reads (the slices are uneven), `hist -m
+    27`, `hist -m 41`, `comp -m 27` (reads against the contigs) and `sect
+    -m 27` through cli.main in each (two_process_worker).  Every artifact
+    of each process must equal, byte for byte, one process's `--shards 2`
+    run of the same mode on the card; each process's counting flushes must
+    launch K1, K6, K2 and K3.  The checkpoint the two processes saved is
+    loaded in this process on a mesh of 2 shards and must equal the live
+    table.  Then verify_kernels and verify_kernels_wide on the card.
+    Returns each run's launches, by run."""
+    import torch
+
+    from kat_tpu_torch.io import checkpoint
+    from kat_tpu_torch.ops import verify
+    from kat_tpu_torch.parallel.sharded import make_mesh
+
+    device = dev.type
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    genome, seqs, rng = cli_reads(n_reads, genome_len)
+    split = [n_reads * p // sum(TWO_PROC_SPLIT) for p in TWO_PROC_SPLIT]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_fastq(os.path.join(tmp, "r1.fq"), seqs[:split[0]])
+        _write_fastq(os.path.join(tmp, "r2.fq"), seqs[split[0]:])
+        fa = os.path.join(tmp, "asm.fa")
+        _write_contigs(fa, genome, rng)
+        t0 = time.time()
+        workers = _run_workers(tmp, device)
+        two_s = time.time() - t0
+        start_s = max(w["ready"] for w in workers) - t0
+        print(f"two processes: both workers ran in {two_s:.4f} s, "
+              f"{start_s:.4f} s of it to start (interpreter, torch, the "
+              f"card and the gloo group; {start_s / two_s:.1%}) ({smi})")
+        if sorted(tuple(w["shards"]) for w in workers) != [(0, 1, 2),
+                                                           (1, 1, 2)]:
+            raise AssertionError(f"shards: {[w['shards'] for w in workers]}")
+        reads = f"shard://{tmp}/r{{1,2}}.fq"
+        one_dir = os.path.join(tmp, "one")
+        os.makedirs(one_dir)
+        pre = ["--device", "cpu"] if device == "cpu" else []
+        for name, args, k in TWO_PROC_MODES:
+            _zero_launches()
+            run = _cli_in_process(
+                pre + ["--shards", "2"]
+                + _mode_args(args, os.path.join(one_dir, name), reads, fa),
+                f"one process --shards 2 {name}")
+            launches[f"one process --shards 2 {name}"] = _read_launches(
+                name, FLUSH_KERNELS[k])
+            for r, w in enumerate(workers):
+                launches[f"2 processes {name} (process {r})"] = \
+                    w["runs"][name]["launches"]
+            print(f"two processes: {name}: "
+                  + ", ".join(f"process {r} {w['runs'][name]['s']:.4f} s"
+                              for r, w in enumerate(workers))
+                  + f"; one process --shards 2 {run['s']:.4f} s ({smi})")
+        want = {n: b for n, b in _artifacts(one_dir).items()}
+        for r in range(2):
+            got = _artifacts(os.path.join(tmp, f"p{r}"))
+            if set(got) != set(want):
+                raise AssertionError(f"process {r} wrote {sorted(got)}, one "
+                                     f"process {sorted(want)}")
+            for n, b in want.items():
+                if got[n] != b:
+                    raise AssertionError(f"process {r}'s {n} differs from "
+                                         "one process's --shards 2")
+        print(f"two processes: {len(want)} artifacts of each process equal "
+              f"one process's --shards 2, byte for byte: "
+              f"{', '.join(sorted(want))}")
+        t1 = time.perf_counter()
+        sc = checkpoint.load_sharded_counter(
+            os.path.join(tmp, "ckpt"),
+            make_mesh(2, devices=[dev]))
+        got = sc.finish()
+        live = np.load(os.path.join(tmp, "live.npz"))
+        n = got.n_unique
+        if (n != live["counts"].size
+                or not np.array_equal(got.keys[:n].cpu().numpy(),
+                                      live["keys"])
+                or not np.array_equal(got.counts[:n].cpu().numpy(),
+                                      live["counts"])):
+            raise AssertionError("the two processes' checkpoint, loaded on "
+                                 "2 shards, differs from their live table")
+        print(f"two processes: the checkpoint of their counter "
+              f"(save_sharded_counter, {n} k-mers) loaded on a mesh of 2 "
+              f"shards equals the live table; saved in "
+              f"{max(w['checkpoint_s'] for w in workers):.4f} s (counting "
+              f"included), loaded and finished in "
+              f"{time.perf_counter() - t1:.4f} s ({smi})")
+    t2 = time.perf_counter()
+    v = verify.verify_kernels(device=dev)
+    vw = [verify.verify_kernels_wide(n_words=w, device=dev)
+          for w in (4, 8, 16)]
+    for res in (v, *vw):
+        if {res[c] for c in ("sort", "merge", "reduce")} != {"PASS"}:
+            raise AssertionError(f"kernel attestation failed: {res}")
+    print(f"verify_kernels {v}; verify_kernels_wide "
+          f"{[{c: r[c] for c in ('n_words', 'sort', 'merge', 'reduce')} for r in vw]} "
+          f"in {time.perf_counter() - t2:.4f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--two-process-worker"]:
+        return two_process_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -3999,12 +4266,14 @@ def main() -> int:
         kernels[i]["launches_bucketed"] = n
     kernels += [k5, k5r, k6, check_rounds_kernel(dev), *binned, *packed,
                 *dual, *wjoin, *k6s]
-    for entry in kernels:  # the sharded paths' launches, by run
+    lap("K5, K6 and K7")
+    sharded.update(two_process_path(dev, smi))
+    lap("the two-process phase")
+    for entry in kernels:  # the sharded and two-process runs' launches
         fn = SHARDED_WRAPPER.get(entry["name"].split("[")[0])
         runs = {run: n[fn] for run, n in sharded.items() if n.get(fn)}
         if runs:
             entry["launches_sharded"] = runs
-    lap("K5, K6 and K7")
     route_sweep(dev, smi)
     big_flush_path(dev, smi)
 

@@ -5,10 +5,14 @@ Port of kat_tpu/cli.py with every mode (`hist`, `gcp`, `comp`, `sect`,
 and peak analysis, plus a top-level `--device` (the card unless the CPU is
 asked for; `plot` touches no device), `--shards N` (count on a mesh of N
 shards: the counterpart of kat_tpu's KAT_TPU_SHARD=1 on an N-device mesh)
-and `--flush` (the classic counting flush unless the minimizer-bucketed
-one is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch).
+`--flush` (the classic counting flush unless the minimizer-bucketed
+one is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch)
+and `--profile DIR` (a torch.profiler trace of the run, kat_tpu's
+KAT_TPU_PROFILE; utils/profiling.py).  In a multi-process run, started by
+parallel/distributed.init_distributed before `main`, every count shards
+over every process's shards.
 Usage: python -m kat_tpu_torch [--device {cuda,cpu}] [--shards N]
-       [--flush {classic,bucketed}] <mode> [options] ...
+       [--flush {classic,bucketed}] [--profile DIR] <mode> [options] ...
 """
 
 from __future__ import annotations
@@ -538,6 +542,9 @@ def main(argv: list[str] | None = None) -> int:
                              "or the minimizer-bucketed chunk flush "
                              "(canonical, 13 < k <= 29, files only; an "
                              "error otherwise).")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="Write a torch.profiler trace of the run to "
+                             "DIR (kat_tpu's KAT_TPU_PROFILE).")
     sub = parser.add_subparsers(dest="mode")
     for adder in (_add_hist, _add_gcp, _add_comp, _add_sect, _add_cold,
                   _add_filter, _add_plot):
@@ -546,7 +553,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.mode is None:
         parser.print_help()
         return 1
-    return args.func(args)
+    from .utils.profiling import maybe_trace
+
+    with maybe_trace(args.profile):
+        return args.func(args)
 
 
 if __name__ == "__main__":

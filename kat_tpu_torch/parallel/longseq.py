@@ -10,7 +10,9 @@ the windows that wrap fall past L - k + 1 and are sliced off), extracts its
 span's windows, and answers them: from a replicated table
 (`sharded_window_profile`) or by routed lookups into a live ShardedCounter,
 the table staying sharded (`sharded_window_profile_routed`).  Narrow and
-wide keys alike.
+wide keys alike.  Across processes every process passes the same contig,
+answers its own shards' spans, and the spans' answers are all-gathered, so
+every process gets the whole profile.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from .sharded import Mesh, ShardedCounter
 
 
 def _span_codes(codes, k: int, mesh: Mesh):
-    """Each shard's span of the contig plus its ring halo, on the shard's
-    device: n tensors of span + k - 1 codes (invalid codes pad the last
-    span)."""
+    """Each local shard's span of the contig (n spans over every
+    process's shards) plus its ring halo, on the shard's device: L tensors
+    of span + k - 1 codes (invalid codes pad the last span)."""
     if not isinstance(codes, torch.Tensor):
         codes = torch.from_numpy(np.ascontiguousarray(codes, np.uint8))
     codes = codes.to(torch.uint8).reshape(-1)
@@ -36,14 +38,21 @@ def _span_codes(codes, k: int, mesh: Mesh):
         (n * span - codes.numel(),), 255, dtype=torch.uint8,
         device=codes.device)])
     ring = torch.cat([padded, padded[:k - 1]])
-    return [ring[i * span:i * span + span + k - 1].to(dev)
+    first = mesh.first
+    return [ring[(first + i) * span:(first + i) * span + span + k - 1].to(dev)
             for i, dev in enumerate(mesh.devices)], span
 
 
-def _profile(counts, gcs, n_windows: int):
-    c = torch.cat([x.cpu() for x in counts])[:n_windows]
-    g = torch.cat([x.cpu() for x in gcs])[:n_windows]
-    return c.numpy().astype(np.uint32), g.numpy()
+def _profile(counts, gcs, n_windows: int, mesh: Mesh):
+    """The local spans' answers in span order (every process's, gathered
+    across processes), cut to the contig's windows, as numpy."""
+    c = torch.cat([x.cpu() for x in counts])
+    g = torch.cat([x.cpu() for x in gcs])
+    if mesh.multiprocess:
+        from .distributed import all_gather
+
+        c, g = torch.cat(all_gather(c)), torch.cat(all_gather(g))
+    return c[:n_windows].numpy().astype(np.uint32), g[:n_windows].numpy()
 
 
 def _to(table, dev):
@@ -69,7 +78,7 @@ def sharded_window_profile(table, codes, k: int, canonical: bool,
         counts.append(torch.where(valid, c, 0).reshape(-1))
         gcs.append(torch.where(valid, tables.gc_count(keys, k).to(
             torch.int32), -1).reshape(-1))
-    return _profile(counts, gcs, L - k + 1)
+    return _profile(counts, gcs, L - k + 1, mesh)
 
 
 def sharded_window_counts(table, codes, k: int, canonical: bool,
@@ -110,4 +119,4 @@ def sharded_window_profile_routed(counter: ShardedCounter, codes, k: int,
             raise RuntimeError("routed halo lookup cannot converge")
         qcap = min(span, qcap * 2)
     counts = [torch.where(v, c, 0) for v, c in zip(valids, outs)]
-    return _profile(counts, gcs, L - k + 1)
+    return _profile(counts, gcs, L - k + 1, counter.mesh)

@@ -33,9 +33,15 @@ from the kept pre-flush tables at doubled capacity (doubled until it holds
 the reduce's count of runs) or doubled route slack, the observable
 behaviour of jellyfish's cooperative resize (hash_counter.hpp:204-244).
 
-Left for the multi-process slice: kat_tpu's multi-process `_put` and
-`_host_array` (torch.distributed and NCCL); and the `route_identity`
-timing knob.
+Across processes (parallel/distributed.global_mesh) each process holds
+only its own shards, global shards first .. first + L - 1: it buffers its
+own rows, the exchange is one `all_to_all_single` over the route buffers,
+every flush all-gathers the shards' unique counts and drops, so every
+process takes the same replay decision at the same flush (kat_tpu's
+replicated `dropped`), `histogram` sums in int64 with `all_reduce`, and
+`finish` all-gathers the shards' tables, giving every process the same
+table.  The kernels run inside each shard as in one process.  Not ported:
+the `route_identity` timing knob.
 """
 
 from __future__ import annotations
@@ -53,12 +59,31 @@ from ..ops.sort_kernel import (merge_runs, merge_runs_words, sort_keys,
 
 
 class Mesh(NamedTuple):
-    """The shards' devices, shard i on devices[i]."""
+    """This process's shards' devices, global shard first + i on
+    devices[i].  `procs` processes hold as many shards each, process-major
+    (parallel/distributed.global_mesh); in one process (procs = 1) they
+    are every shard."""
     devices: tuple
+    procs: int = 1
+    rank: int = 0
 
     @property
     def n(self) -> int:
+        """Shards over every process."""
+        return len(self.devices) * self.procs
+
+    @property
+    def n_local(self) -> int:
         return len(self.devices)
+
+    @property
+    def first(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * len(self.devices)
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.procs > 1
 
     @property
     def one_device(self) -> bool:
@@ -161,17 +186,27 @@ def _fold_shift(k: int, n_dest: int) -> int | None:
 
 
 class _Exchange:
-    """The exchange's receive buffers: destination d gets [*lead, n_src,
-    cap] (source s at [..., s, :]).  On one device they are the views
-    [..., d, :, :] of one [*lead, n_dest, n_src, cap] buffer, so a source's
-    [*lead, n_dest, cap] buckets go in by one strided copy; across cards a
-    source's bucket for d is copied to d's device."""
+    """The exchange's receive buffers: local destination d gets [*lead,
+    n_src, cap] (global source s at [..., s, :]) once `exchange()` ran.
+
+    In one process, on one device they are the views [..., d, :, :] of one
+    [*lead, n_dest, n_src, cap] buffer, so a source's [*lead, n_dest, cap]
+    buckets go in by one strided copy; across cards a source's bucket for
+    d is copied to d's device.  Across processes the local sources'
+    buckets are laid out [n_dest, L_src, *lead, cap] (destinations
+    process-major) and `exchange()` is one all_to_all_single: process q
+    gets its L destinations' rows from every process."""
 
     def __init__(self, mesh: Mesh, lead: tuple, cap: int,
                  dtype: torch.dtype):
-        n = mesh.n
-        self.big = None
-        if mesh.one_device:
+        n, L = mesh.n, mesh.n_local
+        self.mesh, self.lead, self.cap = mesh, lead, cap
+        self.big = self.out = None
+        if mesh.multiprocess:
+            self.out = torch.empty((n, L, *lead, cap), dtype=dtype,
+                                   device=mesh.devices[0])
+            self.recv = None
+        elif mesh.one_device:
             self.big = torch.empty((*lead, n, n, cap), dtype=dtype,
                                    device=mesh.devices[0])
             self.recv = [self.big[..., d, :, :] for d in range(n)]
@@ -180,25 +215,47 @@ class _Exchange:
                                      device=dev) for dev in mesh.devices]
 
     def send(self, s: int, buckets: torch.Tensor) -> None:
-        """Source s's [*lead, n_dest, cap] buckets into every destination."""
-        if self.big is not None:
+        """Local source s's [*lead, n_dest, cap] buckets into every
+        destination."""
+        if self.out is not None:
+            self.out[:, s] = buckets.movedim(-2, 0)
+        elif self.big is not None:
             self.big[..., :, s, :] = buckets
+        else:
+            for d, r in enumerate(self.recv):
+                r[..., s, :].copy_(buckets[..., d, :])
+
+    def exchange(self) -> None:
+        """Hand every destination its buckets (across processes, the one
+        collective; in one process the sends already did)."""
+        if self.out is None:
             return
-        for d, r in enumerate(self.recv):
-            r[..., s, :].copy_(buckets[..., d, :])
+        from .distributed import all_to_all
+
+        m = self.mesh
+        got = all_to_all(self.out).view(m.procs, m.n_local, m.n_local,
+                                        *self.lead, self.cap)
+        self.out = None
+        self.recv = [got[:, d].reshape(m.n, *self.lead, self.cap)
+                     .movedim(0, -2).to(dev)
+                     for d, dev in enumerate(m.devices)]
 
 
 class ShardedCounter:
     """Streaming k-mer counter whose table lives sharded over a mesh.
 
-    Shard s's table is `tables[s]`: a counting.CountTable (k <= 31) or a
-    wide.WideTable (31 < k <= 255) of `shard_capacity` slots on the shard's
-    device, sorted with a sentinel tail, `n_unique[s]` real entries.
+    Local shard s's table is `tables[s]`: a counting.CountTable (k <= 31)
+    or a wide.WideTable (31 < k <= 255) of `shard_capacity` slots on the
+    shard's device, sorted with a sentinel tail; `n_unique[mesh.first + s]`
+    real entries (`n_unique` and `n_max` cover every process's shards).
     `add_codes` buffers one [rows, L] code batch, rows padded with invalid
-    codes to a multiple of n and cut into n row slices, shard s taking
-    the s-th; every `flush_batches` batches (or at a shape change, or
-    `flush()`) the buffered batches go through one flush.  `finish` merges
-    the shards into one table; `histogram` sums per-shard histograms.
+    codes to a multiple of the local shards and cut into as many row
+    slices, local shard s taking the s-th (across processes every process
+    passes its own rows, the same shape everywhere:
+    distributed.lockstep_code_batches); every `flush_batches` batches (or
+    at a shape change, or `flush()`) the buffered batches go through one
+    flush.  `finish` merges the shards into one table; `histogram` sums
+    per-shard histograms.
     """
 
     def __init__(self, mesh: Mesh, k: int, canonical: bool = True,
@@ -248,8 +305,9 @@ class ShardedCounter:
         return min(_next_pow2(rc), windows_local)
 
     def _put(self, codes) -> list:
-        """Pad rows to a multiple of n (invalid codes) and cut them into n
-        row slices, slice s on shard s's device."""
+        """Pad rows to a multiple of the local shards (invalid codes) and
+        cut them into as many row slices, slice s on local shard s's
+        device."""
         if isinstance(codes, torch.Tensor):
             codes = codes.to(torch.uint8)
         else:  # the reader may reuse its buffers: take a copy
@@ -257,11 +315,12 @@ class ShardedCounter:
         if codes.dim() != 2:
             raise ValueError("expected [rows, length] code batch")
         rows, length = codes.shape
-        if rows % self.n:
-            pad = self.n - rows % self.n
+        n_local = self.mesh.n_local
+        if rows % n_local:
+            pad = n_local - rows % n_local
             codes = torch.cat([codes, torch.full(
                 (pad, length), 255, dtype=torch.uint8, device=codes.device)])
-        per = codes.shape[0] // self.n
+        per = codes.shape[0] // n_local
         return [codes[s * per:(s + 1) * per].to(dev)
                 for s, dev in enumerate(self.mesh.devices)]
 
@@ -331,8 +390,9 @@ class ShardedCounter:
         return arr
 
     def _run_flush(self, codes, b: int, rows: int, length: int, prev):
-        """One flush of the buffered code batches into the tables `prev`:
-        (new tables, n_unique per shard, keys dropped in routing)."""
+        """One flush of the buffered code batches into the local tables
+        `prev`: (new local tables, n_unique of every shard, keys dropped in
+        routing by every shard)."""
         n, k = self.n, self.k
         rc = self._route_cap(b, rows, length)
         lead = (self.n_words,) if self.wide else ()
@@ -353,8 +413,9 @@ class ShardedCounter:
             ex.send(s, torch.where(pos < cnts[:, None], send[..., idx],
                                    SENTINEL))
             del send, dest, idx
+        ex.exchange()
         out, n_u = [], []
-        for d in range(n):
+        for d in range(self.mesh.n_local):
             arr = self._strip(ex.recv[d].reshape(*lead, -1))
             t = prev[d]
             nu = t.n_unique
@@ -372,6 +433,11 @@ class ShardedCounter:
             del arr, merged, mk, mw
             out.append(table)
             n_u.append(table.n_unique)
+        if self.mesh.multiprocess:
+            from .distributed import gather_ints
+
+            every = gather_ints([*n_u, dropped])
+            n_u, dropped = every[:, :-1].reshape(-1), int(every[:, -1].sum())
         return out, n_u, dropped
 
     def _grow_capacity(self) -> None:
@@ -429,9 +495,11 @@ class ShardedCounter:
         return int(self._dropped)
 
     def finish(self):
-        """The shards merged into one table on the first shard's device
-        (a CountTable or a WideTable), capacity the next power of two of
-        the real entries; equal to the one-device counter's table."""
+        """The shards merged into one table on the first local shard's
+        device (a CountTable or a WideTable), capacity the next power of
+        two of the real entries; equal to the one-device counter's table.
+        Across processes the shards' entries are all-gathered first, so
+        every process gets the same table."""
         self.check()
         dev0 = self.mesh.devices[0]
         total = int(self.n_unique.sum())
@@ -441,17 +509,44 @@ class ShardedCounter:
         if self.wide:
             keys = torch.cat([t.keys[:, :t.n_unique].to(dev0)
                               for t in self.tables], dim=1)
-            return wide._unique_reduce(keys, counts, cap)
-        keys = torch.cat([t.keys[:t.n_unique].to(dev0) for t in self.tables])
-        return counting._unique_reduce(keys, counts, cap)
+        else:
+            keys = torch.cat([t.keys[:t.n_unique].to(dev0)
+                              for t in self.tables])
+        if self.mesh.multiprocess:
+            keys, counts = self._gather_entries(keys, counts)
+        reduce = wide._unique_reduce if self.wide else \
+            counting._unique_reduce
+        return reduce(keys, counts, cap)
+
+    def _gather_entries(self, keys: torch.Tensor, counts: torch.Tensor):
+        """Every process's real entries (keys [...] or [W, ...], counts),
+        concatenated in rank order: one all_gather of each, padded to the
+        largest process's total (known from n_unique)."""
+        from .distributed import all_gather
+
+        m = self.mesh
+        totals = [int(t) for t in
+                  self.n_unique.reshape(m.procs, m.n_local).sum(1)]
+        pad = max(totals) - counts.numel()
+        keys = torch.cat([keys, torch.full(
+            (*keys.shape[:-1], pad), SENTINEL, dtype=keys.dtype,
+            device=keys.device)], dim=-1)
+        counts = torch.cat([counts, counts.new_zeros(pad)])
+        ks, cs = all_gather(keys), all_gather(counts)
+        return (torch.cat([x[..., :t] for x, t in zip(ks, totals)], dim=-1),
+                torch.cat([x[:t] for x, t in zip(cs, totals)]))
 
     def histogram(self, base: int, ceil: int, inc: int,
                   nb_buckets: int) -> np.ndarray:
         """Occurrence histogram: one per shard, summed exactly in int64
-        (uint64 numpy, as kat_tpu's)."""
+        (an all_reduce across processes; uint64 numpy, as kat_tpu's)."""
         self.check()
         dev0 = self.mesh.devices[0]
         h = sum(stats.hist_from_counts(t.counts, base, ceil, inc,
                                        nb_buckets).to(dev0)
                 for t in self.tables)
+        if self.mesh.multiprocess:
+            from .distributed import all_reduce_sum
+
+            h = all_reduce_sum(h.to(torch.int64))
         return h.cpu().numpy().astype(np.uint64)

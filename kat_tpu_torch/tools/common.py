@@ -10,9 +10,12 @@ of core/bucketed.py (`flush="bucketed"`, the counterpart of kat_tpu's
 KAT_TPU_MINIMIZER switch; it raises where its conditions fail and never
 turns into the classic flush by itself), or on a mesh of shards
 (parallel/sharded.ShardedCounter, `n_shards`: the counterpart of kat_tpu's
-mesh branch, in one process), LOAD from a .jf (narrow or wide keys).  A
-sharded input keeps its tables on their shards: lookups are routed there
-(parallel/analysis.py) and `host_table()` merges them on demand.
+mesh branch), LOAD from a .jf (narrow or wide keys).  A sharded input
+keeps its tables on their shards: lookups are routed there
+(parallel/analysis.py) and `host_table()` merges them on demand.  In a
+multi-process run (parallel/distributed.init_distributed) a count always
+shards, over every process's local shards; each process reads its slice
+of the files (with their 5' trims) and feeds lockstep batches.
 """
 
 from __future__ import annotations
@@ -90,6 +93,13 @@ def glob_files(spec: str | list[str]) -> list[str]:
     elements = [spec] if isinstance(spec, str) else list(spec)
     out: list[str] = []
     for el in elements:
+        # "shard://<pattern>" marks a multi-process input group: the
+        # pattern expands as usual here (every process sees the same path
+        # list, so headers and artifact names agree); each process's file
+        # slice is taken at read time (Input._shard_paths_trims), with or
+        # without the prefix.
+        if el.startswith("shard://"):
+            el = el[len("shard://"):]
         if fastx.is_generator_path(el):
             # a gen:<shell command> is opaque: the command may contain
             # spaces/globs that belong to the SHELL, not to this group
@@ -124,7 +134,9 @@ class Input:
     "bucketed" (the minimizer-bucketed chunk flush).
     n_shards: count on a mesh of this many shards (`mesh()`); None shards
     where kat_tpu does, over every card when more than one is visible and
-    the device is a card."""
+    the device is a card.  In a multi-process run it is the number of this
+    process's shards, by default one per visible card (or one on the
+    CPU)."""
     paths: list[str]
     index: int = 1
     canonical: bool = True
@@ -230,10 +242,22 @@ class Input:
         the CPU, else round-robin over the visible cards), else every card
         when more than one is visible, the device is a card and the flush
         is the classic one (kat_tpu's rule, kat_tpu/tools/common.py:157-189;
-        the bucketed flush runs on one device)."""
+        the bucketed flush runs on one device).  In a multi-process run
+        always a mesh over every process's shards (kat_tpu's rule at
+        :164-166: a private table would hold only this process's files),
+        n_shards of them here, by default one per visible card, or one on
+        the CPU; the same mesh on every call (`global_mesh` is a
+        collective)."""
+        from ..parallel import distributed
         from ..parallel.sharded import make_mesh
 
         dev = self._device()
+        if distributed.process_count() > 1:
+            if getattr(self, "_global_mesh", None) is None:
+                n = self.n_shards or (1 if dev.type == "cpu" else None)
+                self._global_mesh = distributed.global_mesh(
+                    n, devices=[dev] if dev.type == "cpu" else None)
+            return self._global_mesh
         if self.n_shards is None:
             if (dev.type == "cuda" and torch.cuda.device_count() > 1
                     and self.flush == "classic"):
@@ -362,27 +386,57 @@ class Input:
             self.table = self.shards.finish()
         return self.table
 
+    def _shard_paths_trims(self):
+        """This process's slice of the input files in a multi-process run
+        (balanced by size, the round-robin of distributed.shard_files),
+        with 5' trims following their files.  One process: everything."""
+        from ..parallel.distributed import process_count, process_index
+
+        cnt = process_count()
+        if cnt <= 1:
+            return self.paths, (self.trim5 or None)
+        order = sorted(
+            range(len(self.paths)),
+            key=lambda i: -os.path.getsize(self.paths[i])
+            if os.path.exists(self.paths[i]) else 0)
+        mine = sorted(order[process_index()::cnt])
+        paths = [self.paths[i] for i in mine]
+        if self.trim5 and len(self.trim5) == len(self.paths):
+            trims = [self.trim5[i] for i in mine]
+        else:
+            trims = self.trim5 or None  # one value applies to every file
+        return paths, trims
+
     def _code_batches(self):
         """2-bit code batches for counting: the native densely packed
         reader when available (native/fastxio.cpp), else the
         pure-Python bucketed encoder (always for generator pipes, FIFOs
         and stdin).  A background thread keeps the parser a few batches
-        ahead of device compute (io/prefetch.py)."""
+        ahead of device compute (io/prefetch.py).  A multi-process run
+        reads this process's file slice and passes every batch through
+        the lockstep padder, so the sharded counter's flushes line up in
+        every process."""
         from ..io import native
         from ..io.prefetch import prefetch
+        from ..parallel.distributed import (lockstep_code_batches,
+                                            process_count)
 
-        paths, trims = self.paths, (self.trim5 or None)
+        paths, trims = self._shard_paths_trims()
         if not paths:
-            return iter(())
-        any_stream = any(fastx.is_stream_path(p) for p in paths)
-        if native.available() and not any_stream:
-            it = native.stream_code_batches(
-                paths, self.mer_len, trims,
-                threads=native.reader_threads_default(len(paths)))
+            it = iter(())
         else:
-            recs = fastx.read_records_multi(paths, trims)
-            it = fastx.encode_batches(recs, self.mer_len)
-        return prefetch(it)
+            any_stream = any(fastx.is_stream_path(p) for p in paths)
+            if native.available() and not any_stream:
+                it = native.stream_code_batches(
+                    paths, self.mer_len, trims,
+                    threads=native.reader_threads_default(len(paths)))
+            else:
+                recs = fastx.read_records_multi(paths, trims)
+                it = fastx.encode_batches(recs, self.mer_len)
+            it = prefetch(it)
+        if process_count() > 1:
+            return lockstep_code_batches(it)
+        return it
 
     def load(self, quiet: bool = False) -> None:
         with stage("Loading hashes into memory", quiet=quiet):

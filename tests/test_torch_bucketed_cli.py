@@ -11,6 +11,7 @@ from kat_tpu import cli as jcli
 from kat_tpu_torch import cli
 from kat_tpu_torch.io import native
 from kat_tpu_torch.tools.common import Input
+from kat_tpu_native_fixture import kat_tpu_native  # noqa: F401
 
 torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 

@@ -7,7 +7,9 @@ the binned sums) against their plain PyTorch versions on the card, exactly
 (integer keys and counts: tolerance 0); K3 in pieces
 (counting.reduce_stream) at a lowered piece length against one launch;
 the mesh-sharded counter on a mesh of 8 shards on the card against the
-same mesh on the CPU.
+same mesh on the CPU; two processes of one gloo group with a shard each
+on the card against one process's mesh of 2; ops/verify.py's
+attestation on the card.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -1401,6 +1403,45 @@ def test_sharded_counter_on_the_card(dev, k):
         assert torch.equal(tc.keys.cpu(), tp.keys)
         assert torch.equal(tc.counts.cpu(), tp.counts)
     assert card.shard_capacity == cpu.shard_capacity > 1 << 10
+
+
+@pytest.mark.parametrize("k", [27, 41])
+def test_two_processes_on_one_card(dev, tmp_path, k):
+    """Two processes of one gloo group (they share the card, which NCCL
+    refuses), one shard each on it, count the schedule's halves: each
+    launches K1, K6, K2 and K3, and both get the histogram and table that
+    one process's mesh of 2 shards on the card counts."""
+    import torch_mp
+    import torch_mp_workers as W
+
+    from kat_tpu_torch.parallel import sharded
+
+    res = torch_mp.run("card_count", 2, tmp_path, k, 6, 64, device="cuda")
+    one = sharded.ShardedCounter(sharded.make_mesh(2, devices=[dev]), k,
+                                 shard_capacity=1 << 10)
+    for b in W.schedule(6, 64):
+        one.add_codes(b)
+    one.check()
+    t = one.finish()
+    n = t.n_unique
+    for r in res:
+        assert r["backend"] == "gloo"
+        assert min(r["launches"]) > 0, r["launches"]
+        assert np.array_equal(r["hist"], one.histogram(1, 1001, 1, 1002))
+        assert r["table"][2] == n
+        assert np.array_equal(r["table"][0], t.keys[..., :n].cpu().numpy())
+        assert np.array_equal(r["table"][1], t.counts[:n].cpu().numpy())
+
+
+def test_kernel_attestation_on_the_card(dev):
+    """ops/verify.py on the card: K1, K2 and K3, one word and W words."""
+    from kat_tpu_torch.ops import verify
+
+    res = [verify.verify_kernels(n=1 << 20, device=dev)] + [
+        verify.verify_kernels_wide(n_words=w, n=1 << 18, device=dev)
+        for w in (3, 4, 8, 16)]
+    for r in res:
+        assert {r[c] for c in ("sort", "merge", "reduce")} == {"PASS"}, r
 
 
 def test_jf_count_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):

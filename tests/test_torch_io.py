@@ -16,6 +16,7 @@ from kat_tpu_torch.io import fastx as tfastx
 from kat_tpu_torch.io import native as tnative
 from kat_tpu_torch.io.prefetch import prefetch
 from kat_tpu_torch.tools import common as tcommon
+from kat_tpu_native_fixture import kat_tpu_native  # noqa: F401
 
 
 def _write_inputs(tmp_path):
@@ -98,6 +99,28 @@ def test_prefetch_reraises_producer_error():
     assert next(it) == 1
     with pytest.raises(KeyError):
         next(it)
+
+
+def test_glob_shard_scheme_matches_jax(tmp_path):
+    """`shard://` marks a multi-process input group: both packages strip it
+    and expand the rest as usual (braces, globs, a missing file kept
+    verbatim, a gen: command left whole), as one string or a list."""
+    for name in ("r1.fq", "r2.fq", "r3.fa"):
+        (tmp_path / name).write_text("@r\nACGT\n+\nIIII\n")
+    specs = [f"shard://{tmp_path}/r{{1,2}}.fq",
+             f"shard://{tmp_path}/r*.f?",
+             f"shard://{tmp_path}/r1.fq {tmp_path}/r3.fa",
+             f"shard://{tmp_path}/missing.fq",
+             f"shard://{tmp_path}/missing*.fq",
+             "shard://gen:cat x y",
+             [f"shard://{tmp_path}/r{{1,3}}.f?", f"{tmp_path}/r2.fq"],
+             [f"shard://{tmp_path}/r2.fq", "shard://gen:zcat a.gz"]]
+    for spec in specs:
+        got = tcommon.glob_files(spec)
+        assert got == jcommon.glob_files(spec), spec
+        assert not any(p.startswith("shard://") for p in got)
+    assert tcommon.glob_files(f"shard://{tmp_path}/r{{1,2}}.fq") == [
+        str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")]
 
 
 def test_glob_and_trims_match_jax(tmp_path):

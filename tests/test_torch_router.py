@@ -11,6 +11,7 @@ import pytest
 from kat_tpu.io import native as jnative
 from kat_tpu_torch.core import minimizer
 from kat_tpu_torch.io import native
+from kat_tpu_native_fixture import kat_tpu_native  # noqa: F401
 
 K, M = 27, minimizer.M_DEFAULT
 

@@ -25,6 +25,7 @@ from kat_tpu_torch.core import wide as tw
 from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops import reduce_kernel, sort_kernel
 from kat_tpu_torch.parallel import sharded
+from kat_tpu_native_fixture import kat_tpu_native  # noqa: F401
 
 torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 
