@@ -160,13 +160,15 @@
    chunks' keys share their high bits), beside the bitonic kernel it
    replaced, and K6 at the largest hot group that run saw (beside the tree
    it replaced); then runs
-   K7's microbenchmark, whose costliest class is also held against its
-   plain version at the full round count.  Then `filter seq --stats -s`
-   of that FASTA against its genome's k-mers at k = 27 and 41
-   (tools.filter_seq.FilterSeq): the .stats file's bases and k-mers for
-   every read, its hits for all low-complexity reads and every 64th other
-   one against numpy, the kept and discarded counts against the ratios
-   and the records written;
+   K7's microbenchmark (kat_tpu's benchmarks/profile_roll.py: every class
+   at R = 0, 1 and 7 against its plain version, timed at R = 512, 0 and
+   256, and t(512) - t(0) twice t(256) - t(0) within 10%), whose
+   costliest class is also held against its plain version at R = 512.
+   Then `filter seq --stats -s` of that FASTA against its genome's k-mers
+   at k = 27 and 41 (tools.filter_seq.FilterSeq): the .stats file's bases
+   and k-mers for every read, its hits for all low-complexity reads and
+   every 64th other one against numpy, the kept and discarded counts
+   against the ratios and the records written;
 7b. starts two processes on the one card (this script with
    `--two-process-worker`), one shard each, in one torch.distributed gloo
    group over a file:// store (they share the card, which NCCL refuses):
@@ -934,20 +936,33 @@ def check_bucketed_kernels(dev, gen, group_chunks: int, k5_real):
 
 
 def check_rounds_kernel(dev):
-    """K7: every round class against its plain version at a few rounds
-    (inside profile_rounds.run), then the costliest class against its plain
-    version at the full round count, both timed there."""
-    import torch
-
+    """K7: every class of kat_tpu's benchmarks/profile_roll.py against its
+    plain version at R = 0, 1 and 7 (at 2^24 keys and at a count with a
+    partial last block), then timed at R = 512, 0 and 256, and copy at
+    2048 and 1024 too; inside profile_rounds.run, which fails unless
+    t(L) - t(0) is twice t(L/2) - t(0) within 10% (L = 512, copy 2048:
+    the loop runs every round) and each kernel's round loop in the SASS
+    holds the instructions of all its rounds (none folded).  Then the
+    costliest class against its plain version at R = 512."""
     from kat_tpu_torch.benchmarks import profile_rounds as pr
 
     pr.profile_rounds.launches = 0
     res = pr.run()
     launches = pr.profile_rounds.launches
     print("K7 rounds: " + json.dumps(res))
-    n, rounds, mode = res["n"], res["rounds"], "smem-1024"
-    keys = torch.randint(-(1 << 62), 1 << 62, (n,), dtype=torch.int64,
-                         device=dev)
+    n, rounds, modes = res["n"], res["rounds"], res["modes"]
+    for m, row in modes.items():
+        lin = row["linearity_rounds"]
+        print(f"  K7 {m}: " + ", ".join(
+            f"{t:.3f} ms at R = {r}" for r, t in row["ms_at"].items())
+            + f"; linearity in R: t({lin}) - t(0) = {row['linearity']:.3f}"
+            f" x 2 (t({lin // 2}) - t(0))")
+    for loop in res["sass"]:
+        print(f"  K7 {loop['kernel']} round loop: {loop['work']} "
+              f"instructions for {loop['pair_rounds']} pair-rounds (at "
+              f"least {loop['need']}): {json.dumps(loop['opcodes'])}")
+    mode = max(modes, key=lambda m: modes[m]["ms"])
+    keys = pr.random_keys(n, dev, seed=1)
     got = pr.profile_rounds(keys, mode, rounds)
     err = _max_abs_err(got, pr.profile_rounds_plain(keys, mode, rounds))
     entry = _report(dict(
@@ -959,7 +974,8 @@ def check_rounds_kernel(dev):
             lambda: pr.profile_rounds_plain(keys, mode, rounds), 1),
         # a round is one compare and one select per key
         **_bound(_nbytes(keys, got), 2 * n * rounds),
-        library_ms=None, launches=launches),
+        library_ms=None, launches=launches, mode=mode,
+        modes_ms={m: row["ms"] for m, row in modes.items()}),
         f"K7 {rounds} {mode} rounds on 2^24 keys")
     return entry
 
@@ -3954,6 +3970,7 @@ def two_process_worker(rank: int, tmp: str, device: str) -> int:
                        shards=[inp.shards.mesh.first,
                                inp.shards.mesh.n_local, inp.shards.n],
                        ended=time.time()), f)
+    distributed.shutdown()
     return 0
 
 

@@ -10,7 +10,9 @@ one is asked for: the counterpart of kat_tpu's KAT_TPU_MINIMIZER switch)
 and `--profile DIR` (a torch.profiler trace of the run, kat_tpu's
 KAT_TPU_PROFILE; utils/profiling.py).  In a multi-process run, started by
 parallel/distributed.init_distributed before `main`, every count shards
-over every process's shards.
+over every process's shards, and each process leaves the group through
+parallel/distributed.shutdown after `main` returns: `run` is `main` and
+then that.
 Usage: python -m kat_tpu_torch [--device {cuda,cpu}] [--shards N]
        [--flush {classic,bucketed}] [--profile DIR] <mode> [options] ...
 """
@@ -557,6 +559,19 @@ def main(argv: list[str] | None = None) -> int:
 
     with maybe_trace(args.profile):
         return args.func(args)
+
+
+def run(argv: list[str] | None = None) -> int:
+    """`main`, then, in a multi-process run, leave the group before the
+    process exits (parallel/distributed.shutdown).  A run that never
+    loaded torch.distributed has no group to leave (`plot` loads no
+    torch)."""
+    code = main(argv)
+    if "torch.distributed" in sys.modules:
+        from .parallel.distributed import shutdown
+
+        shutdown()
+    return code
 
 
 if __name__ == "__main__":

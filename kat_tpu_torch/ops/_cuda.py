@@ -76,7 +76,7 @@ _SIGNATURES = {
     "kat_merge_runs_words": [_P, _I64, _P, _P, _P, _I64, _I64, _INT, _P],
     "kat_merge_runs_scratch": [_I64, _I64, _INT],
     "kat_merge_runs_tile": [_INT],
-    "kat_profile_rounds": [_P, _P, _I64, _INT, _INT, _INT, _P],
+    "kat_profile_rounds": [_P, _P, _I64, _I64, _INT, _INT, _P],
 }
 
 
@@ -94,6 +94,7 @@ class KernelLibrary:
         self._signatures = _SIGNATURES if signatures is None else signatures
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
+        self.path: str | None = None  # the shared library, once built
         self.build_seconds: float | None = None
         self.build_log = ""
 
@@ -152,7 +153,8 @@ class KernelLibrary:
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(self._build())
+                self.path = self._build()
+                lib = ctypes.CDLL(self.path)
                 for name, argtypes in self._signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes

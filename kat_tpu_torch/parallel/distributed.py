@@ -196,6 +196,19 @@ def barrier() -> None:
         dist.barrier()
 
 
+def shutdown() -> None:
+    """End this process's part of the group before it exits: a final
+    barrier, so that no process leaves while a peer's collective still
+    needs it, then `destroy_process_group`.  A gloo process that exits
+    with its group alive while its peers still run can abort in its
+    teardown (`terminate called without an active exception`, SIGABRT).
+    Nothing without a group."""
+    if not dist.is_initialized():
+        return
+    barrier()
+    dist.destroy_process_group()
+
+
 # -- lockstep batches --------------------------------------------------------
 
 

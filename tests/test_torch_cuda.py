@@ -25,7 +25,8 @@ import torch
 
 from kat_tpu_torch.benchmarks import workloads
 from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
-                                                     profile_rounds_plain)
+                                                     profile_rounds_plain,
+                                                     ragged_count)
 from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
 from kat_tpu_torch.core.kmers import SENTINEL
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
@@ -702,15 +703,20 @@ def test_merge_runs_many_passes(dev, n_words, g_runs):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_profile_rounds_matches_plain(dev, mode):
+    """K7 on the card: every class of kat_tpu's profile_roll.py, on the
+    class's `ragged_count` keys (a partial last block of pairs wherever 2 S
+    is below a block's 2048 keys: the kernel's guarded loads and stores)
+    and on 3 x 2^16 (three of rowsel-256's 65,536-key blocks)."""
     rng = np.random.default_rng(2)
-    keys = torch.from_numpy(
-        rng.integers(-(1 << 62), 1 << 62, 2048 * 37)).to(dev)
-    for rounds in (0, 1, 7):
-        before = profile_rounds.launches
-        got = profile_rounds(keys, mode, rounds)
-        torch.cuda.synchronize()
-        assert profile_rounds.launches == before + 1
-        assert torch.equal(got, profile_rounds_plain(keys, mode, rounds))
+    for n in (ragged_count(mode), 3 << 16):
+        keys = torch.from_numpy(
+            rng.integers(-(1 << 63), (1 << 63) - 1, n)).to(dev)
+        for rounds in (0, 1, 7):
+            before = profile_rounds.launches
+            got = profile_rounds(keys, mode, rounds)
+            torch.cuda.synchronize()
+            assert profile_rounds.launches == before + 1
+            assert torch.equal(got, profile_rounds_plain(keys, mode, rounds))
 
 
 def test_bucketed_counter_on_the_card(dev, tmp_path):

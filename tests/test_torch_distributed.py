@@ -102,6 +102,27 @@ def test_two_processes_match_kat_tpu(tmp_path, monkeypatch):
     assert (res[1]["steps"][0][2:] == 255).all()
 
 
+@pytest.mark.parametrize("run", range(5))
+def test_four_processes_exit_cleanly(tmp_path, run):
+    """4 gloo processes gather uneven lists and rank 0 reaches its exit
+    first; every worker leaves through distributed.shutdown and exits 0
+    (before it did, a worker could die of SIGABRT in gloo's teardown).
+    torch_mp.run fails on any worker that exits otherwise.  A smoke test
+    of the exit path: the abort was intermittent, so five runs do not
+    prove it gone; tests/torch_mp_stress.py counts it over many."""
+    res = torch_mp.run("exit_early", 4, tmp_path, 0.3)
+    want = [[10 * r + i for i in range(r + 1)] for r in range(4)]
+    assert res == [want] * 4
+
+
+def test_shutdown_without_a_group():
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    distributed.shutdown()
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("every,want", [
     (["cpu", "cpu"], "gloo"),
     (["GPU-a", "cpu"], "gloo"),

@@ -17,7 +17,10 @@ from kat_tpu.ops.sort_kernel import (bitonic_merge_runs, bitonic_sort_chunks,
 from kat_tpu_torch.core.kmers import SENTINEL, from_planes, to_planes
 from kat_tpu_torch.ops.merge_kernel import merge_sorted, merge_sorted_payload
 from kat_tpu_torch.ops.reduce_kernel import compact_flagged, reduce_by_key
-from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
+from kat_tpu_torch.benchmarks.profile_rounds import (MODES, keys_to_planes,
+                                                     parse_mode,
+                                                     planes_to_keys,
+                                                     profile_rounds,
                                                      profile_rounds_plain)
 from kat_tpu_torch.ops.sort_kernel import (merge_passes, merge_plan_model,
                                            merge_runs, merge_runs_model,
@@ -592,37 +595,55 @@ def test_interior_sentinel_gaps_are_never_emitted():
 
 @pytest.mark.parametrize("mode", MODES)
 def test_profile_rounds_plain(mode):
-    """K7's plain version: `copy` adds one per round; every other class is a
-    bitonic round, so the multiset of keys is kept, partners end up ordered
-    by the last round's direction, and alu equals smem-1024."""
+    """K7's plain version: `copy` adds R to each 32-bit half; `alu` swaps an
+    element's halves toward bit 3 of its index; every other class keeps the
+    multiset of keys and leaves each pair (i, i ^ S) ordered by bit 3 of its
+    lower index, ascending where it is 0, and a second round changes
+    nothing (the pairs and directions are fixed)."""
     rng = np.random.default_rng(1)
-    keys = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, 4096))
+    n = 1 << 16
+    keys = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n))
     out = profile_rounds(keys, mode, 3)
     assert torch.equal(out, profile_rounds_plain(keys, mode, 3))
+    assert torch.equal(profile_rounds(keys, mode, 0), keys)
+    h, lo = keys_to_planes(keys)
+    oh, olo = keys_to_planes(out)
     if mode == "copy":
-        assert torch.equal(out, keys + 3)
+        assert torch.equal(oh, (h + 3) & 0xFFFFFFFF)
+        assert torch.equal(olo, (lo + 3) & 0xFFFFFFFF)
+        return
+    assert torch.equal(profile_rounds(keys, mode, 1), out)
+    g = np.arange(n)
+    if mode == "alu":
+        k, swapped = keys.numpy(), planes_to_keys(lo, h).numpy()
+        d = ((g >> 3) & 1) == 1
+        assert (out.numpy() == np.where(d, np.maximum(k, swapped),
+                                        np.minimum(k, swapped))).all()
         return
     assert torch.equal(out.sort().values, keys.sort().values)
-    assert torch.equal(profile_rounds(keys, mode, 0), keys)
-    s = 1024 if mode == "alu" else int(mode.split("-")[1])
-    g = np.arange(4096)
+    s = parse_mode(mode)[1]
     i = g[(g & s) == 0]
-    asc = ((i >> s.bit_length()) & 1) == 0  # the last round's index is even
+    asc = ((i >> 3) & 1) == 0
     o = out.numpy()
     assert np.where(asc, o[i] <= o[i ^ s], o[i] >= o[i ^ s]).all()
-    if mode == "alu":
-        assert torch.equal(out, profile_rounds(keys, "smem-1024", 3))
 
 
 def test_profile_rounds_rejects_bad_input():
-    k = torch.zeros(2048, dtype=torch.int64)
-    for mode in ("roll", "shfl", "shfl-32", "smem-3", "copy-1", "smem-2048"):
+    k = torch.zeros(1 << 16, dtype=torch.int64)
+    for mode in ("roll", "lane", "lane-128", "lane-3", "row-512", "row-0",
+                 "rowsel-1024", "copy-1", "alu-2", "shfl-1", "smem-1024"):
         with pytest.raises(ValueError):
             profile_rounds(k, mode, 1)
     with pytest.raises(ValueError):
-        profile_rounds(k[:100], "copy", 1)
+        profile_rounds(k[:100], "lane-64", 1)
+    with pytest.raises(ValueError):
+        profile_rounds(k[:1 << 15], "rowsel-256", 1)
+    with pytest.raises(ValueError):
+        profile_rounds(k[:3], "copy", 1)
     with pytest.raises(ValueError):
         profile_rounds(k, "copy", -1)
+    with pytest.raises(TypeError):
+        profile_rounds(k.to(torch.int32), "copy", 1)
 
 
 # -- K3's decomposition on the card (csrc/reduce.cu), modelled in numpy -----

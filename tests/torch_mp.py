@@ -4,7 +4,9 @@ group on the CPU, each with a time limit, and collect what each returned.
 Every worker is a fresh `python -c` process: it starts the group through
 kat_tpu_torch.parallel.distributed.init_distributed with a `file://` store
 in the test's temporary directory (no port numbers), calls
-`torch_mp_workers.<name>(rank, nproc, tmp, *args)` and pickles the result.
+`torch_mp_workers.<name>(rank, nproc, tmp, *args)`, pickles the result and
+leaves the group through distributed.shutdown (a final barrier, then
+destroy_process_group) before it exits.
 A worker that fails or outlives `timeout` fails the test, and every worker
 still running is killed, so nothing can hang the suite.
 """
@@ -36,6 +38,7 @@ import torch_mp_workers
 out = getattr(torch_mp_workers, name)(rank, nproc, tmp, *json.loads(args))
 with open(f"{tmp}/out{rank}.pkl", "wb") as f:
     pickle.dump(out, f)
+distributed.shutdown()
 """
 
 

@@ -162,9 +162,12 @@ def _np(x):
 
 
 def cli(rank, nproc, tmp, argv, out_name):
-    """cli.main(argv) with `-o <tmp>/<out_name><rank>` appended after the
+    """cli.run(argv) (main, then distributed.shutdown: the group must be
+    gone after it) with `-o <tmp>/<out_name><rank>` appended after the
     mode; the tools' plots and peak analysis recorded, not run.  Returns
     (rc, stdout, every written file's bytes by suffix, plot calls)."""
+    import torch.distributed as dist
+
     from kat_tpu_torch import cli as tcli
 
     calls = []
@@ -177,7 +180,9 @@ def cli(rank, nproc, tmp, argv, out_name):
     argv = argv[:mode_at + 1] + ["-o", prefix] + argv[mode_at + 1:]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = tcli.main(argv)
+        rc = tcli.run(argv)
+    if dist.is_initialized():
+        raise AssertionError("cli.run left the process group alive")
     files = {}
     for name in sorted(os.listdir(tmp)):
         if name.startswith(f"{out_name}{rank}"):
@@ -224,6 +229,24 @@ def lockstep(rank, nproc, tmp, shapes):
                 index=d.process_index(), count=d.process_count(),
                 shard=d.shard_files([os.path.join(tmp, f"f{i}")
                                      for i in range(5)]))
+
+
+def exit_early(rank, nproc, tmp, delay):
+    """One uneven all_gather (rank r sends r + 1 numbers, padded to the
+    longest), then every process but rank 0 waits `delay` seconds, so rank
+    0 reaches its exit first: the exit path that aborted in gloo's
+    teardown before the workers left through distributed.shutdown."""
+    import time
+
+    from kat_tpu_torch.parallel import distributed as d
+
+    sizes = d.gather_ints([rank + 1])[:, 0]
+    mine = torch.full((int(sizes.max()),), -1, dtype=torch.int64)
+    mine[:rank + 1] = torch.arange(rank + 1) + 10 * rank
+    got = [g[:int(n)].tolist() for g, n in zip(d.all_gather(mine), sizes)]
+    if rank:
+        time.sleep(delay)
+    return got
 
 
 def card_count(rank, nproc, tmp, k, n_batches, rows):
