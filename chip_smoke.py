@@ -181,7 +181,9 @@
    each run, as the sharded phases' are).  A worker that fails or outlives
    WORKER_TIMEOUT fails the run.  Their counter, saved by
    save_sharded_counter, is loaded here on a mesh of 2 shards and must
-   equal the live table; then ops/verify.verify_kernels and
+   equal the live table; a checkpoint at k = 33 whose manifest says
+   key_words 4 (k = 33 needs 3) must be refused by load_table,
+   load_sharded_counter and load_shard with a ValueError; then ops/verify.verify_kernels and
    verify_kernels_wide (4, 8 and 16 of kat_tpu's words) must pass on the
    card.  Each step's seconds are printed with the card's name and limit;
 8. the route sweep (benchmarks/sweep_lookup.route_table: join
@@ -209,6 +211,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 42
+# the whole script's last lap on an H100 80GB HBM3 at 700 W before
+# _library_merge_ms and refused_checkpoint, printed beside this run's
+EARLIER_LAP_S = 549.7
 TOLERANCE = 0  # exact: keys and counts are integers
 ALU_OPS_PER_S = 67e12      # H100 SXM, published float32 rate outside the
 #                            tensor cores: the stand-in for integer
@@ -271,6 +276,22 @@ def _same(got, want) -> int:
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} outputs != {len(want)}")
     return max(_max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def _library_merge_ms(a_keys, a_planes, b_keys, b_planes, want) -> float:
+    """library_ms of a narrow K2: one stable torch.sort of the two sides'
+    keys, each plane gathered through its permutation.  Its output is
+    checked against the kernel's (`want`: keys, then the planes) before
+    it is timed."""
+    import torch
+
+    def call():
+        keys, perm = torch.sort(torch.cat([a_keys, b_keys]), stable=True)
+        return (keys, *(torch.cat([pa, pb])[perm]
+                        for pa, pb in zip(a_planes, b_planes)))
+
+    _same(call(), want)
+    return _timed_ms(call, 3)
 
 
 def _report(entry: dict, what: str) -> dict:
@@ -476,6 +497,11 @@ def check_kernels(dev, gen):
     mk, mw = merge_kernel.merge_sorted(t_keys, t_counts, fresh)
     err = max(_max_abs_err(mk, pk), _max_abs_err(mw, pw))
     del pk, pw
+    # the library's form of this merge: the fresh keys' weights as a plane
+    fresh_w = (fresh != SENTINEL).to(torch.int32)
+    library_ms = _library_merge_ms(t_keys, (t_counts,), fresh, (fresh_w,),
+                                   (mk, mw))
+    del fresh_w
     results.append(_report(dict(
         name="merge_path", route="cuda", source="kat_tpu_torch/csrc/merge.cu",
         replaces="kat_tpu/ops/merge_kernel.py:73", max_abs_err=err,
@@ -484,7 +510,7 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_plain(
             t_keys, t_counts, fresh), 3),
         **_bound(_nbytes(t_keys, t_counts, fresh, mk, mw), mk.numel()),
-        library_ms=None, tile=merge_kernel.tile_len()),
+        library_ms=library_ms, tile=merge_kernel.tile_len()),
         "K2 merge 2^24 table + 2^26 fresh"))
     counted.append((results[-1], lambda: merge_kernel.merge_sorted(
         t_keys, t_counts, fresh)))
@@ -508,6 +534,8 @@ def check_kernels(dev, gen):
         plain_ms=_timed_ms(
             lambda: reduce_kernel.reduce_by_key_plain(mk, mw, cap), 3),
         **_bound(_nbytes(mk, mw) + cap * 12, 2 * mk.numel()),
+        # no one call: unique_consecutive(return_counts=True) sums weights
+        # of 1 only, and with index_add_ it is two calls
         library_ms=None, tile=reduce_kernel.tile_len()),
         f"K3 reduce {mk.numel()} -> 2^24"))
     counted.append((results[-1],
@@ -581,6 +609,7 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
                                                      b_planes)
     err = _same((mk, *mp), (pk, *pp))
     del pk, pp
+    library_ms = _library_merge_ms(t_keys, a_planes, sq, b_planes, (mk, *mp))
     results.append(_report(dict(
         name="merge_path_payload", route="cuda",
         source="kat_tpu_torch/csrc/merge.cu",
@@ -591,7 +620,7 @@ def check_lookup_kernels(dev, gen, t_keys, t_counts):
             t_keys, a_planes, sq, b_planes), 3),
         **_bound(_nbytes(t_keys, *a_planes, sq, *b_planes, mk, *mp),
                  mk.numel()),
-        library_ms=None, tile=merge_kernel.tile_len()),
+        library_ms=library_ms, tile=merge_kernel.tile_len()),
         "K2 merge 2^24 table + 2^23 queries, 1 plane"))
     counted.append((results[-1], lambda: merge_kernel.merge_sorted_payload(
         t_keys, a_planes, sq, b_planes)))
@@ -792,6 +821,7 @@ def check_dual_probe_kernels(dev, gen):
     pk, pp = merge_kernel.merge_sorted_payload_plain(a, ap, b, bp)
     err = _same((mk, *mp), (pk, *pp))
     del pk, pp
+    library_ms = _library_merge_ms(a, ap, b, bp, (mk, *mp))
     _repeat_equal("K2 with two planes", lambda: (lambda k, p: (k, *p))(
         *merge_kernel.merge_sorted_payload(a, ap, b, bp)))
     results = [_report(dict(
@@ -803,7 +833,7 @@ def check_dual_probe_kernels(dev, gen):
         plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_payload_plain(
             a, ap, b, bp), 3),
         **_bound(_nbytes(a, *ap, b, *bp, mk, *mp), mk.numel()),
-        library_ms=None, tile=merge_kernel.tile_len()),
+        library_ms=library_ms, tile=merge_kernel.tile_len()),
         "K2 merge 2^24 + 2^24 slots, 2 planes (the dual probe)")]
     counted = [(results[-1], lambda: merge_kernel.merge_sorted_payload(
         a, ap, b, bp))]
@@ -974,6 +1004,7 @@ def check_rounds_kernel(dev):
             lambda: pr.profile_rounds_plain(keys, mode, rounds), 1),
         # a round is one compare and one select per key
         **_bound(_nbytes(keys, got), 2 * n * rounds),
+        # no library call runs fixed-stride compare-exchange rounds
         library_ms=None, launches=launches, mode=mode,
         modes_ms={m: row["ms"] for m, row in modes.items()}),
         f"K7 {rounds} {mode} rounds on 2^24 keys")
@@ -1049,6 +1080,7 @@ def check_wide_kernels(dev, gen):
         # PyTorch call sorts W-word keys
         plain_ms=_timed_ms(lambda: sort_kernel.sort_words_plain(keys), 3),
         **_bound(_nbytes(keys, got), n_fresh * int(math.log2(n_fresh))),
+        # no library call: torch.sort orders no multi-word key
         library_ms=None, passes=sort_kernel.words_passes(W, tb),
         tile=sort_kernel.words_tile_len(W),
         floor_ms=sort_kernel.words_pass_floor_bytes(n_fresh, W, tb)
@@ -1074,6 +1106,7 @@ def check_wide_kernels(dev, gen):
             t_keys, t_counts, fresh), 3),
         **_bound(_nbytes(t_keys, t_counts, fresh, mk, mw),
                  W * mk.shape[1]),
+        # no library call: torch.sort orders no multi-word key
         library_ms=None, tile=merge_kernel.words_tile_len(W)),
         f"K2 W-word merge 2^24 table + 2^26 fresh (W={W})"))
     counted.append((results[-1], lambda: merge_kernel.merge_sorted_words(
@@ -1102,6 +1135,7 @@ def check_wide_kernels(dev, gen):
         plain_ms=_timed_ms(
             lambda: reduce_kernel.reduce_by_key_words_plain(mk, mw, cap), 3),
         **_bound(_nbytes(mk, mw) + cap * (8 * W + 4), 2 * W * mk.shape[1]),
+        # no one call, as for K3: unique_consecutive, then index_add_
         library_ms=None, tile=reduce_kernel.tile_len()),
         f"K3 W-word reduce {mk.shape[1]} -> 2^24 (W={W})"))
     counted.append((results[-1], lambda: reduce_kernel.reduce_by_key_words(
@@ -1236,6 +1270,7 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
             plain_ms=_timed_ms(lambda q=q, idx=idx:
                                sort_kernel.sort_words_pairs_plain(q, idx), 3),
             **_bound(_nbytes(q, idx, *got), m * int(math.log2(m))),
+            # no library call: torch.sort orders no multi-word key
             library_ms=None, passes=sort_kernel.words_passes(W, tb),
             tile=sort_kernel.words_tile_len(W),
             floor_ms=sort_kernel.words_pass_floor_bytes(m, W, tb, True)
@@ -1273,6 +1308,7 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
         plain_ms=_timed_ms(lambda: merge_kernel.merge_sorted_words_payload_plain(
             t_keys, ap, sq, bp), 3),
         **_bound(_nbytes(t_keys, *ap, sq, *bp, mk, *mp), W * mk.shape[1]),
+        # no library call: torch.sort orders no multi-word key
         library_ms=None, tile=merge_kernel.words_tile_len(W)),
         f"K2 W-word merge 2^{cap.bit_length() - 1} table + "
         f"2^{m.bit_length() - 1} queries, 1 plane (W=2)"))
@@ -1343,6 +1379,7 @@ def check_wide_join_kernels(dev, gen, m: int = 1 << 23, cap: int = 1 << 24):
             t_keys, ap, b_keys, bp), 3),
         **_bound(_nbytes(t_keys, *ap, b_keys, *bp, mk, *mp),
                  W * mk.shape[1]),
+        # no library call: torch.sort orders no multi-word key
         library_ms=None, tile=merge_kernel.words_tile_len(W)),
         f"K2 W-word merge 2^{cap.bit_length() - 1} + 2^{cap.bit_length() - 1}"
         " slots, 2 planes (the wide dual probe)"))
@@ -4016,6 +4053,40 @@ def _run_workers(tmp: str, device: str) -> list[dict]:
     return out
 
 
+def refused_checkpoint(dev, tmp: str) -> None:
+    """A checkpoint at k = 33 whose manifest says `key_words` 4 (what
+    older kat_tpu wrote at 32 < k <= 47; k = 33 needs 3), its 3 keys of 4
+    words each: every loader must refuse it with a ValueError that names
+    key_words before it reads a shard, tables on `dev`."""
+    from kat_tpu_torch.io import checkpoint
+    from kat_tpu_torch.parallel.sharded import make_mesh
+
+    path = os.path.join(tmp, "ckpt_k33_w4")
+    os.makedirs(path)
+    np.savez_compressed(os.path.join(path, "shard_00000.npz"),
+                        keys=np.arange(12, dtype=np.uint32).reshape(3, 4),
+                        counts=np.ones(3, np.uint32))
+    with open(os.path.join(path, checkpoint.MANIFEST), "w") as f:
+        json.dump({"format": checkpoint.FORMAT, "version": checkpoint.VERSION,
+                   "k": 33, "canonical": True, "n_shards": 1,
+                   "shard_hash": checkpoint.SHARD_HASH_ID, "key_words": 4,
+                   "n_unique": 3, "total": 3}, f)
+    for name, load in (
+            ("load_table", lambda: checkpoint.load_table(path, device=dev)),
+            ("load_sharded_counter", lambda: checkpoint.load_sharded_counter(
+                path, make_mesh(1, devices=[dev]))),
+            ("load_shard", lambda: checkpoint.load_shard(path, 0))):
+        try:
+            load()
+        except ValueError as e:
+            if "key_words" not in str(e):
+                raise AssertionError(f"{name}: {e}") from e
+            print(f"checkpoint: {name} refused a 4-word manifest at k = 33 "
+                  f"on {dev}: {e}")
+        else:
+            raise AssertionError(f"{name} loaded a 4-word manifest at k = 33")
+
+
 def two_process_path(dev, smi: str, n_reads: int = 200_000,
                      genome_len: int = 1 << 20) -> dict:
     """Two processes on the one card, one shard each on it, over gloo (they
@@ -4027,7 +4098,9 @@ def two_process_path(dev, smi: str, n_reads: int = 200_000,
     run of the same mode on the card; each process's counting flushes must
     launch K1, K6, K2 and K3.  The checkpoint the two processes saved is
     loaded in this process on a mesh of 2 shards and must equal the live
-    table.  Then verify_kernels and verify_kernels_wide on the card.
+    table, and a checkpoint whose key_words disagrees with its k must be
+    refused (refused_checkpoint).  Then verify_kernels and
+    verify_kernels_wide on the card.
     Returns each run's launches, by run."""
     import torch
 
@@ -4109,6 +4182,7 @@ def two_process_path(dev, smi: str, n_reads: int = 200_000,
               f"{max(w['checkpoint_s'] for w in workers):.4f} s (counting "
               f"included), loaded and finished in "
               f"{time.perf_counter() - t1:.4f} s ({smi})")
+        refused_checkpoint(dev, tmp)
     t2 = time.perf_counter()
     v = verify.verify_kernels(device=dev)
     vw = [verify.verify_kernels_wide(n_words=w, device=dev)
@@ -4295,7 +4369,9 @@ def main() -> int:
     big_flush_path(dev, smi)
 
     print(f"chip_smoke: every phase passed in "
-          f"{time.perf_counter() - t_start:.1f} s ({smi})")
+          f"{time.perf_counter() - t_start:.1f} s ({smi}); the lap was "
+          f"{EARLIER_LAP_S} s before the K2 library timings and the "
+          "refused checkpoint")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,46 @@ def _to_file(keys: torch.Tensor, counts: torch.Tensor, k: int):
     return kmers.to_ref_words(keys, k), counts
 
 
+def _check_key_words(m: dict, path: str) -> None:
+    """Refuse a manifest whose `key_words` is not the width k needs: 2 (or
+    absent, kat_tpu's default) at k <= 31, else kmers.ref_words_for_k(k).
+    Older kat_tpu wrote 4 words at 32 < k <= 47; such keys are not
+    converted, since a table of another width holds other keys."""
+    k = int(m["k"])
+    kmers.words_for_k(k)  # raises outside [1, 255]
+    found = m.get("key_words")
+    if k <= kmers.MAX_K:
+        if found in (None, 2):
+            return
+        need = 2
+    else:
+        need = kmers.ref_words_for_k(k)
+        if found == need:
+            return
+    raise ValueError(
+        f"checkpoint {path}: manifest key_words={found!r} but k={k} needs "
+        f"key_words={need}")
+
+
+def _read_shard(path: str, m: dict, s: int):
+    """Shard s's stored (keys, counts).  Refuses a shard whose key array
+    disagrees with its manifest: 1-D uint64 keys at k <= 31, else
+    [n, key_words] words."""
+    with np.load(_shard_name(path, s)) as z:
+        keys, counts = z["keys"], z["counts"]
+    if int(m["k"]) <= kmers.MAX_K:
+        ok, found = keys.ndim == 1, f"an array of shape {keys.shape}"
+    else:
+        ok = keys.ndim == 2 and keys.shape[1] == m["key_words"]
+        found = (f"key_words={keys.shape[1]}" if keys.ndim == 2
+                 else f"an array of shape {keys.shape}")
+    if not ok:
+        raise ValueError(
+            f"checkpoint {path}: shard {s} holds {found} but the manifest "
+            f"says key_words={m.get('key_words', 2)}")
+    return keys, counts
+
+
 def _from_file(keys: np.ndarray, k: int) -> np.ndarray:
     """The file's keys as the port's: int64 keys, or [W, n] int64 words."""
     if k <= kmers.MAX_K:
@@ -123,12 +163,13 @@ def load_table(path: str, device=None):
     """A checkpoint as one table (+ its manifest), capacity the next power
     of two of its entries, on `device` (default: the card)."""
     m = load_manifest(path)
+    _check_key_words(m, path)
     k = int(m["k"])
     keys, counts = [], []
     for s in range(m["n_shards"]):
-        with np.load(_shard_name(path, s)) as z:
-            keys.append(_from_file(z["keys"], k))
-            counts.append(np.asarray(z["counts"], np.int64))
+        sk, sc = _read_shard(path, m, s)
+        keys.append(_from_file(sk, k))
+        counts.append(np.asarray(sc, np.int64))
     c = np.concatenate(counts) if counts else np.zeros(0, np.int64)
     keys = (np.concatenate(keys, axis=-1) if keys
             else _from_file(np.zeros(0, np.uint64 if k <= kmers.MAX_K
@@ -182,6 +223,7 @@ def load_sharded_counter(path: str, mesh, **counter_kwargs):
         raise ValueError(
             f"checkpoint shard_hash {m.get('shard_hash')!r} != "
             f"{SHARD_HASH_ID!r}: direct placement would mis-route")
+    _check_key_words(m, path)
     k = int(m["k"])
     sizes = []
     for s in range(mesh.n):
@@ -212,5 +254,5 @@ def load_shard(path: str, shard: int):
             f"shard_hash={m.get('shard_hash')!r} (expected "
             f"{SHARD_HASH_ID!r}); direct shard placement would mis-route "
             "- load with load_table() and re-save to re-partition")
-    with np.load(_shard_name(path, shard)) as z:
-        return z["keys"], z["counts"]
+    _check_key_words(m, path)
+    return _read_shard(path, m, shard)

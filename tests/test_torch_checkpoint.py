@@ -1,9 +1,10 @@
 """The port's sharded checkpoints (kat_tpu_torch/io/checkpoint.py) against
 kat_tpu's (kat_tpu/io/checkpoint.py): round trips of narrow and wide
 tables, shards that are disjoint and owned by the mesh's hash, a manifest
-of another format refused, checkpoints written by either package loaded
-by the other, and a counter saved by 2 gloo processes loaded in one
-process and in two.  Tolerance 0: keys and counts are integers."""
+of another format refused, a manifest or shard whose `key_words`
+disagrees with k refused by every loader, checkpoints written by either
+package loaded by the other, and a counter saved by 2 gloo processes
+loaded in one process and in two.  Tolerance 0: keys and counts are integers."""
 
 import json
 import os
@@ -132,6 +133,78 @@ def test_a_manifest_of_another_format_is_refused(tmp_path):
     with pytest.raises(ValueError, match="shards but the mesh has"):
         checkpoint.load_sharded_counter(
             path, sharded.make_mesh(3, devices=["cpu"]))
+
+
+LOADERS = {
+    "load_table": lambda p: checkpoint.load_table(p, device=CPU),
+    "load_sharded_counter": lambda p: checkpoint.load_sharded_counter(
+        p, sharded.make_mesh(1, devices=["cpu"])),
+    "load_shard": lambda p: checkpoint.load_shard(p, 0),
+}
+
+
+def _raw_checkpoint(path, k, words, **manifest):
+    """A one-shard checkpoint written by hand: 3 keys of `words` uint32
+    words (1-D uint64 keys when words is None) under a manifest of
+    kat_tpu's format with `manifest` merged over its fields."""
+    os.makedirs(path)
+    rng = np.random.default_rng(k)
+    keys = (rng.integers(0, 1 << 40, 3).astype(np.uint64) if words is None
+            else rng.integers(0, 1 << 30, (3, words)).astype(np.uint32))
+    np.savez_compressed(os.path.join(path, "shard_00000.npz"), keys=keys,
+                        counts=np.ones(3, np.uint32))
+    m = {"format": "kat_tpu/count_table", "version": 3, "k": k,
+         "canonical": True, "n_shards": 1,
+         "shard_hash": checkpoint.SHARD_HASH_ID, "n_unique": 3, "total": 3}
+    m.update(manifest)
+    m = {f: v for f, v in m.items() if v is not None}
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(m, f)
+    return str(path)
+
+
+# (k, words a key in the shard, the manifest's key_words; None: absent).
+# Older kat_tpu wrote 4 words at 32 < k <= 47, where k needs 3.
+REFUSED = {
+    "k33_four_words": (33, 4, 4),
+    "k33_no_key_words": (33, 3, None),
+    "k63_no_key_words": (63, 4, None),
+    "k27_three_words": (27, None, 3),
+}
+
+
+@pytest.mark.parametrize("loader", sorted(LOADERS))
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_key_words_that_k_does_not_need_are_refused(tmp_path, case,
+                                                    loader):
+    """A manifest whose key_words is not the width k needs (or is missing
+    at k > 31) is refused before any shard is read, by every loader."""
+    k, words, key_words = REFUSED[case]
+    path = _raw_checkpoint(tmp_path / "ck", k, words, key_words=key_words)
+    with pytest.raises(ValueError, match="key_words") as e:
+        LOADERS[loader](path)
+    assert f"k={k}" in str(e.value) and path in str(e.value)
+
+
+@pytest.mark.parametrize("loader", sorted(LOADERS))
+def test_a_shard_that_disagrees_with_its_manifest_is_refused(tmp_path,
+                                                             loader):
+    """Keys of 4 words under a manifest that says 3 (k = 33)."""
+    path = _raw_checkpoint(tmp_path / "ck", 33, 4, key_words=3)
+    with pytest.raises(ValueError, match="key_words=4") as e:
+        LOADERS[loader](path)
+    assert "shard 0" in str(e.value)
+
+
+def test_a_narrow_manifest_without_key_words_loads(tmp_path):
+    """kat_tpu reads an absent key_words as 2: a narrow checkpoint without
+    the field loads in both packages."""
+    path = _raw_checkpoint(tmp_path / "ck", 21, None, key_words=None)
+    got, m = checkpoint.load_table(path, device=CPU)
+    want, _m = jckpt.load_table(path)
+    assert "key_words" not in m
+    _equal(_port_arrays(got), _jax_arrays(want, 21))
+    assert got.n_unique == 3
 
 
 def test_sharded_save_in_two_processes_loads_everywhere(tmp_path):
