@@ -26,6 +26,7 @@ import torch
 from ..ops.merge_kernel import merge_sorted
 from ..ops.reduce_kernel import reduce_by_key, reduce_by_key_words
 from ..ops.sort_kernel import sort_keys
+from ..utils.profiling import annotate, count
 from .kmers import SENTINEL, extract_kmers, from_planes
 
 
@@ -128,6 +129,14 @@ def _run_start(keys: torch.Tensor, lo: int, p: int) -> int:
     return lo
 
 
+def _read_n_unique(nu) -> int:
+    """K3's run count on the host: the synchronous read of a flush's
+    overflow check (`kat.read.n_unique`, counted in `host_reads`)."""
+    with annotate("kat.read.n_unique"):
+        count("host_reads")
+        return int(nu)
+
+
 def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     """K3 over a sorted stream of any length: 1-D int64 keys
     (`reduce_by_key`) or [W, n] words (`reduce_by_key_words`).
@@ -145,7 +154,7 @@ def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     n = keys.shape[-1]
     if n < MAX_STREAM:
         k, c, nu = reduce(keys, w, out_size)
-        return k, c, int(nu)
+        return k, c, _read_n_unique(nu)
     lead = (keys.shape[0],) if wide else ()
     out_keys = torch.empty(lead + (out_size,), dtype=torch.int64,
                            device=keys.device)
@@ -169,7 +178,7 @@ def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
         nu = reduce(keys[..., start:end], w[start:end], size,
                     out=(out_keys[..., lo:lo + size],
                          out_counts[lo:lo + size]))[2]
-        fill += int(nu)
+        fill += _read_n_unique(nu)
         start = end
     lo = min(fill, out_size)
     out_keys[..., lo:] = SENTINEL
@@ -194,6 +203,12 @@ class StreamingCounter:
 
     The overflow check is synchronous: each flush fetches n_unique from the
     device (kat_tpu defers that fetch by one flush to keep the TPU busy).
+
+    Spans (utils/profiling.annotate): `kat.flush` around a flush,
+    `kat.flush.sort` (the pending keys joined, K1), `kat.flush.merge` (K2)
+    and `kat.flush.reduce` (K3, with its `kat.read.n_unique`) for each
+    merge, `kat.flush.replay` around each growth replay's.  Counters:
+    `flushes`, `replays`, `fresh_keys`, `merged_keys`, `replayed_keys`.
     """
 
     def __init__(self, initial_capacity: int = 1 << 20,
@@ -232,25 +247,36 @@ class StreamingCounter:
                       cap: int) -> CountTable:
         # only the table's real entries join: its padding is all sentinel
         n = prev.n_unique
-        mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
-        return CountTable(*reduce_stream(mkeys, mw, cap))
+        count("merged_keys", n + fresh.numel())
+        with annotate("kat.flush.merge"):
+            mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
+        with annotate("kat.flush.reduce"):
+            return CountTable(*reduce_stream(mkeys, mw, cap))
 
     def _flush(self) -> None:
         if not self._fresh:
             return
-        fresh = (torch.cat(self._fresh) if len(self._fresh) > 1
-                 else self._fresh[0])
-        self._fresh = []
-        self._fresh_n = 0
-        check_stream(fresh.numel(), "the fresh windows")  # before any launch
-        fresh = sort_keys(fresh, self.key_bits)
-        prev = self.table
-        table = self._merge_reduce(prev, fresh, self.capacity)
-        while table.n_unique > self.capacity:
-            self._grow()
-            del table  # before the replay allocates its own
+        with annotate("kat.flush"):
+            count("flushes")
+            with annotate("kat.flush.sort"):
+                fresh = (torch.cat(self._fresh) if len(self._fresh) > 1
+                         else self._fresh[0])
+                self._fresh = []
+                self._fresh_n = 0
+                # before any launch
+                check_stream(fresh.numel(), "the fresh windows")
+                count("fresh_keys", fresh.numel())
+                fresh = sort_keys(fresh, self.key_bits)
+            prev = self.table
             table = self._merge_reduce(prev, fresh, self.capacity)
-        self.table = table
+            while table.n_unique > self.capacity:
+                self._grow()
+                del table  # before the replay allocates its own
+                with annotate("kat.flush.replay"):
+                    count("replays")
+                    count("replayed_keys", prev.n_unique + fresh.numel())
+                    table = self._merge_reduce(prev, fresh, self.capacity)
+            self.table = table
 
     def _grow(self) -> None:
         if self.disable_grow or self.capacity * 2 > self.max_capacity:
@@ -275,6 +301,7 @@ class CodeStreamingCounter(StreamingCounter):
     Batches are [rows, length] code arrays (numpy or torch).  A batch with
     another length, or more rows than the current shape, flushes first and
     adopts its shape; batches with fewer rows join the current flush.
+    Span `kat.extract` around a batch's upload and extraction.
     """
 
     def __init__(self, k: int, canonical: bool = True,
@@ -310,8 +337,9 @@ class CodeStreamingCounter(StreamingCounter):
         elif codes.shape[0] > self._shape[0]:
             self._flush()
             self._set_shape(tuple(codes.shape))
-        keys, _valid = extract_kmers(codes.to(self.device), self.k,
-                                     self.canonical)
+        with annotate("kat.extract"):
+            keys, _valid = extract_kmers(codes.to(self.device), self.k,
+                                         self.canonical)
         self._fresh.append(keys.reshape(-1))
         if len(self._fresh) >= self._fb_eff:
             self._flush()

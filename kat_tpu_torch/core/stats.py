@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import binned_kernel
+from ..utils.profiling import annotate
 
 
 def unsigned(counts: torch.Tensor) -> torch.Tensor:
@@ -70,11 +71,12 @@ def hist_from_counts(counts: torch.Tensor, base: int, ceil: int, inc: int,
     kat_tpu's uint32 counts: a count of 2^31 or more lands in the last
     bucket.  Returns int64 [nb_buckets] on counts' device.
     """
-    c = unsigned(counts)
-    bucket = torch.where(c < base, 0,
-                         torch.where(c > ceil, nb_buckets - 1,
-                                     (c - base) // inc))
-    return binned_sum(nb_buckets, bucket, c > 0)
+    with annotate("kat.bin"):
+        c = unsigned(counts)
+        bucket = torch.where(c < base, 0,
+                             torch.where(c > ceil, nb_buckets - 1,
+                                         (c - base) // inc))
+        return binned_sum(nb_buckets, bucket, c > 0)
 
 
 def gcp_matrix(table, mer_len: int, cvg_bins: int,
@@ -89,15 +91,16 @@ def gcp_matrix(table, mer_len: int, cvg_bins: int,
     """
     from . import tables
 
-    gc = tables.gc_of_keys(table).to(torch.int64)
-    c = unsigned(table.counts)
-    cvg = torch.where(c == 0, 0,
-                      torch.ceil(c.to(torch.float64) * cvg_scale)
-                      .to(torch.int64))
-    cvg = torch.clamp_max(cvg, cvg_bins)
-    flat = gc * (cvg_bins + 1) + cvg
-    return binned_sum((mer_len + 1) * (cvg_bins + 1), flat,
-                      c > 0).reshape(mer_len + 1, cvg_bins + 1)
+    with annotate("kat.bin"):
+        gc = tables.gc_of_keys(table).to(torch.int64)
+        c = unsigned(table.counts)
+        cvg = torch.where(c == 0, 0,
+                          torch.ceil(c.to(torch.float64) * cvg_scale)
+                          .to(torch.int64))
+        cvg = torch.clamp_max(cvg, cvg_bins)
+        flat = gc * (cvg_bins + 1) + cvg
+        return binned_sum((mer_len + 1) * (cvg_bins + 1), flat,
+                          c > 0).reshape(mer_len + 1, cvg_bins + 1)
 
 
 def spectrum_bins(counts: torch.Tensor, nb_bins: int) -> torch.Tensor:

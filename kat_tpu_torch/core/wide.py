@@ -25,6 +25,7 @@ import torch
 
 from ..ops.merge_kernel import merge_sorted_words
 from ..ops.sort_kernel import sort_words, words_order_plain
+from ..utils.profiling import annotate, count
 from . import kmers
 from .counting import (TableFullError, _same_device, check_stream,
                        reduce_stream)
@@ -83,7 +84,9 @@ class WideCodeStreamingCounter:
     sizing).  A batch with another length, or more rows than the current
     shape, flushes first and adopts its shape.
 
-    The overflow check is synchronous: each flush fetches n_unique.
+    The overflow check is synchronous: each flush fetches n_unique.  Spans
+    and counters are counting.StreamingCounter's and CodeStreamingCounter's
+    (`kat.extract`, `kat.flush` and its children).
     """
 
     def __init__(self, k: int, canonical: bool = True,
@@ -124,8 +127,9 @@ class WideCodeStreamingCounter:
             w = codes.shape[0] * (codes.shape[1] - self.k + 1)
             self._fb_eff = (max(1, self.flush_windows // max(w, 1))
                             if self.flush_windows else self.flush_batches)
-        words, _valid = kmers.extract_kmers_wide(codes.to(self.device),
-                                                 self.k, self.canonical)
+        with annotate("kat.extract"):
+            words, _valid = kmers.extract_kmers_wide(codes.to(self.device),
+                                                     self.k, self.canonical)
         self._fresh.append(words.reshape(self.n_words, -1))
         if len(self._fresh) >= self._fb_eff:
             self._flush()
@@ -134,26 +138,37 @@ class WideCodeStreamingCounter:
                       cap: int) -> WideTable:
         # only the table's real entries join: its padding is all sentinel
         n = prev.n_unique
-        mkeys, mw = merge_sorted_words(prev.keys[:, :n], prev.counts[:n],
-                                       fresh)
-        return WideTable(*reduce_stream(mkeys, mw, cap))
+        count("merged_keys", n + fresh.shape[1])
+        with annotate("kat.flush.merge"):
+            mkeys, mw = merge_sorted_words(prev.keys[:, :n], prev.counts[:n],
+                                           fresh)
+        with annotate("kat.flush.reduce"):
+            return WideTable(*reduce_stream(mkeys, mw, cap))
 
     def _flush(self) -> None:
         self._shape = None
         if not self._fresh:
             return
-        fresh = (torch.cat(self._fresh, dim=1) if len(self._fresh) > 1
-                 else self._fresh[0])
-        self._fresh = []
-        check_stream(fresh.shape[1], "the fresh windows")  # before any launch
-        fresh = sort_words(fresh, self.top_bits)
-        prev = self.table
-        table = self._merge_reduce(prev, fresh, self.capacity)
-        while table.n_unique > self.capacity:
-            self._grow()
-            del table  # before the replay allocates its own
+        with annotate("kat.flush"):
+            count("flushes")
+            with annotate("kat.flush.sort"):
+                fresh = (torch.cat(self._fresh, dim=1) if len(self._fresh) > 1
+                         else self._fresh[0])
+                self._fresh = []
+                # before any launch
+                check_stream(fresh.shape[1], "the fresh windows")
+                count("fresh_keys", fresh.shape[1])
+                fresh = sort_words(fresh, self.top_bits)
+            prev = self.table
             table = self._merge_reduce(prev, fresh, self.capacity)
-        self.table = table
+            while table.n_unique > self.capacity:
+                self._grow()
+                del table  # before the replay allocates its own
+                with annotate("kat.flush.replay"):
+                    count("replays")
+                    count("replayed_keys", prev.n_unique + fresh.shape[1])
+                    table = self._merge_reduce(prev, fresh, self.capacity)
+            self.table = table
 
     def _grow(self) -> None:
         if self.disable_grow or self.capacity * 2 > self.max_capacity:

@@ -32,6 +32,7 @@ import torch
 from .. import DEFAULT_HASH_SIZE, DEFAULT_MER_LEN
 from ..core import counting, kmers, wide
 from ..io import fastx, jellyfish
+from ..utils.profiling import annotate
 from ..utils.timer import stage
 
 FLUSHES = ("classic", "bucketed")
@@ -227,7 +228,12 @@ class Input:
                            else counting.CodeStreamingCounter)
                 sc = counter(self.mer_len, self.canonical,
                              flush_windows=1 << 26, **caps)
-                for batch in self._code_batches():
+                batches = iter(self._code_batches())
+                while True:
+                    with annotate("kat.input.wait"):  # the reader's next batch
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
                     sc.add_codes(batch)
                 self.table = sc.finish()
         n_uniq = (int(self.shards.n_unique.sum()) if self.shards is not None

@@ -13,6 +13,8 @@ shard on the co-partitioned shard tables and their results are summed
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -22,13 +24,17 @@ from ..core.distance import ALL_METRICS
 from ..core.matrix import Matrix
 from ..io import mme
 from ..utils.fmt import cpp_double
+from ..utils.profiling import annotate, count
 from ..utils.timer import stage
 from .common import Input, InputMode, ensure_parent_dir
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """An int64 count tensor as the uint64 numpy array the writers take."""
-    return t.cpu().numpy().astype(np.uint64)
+    """An int64 count tensor as the uint64 numpy array the writers take: a
+    host read (`kat.read.comp`, counted in `host_reads`)."""
+    with annotate("kat.read.comp"):
+        count("host_reads")
+        return t.cpu().numpy().astype(np.uint64)
 
 
 class Comp:
@@ -149,51 +155,61 @@ class Comp:
         # Compact to final fill: the passes stream over every table's
         # capacity (iteration AND sort-merge-join probes), so padding left
         # by the growth policy would be pure wasted bandwidth.
-        t1, t2 = tables.compact(t1), tables.compact(t2)
-        t3 = tables.compact(t3) if self.three_inputs else None
+        with annotate("kat.comp.compact"):
+            t1, t2 = tables.compact(t1), tables.compact(t2)
+            t3 = tables.compact(t3) if self.three_inputs else None
 
         # both cross-probe streams sorted => pass1 and pass2 share ONE
         # table merge (tables.lookup_dual); None when the join policy keeps
         # the binary search
-        pre = tables.lookup_dual(t1, t2) if (sorted2 and sorted1) else None
+        with annotate("kat.comp.probe"):
+            pre = (tables.lookup_dual(t1, t2) if (sorted2 and sorted1)
+                   else None)
         h2_pre, h1_pre = pre if pre is not None else (None, None)
-        outs1 = comp_engine.pass1(
-            t1, t2, t3, k=k, d1_bins=self.d1_bins, d2_bins=self.d2_bins,
-            dm_size=dm_size, d1_scale=self.d1_scale, d2_scale=self.d2_scale,
-            canon2=flags["canon2"], canon3=flags["canon3"],
-            three=self.three_inputs, sorted2=sorted2,
-            sorted3=flags["sorted3"], h2_pre=h2_pre)
-        outs2 = comp_engine.pass2(
-            t2, t1, k=k, d2_bins=self.d2_bins, dm_size=dm_size,
-            d2_scale=self.d2_scale, sorted1=sorted1, h1_pre=h1_pre)
+        with annotate("kat.comp.pass1"):
+            outs1 = comp_engine.pass1(
+                t1, t2, t3, k=k, d1_bins=self.d1_bins, d2_bins=self.d2_bins,
+                dm_size=dm_size, d1_scale=self.d1_scale,
+                d2_scale=self.d2_scale, canon2=flags["canon2"],
+                canon3=flags["canon3"], three=self.three_inputs,
+                sorted2=sorted2, sorted3=flags["sorted3"], h2_pre=h2_pre)
+        with annotate("kat.comp.pass2"):
+            outs2 = comp_engine.pass2(
+                t2, t1, k=k, d2_bins=self.d2_bins, dm_size=dm_size,
+                d2_scale=self.d2_scale, sorted1=sorted1, h1_pre=h1_pre)
         self._store(outs1, outs2,
                     comp_engine.pass3(t3) if self.three_inputs else {})
 
     def _store(self, outs1, outs2, c3) -> None:
         """The passes' outputs (comp_engine.pass1/2/3's structures) as the
-        host counters, spectra and matrices of this object."""
-        c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = outs1
-        c2, sp2, row0, ssp2b = outs2
-        sums = {**c1, **c2, **c3}
-        counters = dict(zip(sums, torch.stack(list(sums.values())).tolist()))
-        if not self.three_inputs:
-            counters["hash3_total"] = 0
-            counters["hash3_distinct"] = 0
-        self.counters = counters
+        host counters, spectra and matrices of this object (`kat.comp.store`,
+        each host read a `kat.read.comp`)."""
+        with annotate("kat.comp.store"):
+            c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = outs1
+            c2, sp2, row0, ssp2b = outs2
+            sums = {**c1, **c2, **c3}
+            stacked = torch.stack(list(sums.values()))
+            with annotate("kat.read.comp"):
+                count("host_reads")
+                counters = dict(zip(sums, stacked.tolist()))
+            if not self.three_inputs:
+                counters["hash3_total"] = 0
+                counters["hash3_distinct"] = 0
+            self.counters = counters
 
-        main = _host(main_mx)
-        main[0, :] += _host(row0)
-        self.main_mx = Matrix(main)
-        if self.three_inputs:
-            self.ends_mx = Matrix(_host(ends))
-            self.mixed_mx = Matrix(_host(mixed))
-            self.middle_mx = Matrix(_host(middle))
-        self.spectrum1 = _host(sp1)
-        self.spectrum2 = _host(sp2)
-        self.shared_spectrum1 = _host(ssp1)
-        # pass1 + pass2 contributions (exactly one is nonzero — pass2's
-        # when the dual probe ran, pass1's otherwise)
-        self.shared_spectrum2 = _host(ssp2) + _host(ssp2b)
+            main = _host(main_mx)
+            main[0, :] += _host(row0)
+            self.main_mx = Matrix(main)
+            if self.three_inputs:
+                self.ends_mx = Matrix(_host(ends))
+                self.mixed_mx = Matrix(_host(mixed))
+                self.middle_mx = Matrix(_host(middle))
+            self.spectrum1 = _host(sp1)
+            self.spectrum2 = _host(sp2)
+            self.shared_spectrum1 = _host(ssp1)
+            # pass1 + pass2 contributions (exactly one is nonzero — pass2's
+            # when the dual probe ran, pass1's otherwise)
+            self.shared_spectrum2 = _host(ssp2) + _host(ssp2b)
 
     # -- output (comp.cc:185-233, 305-364) --
     def print_main_matrix(self, out) -> None:
@@ -297,20 +313,23 @@ class Comp:
         out.write("\n")
 
     def save(self) -> None:
-        with stage("Saving results to disk", quiet=self.quiet):
-            with open(f"{self.output_prefix}-main.mx", "w") as f:
-                self.print_main_matrix(f)
-            if self.three_inputs:
-                with open(f"{self.output_prefix}-ends.mx", "w") as f:
-                    self.print_ends_matrix(f)
-                with open(f"{self.output_prefix}-middle.mx", "w") as f:
-                    self.print_middle_matrix(f)
-                with open(f"{self.output_prefix}-mixed.mx", "w") as f:
-                    self.print_mixed_matrix(f)
-            with open(f"{self.output_prefix}.stats", "w") as f:
-                self.print_counters(f)
-            if self.output_hists:
-                with open(f"{self.output_prefix}.1.hist", "w") as f:
-                    self.print_hist(f, self.inputs[0], self.spectrum1)
-                with open(f"{self.output_prefix}.2.hist", "w") as f:
-                    self.print_hist(f, self.inputs[1], self.spectrum2)
+        """Every file of the comparison: `kat.save`, with a child
+        `kat.save.<suffix>` per file (`kat.save.main.mx`, `kat.save.stats`,
+        ...)."""
+        files = [("-main.mx", self.print_main_matrix)]
+        if self.three_inputs:
+            files += [("-ends.mx", self.print_ends_matrix),
+                      ("-middle.mx", self.print_middle_matrix),
+                      ("-mixed.mx", self.print_mixed_matrix)]
+        files.append((".stats", self.print_counters))
+        if self.output_hists:
+            files += [(".1.hist", partial(self.print_hist, inp=self.inputs[0],
+                                          hist=self.spectrum1)),
+                      (".2.hist", partial(self.print_hist, inp=self.inputs[1],
+                                          hist=self.spectrum2))]
+        with stage("Saving results to disk", quiet=self.quiet), \
+                annotate("kat.save"):
+            for suffix, write in files:
+                with annotate("kat.save." + suffix[1:]), \
+                        open(self.output_prefix + suffix, "w") as f:
+                    write(f)

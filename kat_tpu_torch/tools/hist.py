@@ -13,6 +13,7 @@ import numpy as np
 
 from ..core import stats
 from ..io import mme
+from ..utils.profiling import annotate
 from ..utils.timer import stage
 from .common import Input, ensure_parent_dir
 
@@ -65,17 +66,18 @@ class Histogram:
 
     def print_to(self, out) -> None:
         k = self.input.mer_len
-        out.write(f"{mme.KEY_TITLE}{k}-mer spectra for: "
-                  f"{self.input.file_name()}\n")
-        out.write(f"{mme.KEY_X_LABEL}{k}-mer frequency\n")
-        out.write(f"{mme.KEY_Y_LABEL}# distinct {k}-mers\n")
-        out.write(f"{mme.KEY_KMER}{k}\n")
-        out.write(f"{mme.KEY_INPUT_1}{self.input.path_string()}\n")
-        out.write(f"{mme.MX_META_END}\n")
-        col = self.base
-        for v in self.data:
-            out.write(f"{col} {int(v)}\n")
-            col += self.inc
+        with annotate("kat.save"):
+            out.write(f"{mme.KEY_TITLE}{k}-mer spectra for: "
+                      f"{self.input.file_name()}\n")
+            out.write(f"{mme.KEY_X_LABEL}{k}-mer frequency\n")
+            out.write(f"{mme.KEY_Y_LABEL}# distinct {k}-mers\n")
+            out.write(f"{mme.KEY_KMER}{k}\n")
+            out.write(f"{mme.KEY_INPUT_1}{self.input.path_string()}\n")
+            out.write(f"{mme.MX_META_END}\n")
+            col = self.base
+            for v in self.data:
+                out.write(f"{col} {int(v)}\n")
+                col += self.inc
 
     def save(self) -> None:
         with stage("Saving results to disk", quiet=self.quiet):

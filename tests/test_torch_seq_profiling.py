@@ -1,7 +1,8 @@
 """kat_tpu_torch/utils/seq.py against kat_tpu/utils/seq.py, and
-utils/profiling.py: `maybe_trace` writes a torch.profiler trace only when
-given a directory, `annotate` names a span in it, and the CLI's
-`--profile DIR` wraps a whole run."""
+utils/profiling.py: `maybe_trace` writes a torch.profiler trace and the
+counters of the traced block only when given a directory, `annotate` names
+a span in it, and the CLI's `--profile DIR` wraps a whole run, the port's
+`kat.` spans and its counters file included."""
 
 import json
 import os
@@ -54,11 +55,13 @@ def test_maybe_trace_writes_the_spans(tmp_path, capsys):
     with profiling.maybe_trace(str(d)):
         with profiling.annotate("kat_phase"):
             torch.arange(1000).sum()
-    files = os.listdir(d)
-    assert files == [f"kat_tpu_torch-{os.getpid()}.json"]
-    names = {e.get("name") for e in json.load(open(d / files[0]))[
+    stem = f"kat_tpu_torch-{os.getpid()}"
+    assert sorted(os.listdir(d)) == [stem + ".counters.json", stem + ".json"]
+    names = {e.get("name") for e in json.load(open(d / (stem + ".json")))[
         "traceEvents"]}
     assert "kat_phase" in names
+    assert json.load(open(d / (stem + ".counters.json"))) == dict.fromkeys(
+        profiling.COUNTERS, 0)
     assert capsys.readouterr().out == f"Profiler trace written to {d}\n"
 
 
@@ -77,3 +80,30 @@ def test_cli_profile_wraps_the_run(tmp_path, monkeypatch):
     assert (tmp_path / "h").exists()
     trace = json.load(open(d / f"kat_tpu_torch-{os.getpid()}.json"))
     assert trace["traceEvents"]
+
+
+def test_cli_profile_writes_the_spans_and_the_counters(tmp_path, monkeypatch):
+    monkeypatch.setattr(cli, "_plot", lambda *a, **kw: None)
+    monkeypatch.setattr(cli, "_analyse_peaks", lambda *a, **kw: None)
+    fq = tmp_path / "r.fq"
+    rng = np.random.default_rng(1)
+    with open(fq, "w") as f:
+        for i in range(40):
+            s = "".join(rng.choice(list("ACGT"), 80))
+            f.write(f"@r{i}\n{s}\n+\n{'I' * 80}\n")
+    d = tmp_path / "prof"
+    assert cli.main(["--device", "cpu", "--profile", str(d), "hist", "-o",
+                     str(tmp_path / "h"), str(fq)]) == 0
+    stem = d / f"kat_tpu_torch-{os.getpid()}"
+    names = [e.get("name") for e in json.load(open(f"{stem}.json"))[
+        "traceEvents"]]
+    for span in ("kat.input.wait", "kat.extract", "kat.flush",
+                 "kat.flush.sort", "kat.flush.merge", "kat.flush.reduce",
+                 "kat.read.n_unique", "kat.bin", "kat.save"):
+        assert span in names, span
+    got = json.load(open(f"{stem}.counters.json"))
+    assert set(got) == set(profiling.COUNTERS)
+    assert got["flushes"] == names.count("kat.flush") >= 1
+    assert got["host_reads"] == names.count("kat.read.n_unique")
+    # every real window went through K1, and through K2 and K3 at least once
+    assert got["merged_keys"] >= got["fresh_keys"] >= 40 * (80 - 27 + 1)
