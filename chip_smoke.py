@@ -65,7 +65,10 @@
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
    slots; the table and histogram must equal torch.unique over the same
-   windows, and each counting kernel must have been launched by that run;
+   windows (extracted by the plain version), and each counting kernel
+   must have been launched by that run, the extraction kernel once a
+   batch (checked and timed at one such batch before the profiled
+   window, beside its bound and its plain version);
 4. drives the lookup path at full width against that table: the k=27
    windows of the same genome, 128 rows of 65,562 codes (2^23 windows,
    1% of bases substituted, a few invalid), through
@@ -454,6 +457,40 @@ def check_flush_shapes(dev, gen, shapes) -> None:
           + ", ".join(workloads.MERGE_STRAIN) + " (K2; tile "
           f"{merge_kernel.tile_len()}); five runs of each at the path's "
           "shapes agree")
+
+
+def check_extract_kernel(dev, gen):
+    """The extraction kernel (csrc/extract.cu) against its plain version
+    at the main path's batch, [4096, 1024] codes at k = 27 with 0.1%
+    invalid, canonical and forward keys, timed over 10 launches beside
+    its bound (each code read once, each key written once).  Returns the
+    entry and its (entry, call) pair for count_inside."""
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core.kmers import extract_keys_plain
+    from kat_tpu_torch.ops.extract_kernel import extract_keys
+
+    k, rows, length = (workloads.MAIN_K, workloads.MAIN_ROWS,
+                       workloads.MAIN_LENGTH)
+    codes = torch.randint(0, 4, (rows, length), dtype=torch.uint8,
+                          device=dev, generator=gen)
+    codes[torch.rand(codes.shape, device=dev, generator=gen) < 1e-3] = 4
+    err = max(_max_abs_err(extract_keys(codes, k, c),
+                           extract_keys_plain(codes, k, c))
+              for c in (True, False))
+    got = extract_keys(codes, k)
+    entry = _report(dict(
+        name="kmer_windows", route="cuda",
+        source="kat_tpu_torch/csrc/extract.cu",
+        replaces="none (kat_tpu/core/kmers.py::extract_kmers is jnp that "
+                 "XLA fuses)", max_abs_err=err,
+        ms=_timed_ms(lambda: extract_keys(codes, k), 10),
+        plain_ms=_timed_ms(lambda: extract_keys_plain(codes, k), 5),
+        **_bound(_nbytes(codes, got), 0),
+        # no one PyTorch call extracts windows
+        library_ms=None), f"extraction [{rows}, {length}] k={k}")
+    return entry, (entry, lambda: extract_keys(codes, k))
 
 
 def check_kernels(dev, gen):
@@ -1474,9 +1511,9 @@ def main_path(dev):
 
     from kat_tpu_torch.benchmarks import workloads
     from kat_tpu_torch.core import counting, stats
-    from kat_tpu_torch.core.kmers import SENTINEL, extract_kmers
-    from kat_tpu_torch.ops import (binned_kernel, merge_kernel,
-                                   reduce_kernel, sort_kernel)
+    from kat_tpu_torch.core.kmers import SENTINEL, extract_keys_plain
+    from kat_tpu_torch.ops import (binned_kernel, extract_kernel,
+                                   merge_kernel, reduce_kernel, sort_kernel)
 
     k, rows, length, n_batches = (workloads.MAIN_K, workloads.MAIN_ROWS,
                                   workloads.MAIN_LENGTH,
@@ -1493,7 +1530,8 @@ def main_path(dev):
 
     kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
                reduce_kernel.reduce_by_key, binned_kernel.binned_sums)
-    for fn in kernels:
+    extract = extract_kernel.extract_keys
+    for fn in (*kernels, extract):
         fn.launches = 0
     t0 = time.perf_counter()
     sc = workloads.main_path_counter(dev)
@@ -1504,20 +1542,25 @@ def main_path(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
+    n_extract = extract.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     n_windows = n_batches * rows * (length - k + 1)
     print(f"main path: {n_windows} windows k={k} in {dt:.4f} s = "
           f"{n_windows / dt:.1f} k-mers/s; table {table.n_unique} distinct, "
           f"capacity {sc.capacity}; launches sort/merge/reduce/binned "
-          f"{launches}; peak memory {peak} B")
+          f"{launches}, extraction {n_extract}; peak memory {peak} B")
     if min(launches) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    if n_extract != n_batches:
+        raise AssertionError(f"{n_extract} extraction launches for "
+                             f"{n_batches} batches")
     if sc.capacity != 1 << 24:
         raise AssertionError(f"capacity {sc.capacity}, expected 2^24")
 
-    # reference: torch.unique over the same windows
-    allk = torch.cat([extract_kmers(b, k)[0].reshape(-1) for b in batches])
+    # reference: torch.unique over the same windows, extracted by the plain
+    # version (the counter ran the kernel)
+    allk = torch.cat([extract_keys_plain(b, k).reshape(-1) for b in batches])
     ref_keys, ref_counts = torch.unique(allk[allk != SENTINEL],
                                         return_counts=True)
     del allk
@@ -1532,7 +1575,7 @@ def main_path(dev):
     if not torch.equal(hist, ref_hist):
         raise AssertionError("histogram differs from the reference")
     print("main path: table and histogram equal the reference")
-    return launches, table, genome, ref_keys, ref_counts
+    return launches, n_extract, table, genome, ref_keys, ref_counts
 
 
 def _lookup_codes(dev, genome, k: int, rows: int, row_w: int, seed: int):
@@ -4228,7 +4271,9 @@ def main() -> int:
         print(f"chip_smoke: {what} done at "
               f"{time.perf_counter() - t_start:.1f} s")
 
+    extract, extract_counted = check_extract_kernel(dev, gen)
     kernels, counted = check_kernels(dev, gen)
+    counted.append(extract_counted)
     wide, wide_counted = check_wide_kernels(dev, gen)
     binned, binned_counted = check_binned_kernels(dev, gen)
     dual, dual_counted = check_dual_probe_kernels(dev, gen)
@@ -4243,7 +4288,8 @@ def main() -> int:
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
     del k6_counted, k6_group_call, late
     lap("the kernel checks")
-    launches, table, genome, ref_keys, ref_counts = main_path(dev)
+    launches, extract["launches"], table, genome, ref_keys, ref_counts = \
+        main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts
     launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
     binned[1]["launches"] = gcp_path(dev, table, ref_keys, ref_counts)
@@ -4356,7 +4402,7 @@ def main() -> int:
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
     kernels += [k5, k5r, k6, check_rounds_kernel(dev), *binned, *packed,
-                *dual, *wjoin, *k6s]
+                *dual, *wjoin, *k6s, extract]
     lap("K5, K6 and K7")
     sharded.update(two_process_path(dev, smi))
     lap("the two-process phase")

@@ -23,11 +23,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.extract_kernel import extract_keys
 from ..ops.merge_kernel import merge_sorted
 from ..ops.reduce_kernel import reduce_by_key, reduce_by_key_words
 from ..ops.sort_kernel import sort_keys
 from ..utils.profiling import annotate, count
-from .kmers import SENTINEL, extract_kmers, from_planes
+from .kmers import SENTINEL, from_planes
 
 
 class CountTable(NamedTuple):
@@ -338,8 +339,8 @@ class CodeStreamingCounter(StreamingCounter):
             self._flush()
             self._set_shape(tuple(codes.shape))
         with annotate("kat.extract"):
-            keys, _valid = extract_kmers(codes.to(self.device), self.k,
-                                         self.canonical)
+            keys = extract_keys(codes.to(self.device), self.k,
+                                self.canonical)
         self._fresh.append(keys.reshape(-1))
         if len(self._fresh) >= self._fb_eff:
             self._flush()

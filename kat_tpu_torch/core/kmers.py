@@ -87,6 +87,26 @@ def _fwd_rc(codes: torch.Tensor, k: int):
     return fwd, rc, bad
 
 
+def windows_of(codes: torch.Tensor, k: int) -> int:
+    """The k-windows in each row of [..., L] codes, L - k + 1; raises for
+    a k outside 1..31 or rows shorter than k."""
+    spec_valid(k)
+    L = codes.shape[-1]
+    if L - k + 1 <= 0:
+        raise ValueError(f"sequence length {L} shorter than k={k}")
+    return L - k + 1
+
+
+def extract_keys_plain(codes: torch.Tensor, k: int, canonical: bool = True):
+    """Plain PyTorch version of ops/extract_kernel.extract_keys: k rounds
+    of elementwise kernels over the windows (`_fwd_rc`)."""
+    windows_of(codes, k)
+    fwd, rc, bad = _fwd_rc(codes, k)
+    keys = torch.minimum(fwd, rc) if canonical else fwd
+    keys.masked_fill_(bad, SENTINEL)  # in place: keys is a fresh buffer
+    return keys
+
+
 def extract_kmers(codes: torch.Tensor, k: int, canonical: bool = True):
     """Extract all k-length windows from a batch of encoded sequences.
 
@@ -99,16 +119,13 @@ def extract_kmers(codes: torch.Tensor, k: int, canonical: bool = True):
 
     Returns:
       (keys, valid): int64 / bool tensors of shape [..., L-k+1] on the
-      device of `codes`.  Invalid windows carry SENTINEL.
+      device of `codes`.  Invalid windows carry SENTINEL; every real key
+      is below 2^62, so valid is exactly keys != SENTINEL.
     """
-    spec_valid(k)
-    L = codes.shape[-1]
-    if L - k + 1 <= 0:
-        raise ValueError(f"sequence length {L} shorter than k={k}")
-    fwd, rc, bad = _fwd_rc(codes, k)
-    keys = torch.minimum(fwd, rc) if canonical else fwd
-    keys.masked_fill_(bad, SENTINEL)  # in place: keys is a fresh buffer
-    return keys, ~bad
+    from ..ops.extract_kernel import extract_keys  # ops imports this module
+
+    keys = extract_keys(codes, k, canonical)
+    return keys, keys != SENTINEL
 
 
 def _rev2(x: torch.Tensor) -> torch.Tensor:

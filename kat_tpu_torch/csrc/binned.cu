@@ -18,10 +18,7 @@
 // bin (8 bytes): at 2^24 elements and one mask about 0.025 ms.  The design:
 //   - requests with the same (div, mod) form a group and share one bin
 //     computation.  Division by run-time div and mod is a multiply-high and
-//     a shift: the host computes m = ceil(2^(31 + l) / d), l = ceil(log2 d),
-//     and then x / d == umulhi(x, m) >> (l - 1) for every x < 2^31
-//     (Granlund and Montgomery 1994, theorem 4.2: m * d - 2^(31 + l) < d
-//     <= 2^l); d == 1 skips the step;
+//     a shift (kat::magic and kat::div_by, common.cuh);
 //   - the tiles of 4096 keys and their mask bytes reach shared memory by
 //     16-byte cp.async copies of the aligned memory around them (planes
 //     and views at any byte offset), in persistent blocks that keep 2-5
@@ -132,14 +129,9 @@ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
 }
 
-__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t mul,
-                                           int sh) {
-  return mul ? __umulhi(x, mul) >> sh : x;
-}
-
 __device__ __forceinline__ uint32_t bin_of(uint32_t key, const Group& g) {
-  const uint32_t q = div_by(key, g.dmul, g.dsh);
-  return q - div_by(q, g.mmul, g.msh) * (uint32_t)g.mod;
+  const uint32_t q = kat::div_by(key, g.dmul, g.dsh);
+  return q - kat::div_by(q, g.mmul, g.msh) * (uint32_t)g.mod;
 }
 
 // The requests of g whose mask is set among the element's planes `bits`.
@@ -511,19 +503,6 @@ binned_count_kernel(Plan p, Scratch sc, unsigned long long* __restrict__ out) {
   }
 }
 
-// x / d == umulhi(x, *mul) >> *sh for every x < 2^31 (*mul 0: d == 1).
-void magic(uint32_t d, uint32_t* mul, int* sh) {
-  if (d == 1) {
-    *mul = 0;
-    *sh = 0;
-    return;
-  }
-  int l = 0;
-  while ((uint64_t(1) << l) < d) l++;
-  *mul = (uint32_t)(((uint64_t(1) << (31 + l)) + d - 1) / d);
-  *sh = l - 1;
-}
-
 // The plan of n_req requests: groups of equal (div, mod), the smallest
 // counted in one pass while their counters fit, the rest partitioned into
 // ranges.  Returns false for a request the kernel does not take.
@@ -555,8 +534,8 @@ bool make_plan(const int64_t* req, int n_req, int n_masks, Plan* p) {
   }
   for (int gi = 0; gi < ng; gi++) {
     Group& g = gs[gi];
-    magic((uint32_t)g.dsh, &g.dmul, &g.dsh);
-    magic((uint32_t)g.mod, &g.mmul, &g.msh);
+    kat::magic((uint32_t)g.dsh, &g.dmul, &g.dsh);
+    kat::magic((uint32_t)g.mod, &g.mmul, &g.msh);
   }
   // the cheapest groups first: counted in one pass while they fit
   int order[BN_MAX_REQ];

@@ -295,6 +295,28 @@ __device__ __forceinline__ typename Status::Value look_back(
   }
 }
 
+// Division by a run-time divisor d as a multiply-high and a shift: the
+// host computes m = ceil(2^(31 + l) / d), l = ceil(log2 d), and then
+// x / d == umulhi(x, m) >> (l - 1) for every x < 2^31 (Granlund and
+// Montgomery 1994, theorem 4.2: m * d - 2^(31 + l) < d <= 2^l); d == 1
+// gives *mul = 0, which div_by takes as no division.
+inline void magic(uint32_t d, uint32_t* mul, int* sh) {
+  if (d == 1) {
+    *mul = 0;
+    *sh = 0;
+    return;
+  }
+  int l = 0;
+  while ((uint64_t(1) << l) < d) l++;
+  *mul = (uint32_t)(((uint64_t(1) << (31 + l)) + d - 1) / d);
+  *sh = l - 1;
+}
+
+__device__ __forceinline__ uint32_t div_by(uint32_t x, uint32_t mul,
+                                           int sh) {
+  return mul ? __umulhi(x, mul) >> sh : x;
+}
+
 // What a launcher asks of the current device once per kernel, not per
 // call: the device's SM count, after leave for `kernel` to take `smem`
 // bytes of dynamic shared memory there.  `cache` is the launcher's own

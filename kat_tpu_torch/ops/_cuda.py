@@ -77,6 +77,7 @@ _SIGNATURES = {
     "kat_merge_runs_scratch": [_I64, _I64, _INT],
     "kat_merge_runs_tile": [_INT],
     "kat_profile_rounds": [_P, _P, _I64, _I64, _INT, _INT, _P],
+    "kat_extract_kmers": [_P, _I64, _I64, _INT, _INT, _P, _P],
 }
 
 

@@ -28,7 +28,8 @@ from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
                                                      profile_rounds_plain,
                                                      ragged_count)
 from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
-from kat_tpu_torch.core.kmers import SENTINEL
+from kat_tpu_torch.core.kmers import SENTINEL, extract_keys_plain
+from kat_tpu_torch.ops.extract_kernel import extract_keys
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
 from kat_tpu_torch.ops.merge_kernel import (
     merge_sorted, merge_sorted_payload, merge_sorted_payload_plain,
@@ -213,12 +214,51 @@ def test_counter_matches_cpu_run(dev):
     for device in (dev, torch.device("cpu")):
         sc = counting.CodeStreamingCounter(
             27, initial_capacity=1 << 10, flush_batches=2, device=device)
+        before = extract_keys.launches
         for b in batches:
             sc.add_codes(b)
+        # one extraction kernel a batch on the card, none on the CPU
+        assert extract_keys.launches - before == (
+            len(batches) if device.type == "cuda" else 0)
         tables.append(counting.table_to_numpy(sc.finish()))
         assert sc.capacity >= 1 << 16
     np.testing.assert_array_equal(tables[0][0], tables[1][0])
     np.testing.assert_array_equal(tables[0][1], tables[1][1])
+
+
+def _extract_codes(rng, rows, L):
+    """Codes with ~3% invalid codes (4..255), a run of separators in every
+    fifth row, padding at the end of every seventh, a row all padding."""
+    codes = rng.integers(0, 4, (rows, L), dtype=np.uint8)
+    bad = rng.random((rows, L)) < 0.03
+    codes[bad] = rng.integers(4, 256, int(bad.sum()), dtype=np.uint8)
+    codes[::5, L // 3:L // 3 + L // 4 + 1] = 4
+    codes[1::7, -(L // 5 + 1):] = 5
+    codes[rows // 2] = 5
+    return codes
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("k", range(1, 32))
+def test_extract_keys_matches_plain(dev, k, canonical):
+    """The extraction kernel against its plain version, exactly, at every
+    narrow k: rows of k, k + 1, 101 and around 1024 codes, 1, 3 and 4096
+    rows; a batch at an odd byte offset, a strided view, leading dims."""
+    rng = np.random.default_rng(100 * k + canonical)
+    for L in (k, k + 1, 101, 1023, 1024, 1025):
+        for rows in (1, 3, 4096):
+            codes = torch.from_numpy(_extract_codes(rng, rows, L)).to(dev)
+            before = extract_keys.launches
+            got = extract_keys(codes, k, canonical)
+            assert extract_keys.launches == before + 1
+            assert torch.equal(got, extract_keys_plain(codes, k, canonical)), \
+                (L, rows)
+    big = torch.from_numpy(_extract_codes(rng, 64, 300)).to(dev)
+    for codes in (big.reshape(-1)[5:5 + 63 * 300].view(63, 300),  # unaligned
+                  big[::2, 3:250],  # not contiguous
+                  big.view(4, 16, 300)):
+        assert torch.equal(extract_keys(codes, k, canonical),
+                           extract_keys_plain(codes, k, canonical))
 
 
 @pytest.mark.parametrize("name", ["random", "all_equal", "all_sentinel",

@@ -10,7 +10,9 @@ import torch
 
 import oracle
 from kat_tpu.core import kmers as jk
+from kat_tpu_torch.core import counting
 from kat_tpu_torch.core import kmers as tk
+from kat_tpu_torch.ops.extract_kernel import extract_keys
 
 torch.set_num_threads(1)  # pytest-xdist workers share the CPUs
 
@@ -42,6 +44,67 @@ def test_extract_kmers_matches_jax_and_oracle(k, canonical):
         got = keys[r][valid[r]].tolist()
         assert got == oracle.kmers_of(_seq(codes[r]), k, canonical)
     assert (keys[~valid] == tk.SENTINEL).all()
+
+
+def _extract_case(name, k, seed):
+    """Codes for the keys-only entry: ~3% invalid codes anywhere in
+    4..255; `name` picks the shape or the fill."""
+    rng = np.random.default_rng(seed)
+    shape = {"L=k": (5, k), "L=k+1": (5, k + 1), "batch_dims": (2, 3, k + 9),
+             "separators": (4, k + 6), "bytes": (3, 2 * k + 5)}[name]
+    codes = rng.integers(0, 4, shape).astype(np.uint8)
+    bad = rng.random(shape) < 0.03
+    codes[bad] = rng.integers(4, 256, int(bad.sum()))
+    if name == "separators":  # rows of the reader's separator and padding
+        codes[0], codes[1] = 4, 5
+        codes[2, ::3], codes[2, 1::7] = 4, 5
+    if name == "bytes":
+        codes[0] = rng.integers(0, 256, shape[1])
+    return codes
+
+
+@pytest.mark.parametrize("name", ["L=k", "L=k+1", "batch_dims", "separators",
+                                  "bytes"])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 13, 27, 31])
+def test_extract_keys_matches_extract_kmers_and_jax(name, k, canonical):
+    codes = _extract_case(name, k, 1000 * k + len(name))
+    t = torch.from_numpy(codes)
+    keys = extract_keys(t, k, canonical)
+    kk, valid = tk.extract_kmers(t, k, canonical)
+    assert keys.shape == codes.shape[:-1] + (codes.shape[-1] - k + 1,)
+    assert torch.equal(keys, kk)
+    assert torch.equal(valid, keys != tk.SENTINEL)
+    flat = codes.reshape(-1, codes.shape[-1])
+    hi, lo, jvalid = jk.extract_kmers(jnp.asarray(flat), k, canonical)
+    np.testing.assert_array_equal(keys.reshape(flat.shape[0], -1).numpy(),
+                                  tk.from_planes(np.asarray(hi),
+                                                 np.asarray(lo)))
+    np.testing.assert_array_equal(valid.reshape(flat.shape[0], -1).numpy(),
+                                  np.asarray(jvalid))
+
+
+@pytest.mark.parametrize("k,L", [(1, 0), (2, 1), (27, 26), (31, 3)])
+def test_extract_refuses_rows_shorter_than_k(k, L):
+    """Raised before any work: on the meta device, any work would raise
+    something else."""
+    codes = torch.zeros((3, L), dtype=torch.uint8, device="meta")
+    for fn in (extract_keys, tk.extract_kmers, tk.extract_keys_plain):
+        with pytest.raises(ValueError, match="shorter than k"):
+            fn(codes, k)
+
+
+def test_extract_keys_takes_the_plain_version_on_the_cpu():
+    codes = torch.from_numpy(_extract_case("bytes", 27, 5))
+    before = extract_keys.launches
+    keys = extract_keys(codes, 27)
+    assert torch.equal(keys, tk.extract_keys_plain(codes, 27))
+    tk.extract_kmers(codes, 27, canonical=False)
+    sc = counting.CodeStreamingCounter(27, initial_capacity=1 << 10,
+                                       device=torch.device("cpu"))
+    sc.add_codes(codes)
+    sc.finish()
+    assert extract_keys.launches == before == 0
 
 
 def _real_keys(k, n=500, seed=0):
