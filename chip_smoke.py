@@ -578,8 +578,83 @@ def check_kernels(dev, gen):
     counted.append((results[-1],
                     lambda: reduce_kernel.reduce_by_key(mk, mw, cap)))
     check_flush_shapes(dev, gen, shapes)
+    fused, fused_counted = check_merge_reduce(dev, gen, shapes)
     lookup, lookup_counted = check_lookup_kernels(dev, gen, t_keys, t_counts)
-    return results + lookup, counted + lookup_counted
+    return (results + lookup, counted + fused_counted + lookup_counted,
+            fused)
+
+
+def check_merge_reduce(dev, gen, shapes):
+    """The fused K2 + K3 (csrc/reduce.cu, merge_reduce_kernel) against its
+    plain version (K2's and K3's in a row), timed beside its bound (the
+    table and the fresh keys read once, every output slot written once)
+    and beside K2 then K3 on the same inputs (split_ms): at K2's row's
+    shapes (the 2^24-slot table's real prefix + 2^26 fresh keys, into 2^24
+    slots and, overflowing, 2^20) and at hist's last flushes (2^28 slots).
+    Returns the entries and the first one's (entry, call) pair."""
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core.kmers import SENTINEL
+    from kat_tpu_torch.ops import merge_kernel, reduce_kernel
+    from kat_tpu_torch.ops import merge_reduce_kernel as mrk
+
+    def entry(name, what, a, ac, b, cap):
+        errs = []
+        for out_size in (cap, cap >> 4):
+            got = mrk.merge_reduce(a, ac, b, out_size)
+            want = mrk.merge_reduce_plain(a, ac, b, out_size)
+            if int(got[2]) != int(want[2]):
+                raise AssertionError(f"merge_reduce n_unique {int(got[2])} "
+                                     f"!= {int(want[2])} ({what})")
+            errs.append(_same(got[:2], want[:2]))
+            runs = int(got[2])
+            del got, want
+        na, nb = a.numel(), b.numel()
+        e = _report(dict(
+            name=name, route="cuda", source="kat_tpu_torch/csrc/reduce.cu",
+            replaces="kat_tpu/ops/merge_kernel.py:73 + "
+                     "kat_tpu/ops/reduce_kernel.py:147 (K2 then K3)",
+            max_abs_err=max(errs), table_real=na, fresh=nb, runs=runs,
+            out_size=cap,
+            ms=_timed_ms(lambda: mrk.merge_reduce(a, ac, b, cap), 5),
+            split_ms=_timed_ms(lambda: reduce_kernel.reduce_by_key(
+                *merge_kernel.merge_sorted(a, ac, b), cap), 5),
+            plain_ms=_timed_ms(lambda: mrk.merge_reduce_plain(a, ac, b, cap),
+                               2),
+            **_bound(12 * na + 8 * nb + 12 * cap + 8, 3 * (na + nb)),
+            # no one call: as K2's and K3's rows
+            library_ms=None, tile=mrk.tile_len()),
+            f"K2 + K3 fused, {what} -> {cap} slots")
+        print(f"  K2 then K3 on the same inputs {e['split_ms']:.3f} ms: the "
+              f"fused kernel takes {e['ms'] / e['split_ms']:.1%} of it")
+        return e
+
+    t_keys, t_counts, fresh = shapes[:3]
+    n = int((t_keys != SENTINEL).sum())
+    a, ac = t_keys[:n], t_counts[:n]
+    entries = [entry("merge_reduce", "2^24 table + 2^26 fresh", a, ac, fresh,
+                     1 << 24)]
+    cap, n_real, n_fresh, _sent = workloads.HIST_FLUSH
+    hist = workloads.table_and_fresh(*workloads.HIST_FLUSH, dev, gen)
+    entries.append(entry(
+        "merge_reduce[hist]", f"hist's last flush: 2^28 table ({n_real} "
+        f"real) + {n_fresh} fresh", *hist, cap))
+    del hist
+    for name in workloads.MERGE_REDUCE_STRAIN:
+        sa, sac, sb, out_size = workloads.merge_reduce_strain(
+            name, mrk.tile_len(), dev, gen)
+        got = mrk.merge_reduce(sa, sac, sb, out_size)
+        want = mrk.merge_reduce_plain(sa, sac, sb, out_size)
+        if int(got[2]) != int(want[2]):
+            raise AssertionError(f"merge_reduce n_unique {int(got[2])} != "
+                                 f"{int(want[2])} ({name})")
+        _same(got[:2], want[:2])
+    _repeat_equal("merge_reduce", lambda: mrk.merge_reduce(a, ac, fresh,
+                                                           1 << 24))
+    print("K2 + K3 fused: exact on " + ", ".join(
+        workloads.MERGE_REDUCE_STRAIN) + f" (tile {mrk.tile_len()}); five "
+        "runs at the path's shapes agree")
+    return entries, [(entries[0],
+                      lambda: mrk.merge_reduce(a, ac, fresh, 1 << 24))]
 
 
 def count_inside(counted) -> None:
@@ -1513,7 +1588,8 @@ def main_path(dev):
     from kat_tpu_torch.core import counting, stats
     from kat_tpu_torch.core.kmers import SENTINEL, extract_keys_plain
     from kat_tpu_torch.ops import (binned_kernel, extract_kernel,
-                                   merge_kernel, reduce_kernel, sort_kernel)
+                                   merge_kernel, merge_reduce_kernel,
+                                   reduce_kernel, sort_kernel)
 
     k, rows, length, n_batches = (workloads.MAIN_K, workloads.MAIN_ROWS,
                                   workloads.MAIN_LENGTH,
@@ -1531,7 +1607,8 @@ def main_path(dev):
     kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
                reduce_kernel.reduce_by_key, binned_kernel.binned_sums)
     extract = extract_kernel.extract_keys
-    for fn in (*kernels, extract):
+    fused = merge_reduce_kernel.merge_reduce
+    for fn in (*kernels, extract, fused):
         fn.launches = 0
     t0 = time.perf_counter()
     sc = workloads.main_path_counter(dev)
@@ -1542,16 +1619,20 @@ def main_path(dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
-    n_extract = extract.launches
+    n_extract, n_fused = extract.launches, fused.launches
     peak = torch.cuda.max_memory_allocated(dev)
 
     n_windows = n_batches * rows * (length - k + 1)
     print(f"main path: {n_windows} windows k={k} in {dt:.4f} s = "
           f"{n_windows / dt:.1f} k-mers/s; table {table.n_unique} distinct, "
           f"capacity {sc.capacity}; launches sort/merge/reduce/binned "
-          f"{launches}, extraction {n_extract}; peak memory {peak} B")
-    if min(launches) < 1:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+          f"{launches}, K2 + K3 fused {n_fused}, extraction {n_extract}; "
+          f"peak memory {peak} B")
+    # every merge of the path is far below MAX_STREAM: all fused
+    if min(launches[0], launches[3], n_fused) < 1 or launches[1:3] != [0, 0]:
+        raise AssertionError(f"launches sort/merge/reduce/binned {launches},"
+                             f" fused {n_fused}: the flush's merges must all "
+                             "take the fused kernel")
     if n_extract != n_batches:
         raise AssertionError(f"{n_extract} extraction launches for "
                              f"{n_batches} batches")
@@ -1575,7 +1656,7 @@ def main_path(dev):
     if not torch.equal(hist, ref_hist):
         raise AssertionError("histogram differs from the reference")
     print("main path: table and histogram equal the reference")
-    return launches, n_extract, table, genome, ref_keys, ref_counts
+    return launches, n_extract, n_fused, table, genome, ref_keys, ref_counts
 
 
 def _lookup_codes(dev, genome, k: int, rows: int, row_w: int, seed: int):
@@ -2698,7 +2779,8 @@ def cli_run(dev, smi: str, n_reads: int = 200_000,
     import io
 
     from kat_tpu_torch import cli
-    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.ops import (merge_kernel, merge_reduce_kernel,
+                                   reduce_kernel, sort_kernel)
 
     from kat_tpu_torch.io import native
 
@@ -2759,7 +2841,8 @@ def cli_run(dev, smi: str, n_reads: int = 200_000,
         kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
                    reduce_kernel.reduce_by_key, sort_kernel.sort_pairs,
                    merge_kernel.merge_sorted_payload,
-                   reduce_kernel.compact_flagged)
+                   reduce_kernel.compact_flagged,
+                   merge_reduce_kernel.merge_reduce)
         for fn in kernels:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2769,12 +2852,15 @@ def cli_run(dev, smi: str, n_reads: int = 200_000,
         launches = [fn.launches for fn in kernels]
         if rc != 0 or "Running KAT in SECT mode" not in banner.getvalue():
             raise AssertionError(f"sect returned {rc}:\n{banner.getvalue()}")
-        # a narrow table's lookups take the search (the policy)
+        # a narrow table's lookups take the search (the policy); the reads'
+        # flushes take the fused K2 + K3
         n_join, w_join, w_all = _join_share(contigs, k, uniq.size, dev)
-        if min(launches[:3]) < 1 or launches[3:] != [n_join] * 3:
+        if min(launches[0], launches[6]) < 1 or launches[1] != 0 \
+                or launches[3:6] != [n_join] * 3:
             raise AssertionError(
                 f"sect launched sort/merge/reduce/sort_pairs/merge_payload/"
-                f"compact {launches}; {n_join} buckets take the join")
+                f"compact/merge_reduce {launches}; {n_join} buckets take the "
+                "join")
         cvg, stats = [], {}
         for name, seq in contigs:
             cvg.append(f">{name}\n")
@@ -2808,8 +2894,9 @@ def cli_run(dev, smi: str, n_reads: int = 200_000,
           f"{max(s.size for _, s in contigs)}) against the reads equals "
           f"numpy's counts, medians and means, in {dt:.4f} s = "
           f"{n_bases / dt:.1f} bases/s (counting included); launches "
-          f"sort/merge/reduce/sort_pairs/merge_payload/compact {launches}; "
-          f"{n_join} buckets with {w_join} of {w_all} windows took the join")
+          f"sort/merge/reduce/sort_pairs/merge_payload/compact/merge_reduce "
+          f"{launches}; {n_join} buckets with {w_join} of {w_all} windows "
+          "took the join")
     return launches, jf_launches
 
 
@@ -3149,7 +3236,8 @@ def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
     canonical k-mers and counts): `count -m k -C` of all reads in a process
     of its own (the entry point; file to .jf), then in this process
     `count` of each half of the reads, between a reset and a reading of
-    K1/K2/K3's launch counts, `merge` of the halves (the count of all
+    K1/K2/K3's and the fused K2 + K3's launch counts, `merge` of the
+    halves (the count of all
     reads), `histo` (the histogram of _numpy_hist_text), `stats`, `query`
     of k-mers present (either strand) and absent, and `dump -c -L
     JF_DUMP_LOW` of the merged table.  Returns the halves' launches."""
@@ -3159,7 +3247,8 @@ def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
     from kat_tpu_torch import jf_cli
     from kat_tpu_torch.core.kmers import canonical_np, rc_int, unpack_string
     from kat_tpu_torch.io import jellyfish
-    from kat_tpu_torch.ops import merge_kernel, reduce_kernel, sort_kernel
+    from kat_tpu_torch.ops import (merge_kernel, merge_reduce_kernel,
+                                   reduce_kernel, sort_kernel)
 
     def run(args):
         with contextlib.redirect_stdout(io.StringIO()) as out:
@@ -3189,7 +3278,7 @@ def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
     _write_fastq(fqs[1], seqs[half:])
     jfs = [os.path.join(tmp, f"half{i}.jf") for i in range(2)]
     kernels = (sort_kernel.sort_keys, merge_kernel.merge_sorted,
-               reduce_kernel.reduce_by_key)
+               reduce_kernel.reduce_by_key, merge_reduce_kernel.merge_reduce)
     for fn in kernels:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3197,9 +3286,9 @@ def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
         run(["count", "-m", str(k), "-C", "-o", dst, src])
     dt = time.perf_counter() - t0
     launches = [fn.launches for fn in kernels]
-    if min(launches) < 1:
+    if min(launches[0], launches[3]) < 1 or launches[1] != 0:
         raise AssertionError(f"jf_cli count of two halves launched "
-                             f"K1/K2/K3 {launches}")
+                             f"K1/K2/K3/K2 + K3 fused {launches}")
     merged = os.path.join(tmp, "merged.jf")
     run(["merge", "-o", merged, *jfs])
     same_table(merged, "merge of the halves")
@@ -3235,7 +3324,8 @@ def jellyfish_cli(tmp: str, fq: str, seqs: np.ndarray, uniq: np.ndarray,
     if run(["dump", "-c", "-L", str(JF_DUMP_LOW), merged]) != want:
         raise AssertionError("jf_cli dump -c -L differs from numpy's")
     print(f"jf CLI: count of each half in this process in {dt:.4f} s, "
-          f"launches K1/K2/K3 {launches}; merge of the halves equals the "
+          f"launches K1/K2/K3/K2 + K3 fused {launches}; merge of the "
+          f"halves equals the "
           f"count of all; histo, stats, query of {len(mers)} k-mers "
           f"({int((hits > 0).sum())} present) and dump -c -L {JF_DUMP_LOW} "
           f"({int(high.sum())} k-mers) equal numpy's ({smi})")
@@ -4272,7 +4362,7 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s")
 
     extract, extract_counted = check_extract_kernel(dev, gen)
-    kernels, counted = check_kernels(dev, gen)
+    kernels, counted, fused = check_kernels(dev, gen)
     counted.append(extract_counted)
     wide, wide_counted = check_wide_kernels(dev, gen)
     binned, binned_counted = check_binned_kernels(dev, gen)
@@ -4288,8 +4378,8 @@ def main() -> int:
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
     del k6_counted, k6_group_call, late
     lap("the kernel checks")
-    launches, extract["launches"], table, genome, ref_keys, ref_counts = \
-        main_path(dev)
+    (launches, extract["launches"], fused[0]["launches"], table, genome,
+     ref_keys, ref_counts) = main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts
     launches += lookup_path(dev, table, genome, ref_keys, ref_counts)
     binned[1]["launches"] = gcp_path(dev, table, ref_keys, ref_counts)
@@ -4344,9 +4434,9 @@ def main() -> int:
     profile_wide(41)
     lap("the k=41 profile")
     sect_launches, jf_launches = cli_run(dev, smi)
-    for entry, n in zip(kernels, sect_launches, strict=True):
+    for entry, n in zip([*kernels, fused[0]], sect_launches, strict=True):
         entry["launches_sect"] = n
-    for entry, n in zip(kernels[:3], jf_launches, strict=True):
+    for entry, n in zip([*kernels[:3], fused[0]], jf_launches, strict=True):
         entry["launches_jf_count"] = n
     wide_sect = wide_cli_run(dev, smi)
     for entry, n in zip(wide, wide_sect[:3], strict=True):
@@ -4402,7 +4492,7 @@ def main() -> int:
     for i, n in ((2, b_launches[2]), (4, b_launches[3]), (3, b_launches[4])):
         kernels[i]["launches_bucketed"] = n
     kernels += [k5, k5r, k6, check_rounds_kernel(dev), *binned, *packed,
-                *dual, *wjoin, *k6s, extract]
+                *dual, *wjoin, *k6s, extract, *fused]
     lap("K5, K6 and K7")
     sharded.update(two_process_path(dev, smi))
     lap("the two-process phase")

@@ -34,6 +34,7 @@ KERNEL_GROUPS = (("K1 sort", tuple(_NS + p for p in (
                      "radix_", "split_", "words_pass", "sort_units",
                      "segment_histogram"))),
                  ("K6 run merge", (_NS + "kway_", _NS + "merge_runs")),
+                 ("K2 + K3 fused", "(anonymous namespace)::merge_reduce_"),
                  ("K2 merge", "(anonymous namespace)::merge_"),
                  ("K3 reduce", "(anonymous namespace)::reduce_"),
                  ("binned sums", "(anonymous namespace)::binned_"))

@@ -1,8 +1,9 @@
-"""K2 (csrc/merge.cu) and K3 (csrc/reduce.cu) over length, run length and
-tile size.
+"""K2 (csrc/merge.cu), K3 and the fused K2 + K3 (csrc/reduce.cu) over
+length, run length and tile size.
 
     python -m kat_tpu_torch.benchmarks.sweep_flush_kernels [out.json]
-    python -m kat_tpu_torch.benchmarks.sweep_flush_kernels --tiles [out.json]
+    python -m kat_tpu_torch.benchmarks.sweep_flush_kernels --tiles [--fused]
+        [out.json]
 
 Without `--tiles`: for n = 2^16 .. 2^27 and four key streams (mean run
 length 1, 5 and 1000, and one run of equal keys; 10% SENTINEL at the tail
@@ -17,11 +18,15 @@ bound (every input byte read once and every output byte written once at
 at the main path's shapes under torch.profiler, by kernel.
 
 With `--tiles`: rebuilds the kernels with other threads x items per thread
-(the KAT_RD_* macros of reduce.cu, KAT_MG_* of merge.cu, one library per
-variant) and times K3 at 83.9M -> 2^24, K2 at
-2^24 + 2^26 and K2 with one payload plane at 2^24 + 2^23, the main path's
-and the join's shapes, the compiled-in values first and last; prints each
-variant's registers and spills as ptxas reports them.
+(the KAT_RD_* macros of reduce.cu, KAT_MG_* of merge.cu, KAT_MR_* of the
+fused kernel in reduce.cu, one library per variant) and times K3 at 83.9M
+-> 2^24, K2 at 2^24 + 2^26, K2 with one payload plane at 2^24 + 2^23 (the
+main path's and the join's shapes), and the fused kernel at 2^24 + 2^26
+and at chr14.hist's last flushes (a 2^28-slot table), the compiled-in
+values first and last; prints each variant's registers and spills as
+ptxas reports them; with `--fused`, the fused kernel's variants alone
+(KAT_MR_THREADS, KAT_MR_ITEMS and KAT_MR_BLOCKS, the blocks an SM its
+registers are bounded for).
 
 Writes the rows as JSON when a path is given.  Needs an NVIDIA card; the
 first line names it with its power limit.
@@ -37,13 +42,18 @@ import sys
 import torch
 
 from .profile_join import _timed_ms
-from .workloads import HBM_BYTES_PER_S, device_event_groups, flush_shapes
+from .workloads import (HBM_BYTES_PER_S, HIST_FLUSH, device_event_groups,
+                        flush_shapes, table_and_fresh)
 
 LENGTHS = tuple(1 << s for s in (16, 18, 20, 22, 24, 26, 27))
 RUN_LENGTHS = (1, 5, 1000, 0)  # 0: every key equal
 # threads x items per thread; reduce.cu has (256, 16), merge.cu (384, 8)
 K3_TILES = ((128, 16), (128, 24), (256, 8), (256, 24), (512, 8), (512, 16))
 K2_TILES = ((256, 8), (256, 16), (256, 24), (512, 8), (768, 8))
+# the fused kernel's, with the blocks an SM its registers are bounded for
+# (1: no bound); reduce.cu has (256, 16, 3)
+MR_TILES = ((256, 12, 3), (256, 12, 4), (256, 8, 4), (256, 16, 1),
+            (256, 16, 2), (128, 24, 1), (384, 12, 2), (512, 8, 2))
 
 
 def stream(n: int, run: int, dev, gen) -> torch.Tensor:
@@ -125,11 +135,14 @@ def sweep(dev, gen) -> list[dict]:
     return rows
 
 
-def _time_main(shapes) -> dict:
-    from ..ops import merge_kernel, reduce_kernel
+def _time_main(shapes, hist) -> dict:
+    from ..core.kmers import SENTINEL
+    from ..ops import merge_kernel, merge_reduce_kernel, reduce_kernel
 
     t_keys, t_counts, fresh, mk, mw, q = shapes
     cap = t_keys.numel()
+    n = int((t_keys != SENTINEL).sum())
+    fused = [(t_keys[:n], t_counts[:n], fresh, cap), hist]
     got = reduce_kernel.reduce_by_key(mk, mw, cap)
     want = reduce_kernel.reduce_by_key_plain(mk, mw, cap)
     ok = all(torch.equal(g, x) for g, x in zip(got, want))
@@ -141,11 +154,20 @@ def _time_main(shapes) -> dict:
     want = merge_kernel.merge_sorted_payload_plain(t_keys, ap, q, bp)
     ok = ok and torch.equal(got[0], want[0]) and torch.equal(got[1][0],
                                                              want[1][0])
+    for args in fused:
+        got = merge_reduce_kernel.merge_reduce(*args)
+        want = reduce_kernel.reduce_by_key(
+            *merge_kernel.merge_sorted(*args[:3]), args[3])
+        ok = ok and all(torch.equal(g, w) for g, w in zip(got, want))
     del got, want
     if not ok:
         raise AssertionError("a kernel differs from its plain version at "
                              "the main path's shapes")
     return dict(
+        fused_ms=_timed_ms(lambda: merge_reduce_kernel.merge_reduce(
+            *fused[0]), 5),
+        fused_hist_ms=_timed_ms(lambda: merge_reduce_kernel.merge_reduce(
+            *fused[1]), 5),
         k3_ms=_timed_ms(lambda: reduce_kernel.reduce_by_key(mk, mw, cap), 5),
         k2_ms=_timed_ms(lambda: merge_kernel.merge_sorted(t_keys, t_counts,
                                                           fresh), 5),
@@ -178,12 +200,12 @@ def profile(shapes) -> dict:
 
 
 def _ptxas_lines(log: str) -> list[str]:
-    """'kernel: N registers, S bytes spill stores, L bytes spill loads' for
-    reduce_tiles and merge_tiles out of nvcc's -Xptxas -v output."""
+    """'kernel: N registers, S bytes spill stores' for reduce_tiles,
+    merge_reduce_tiles and merge_tiles out of nvcc's -Xptxas -v output."""
     lines, out = log.splitlines(), []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*?(reduce_tiles|"
-                      r"merge_tilesILi(\d)ELb(\d))", line)
+        m = re.search(r"Compiling entry function '\S*?(merge_reduce_tiles|"
+                      r"reduce_tiles|merge_tilesILi(\d)ELb(\d))", line)
         if m:
             used = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", used)
@@ -195,19 +217,28 @@ def _ptxas_lines(log: str) -> list[str]:
     return out
 
 
-def sweep_tiles(dev, gen) -> list[dict]:
+def sweep_tiles(dev, gen, only_fused: bool = False) -> list[dict]:
     """Each variant's library in turn behind the wrappers (the module's
-    LIBRARY is swapped for the measurement and put back)."""
-    from ..ops import _cuda, merge_kernel, reduce_kernel
+    LIBRARY is swapped for the measurement and put back); `only_fused`:
+    the fused kernel's variants alone."""
+    from ..ops import _cuda, merge_kernel, merge_reduce_kernel, reduce_kernel
 
     shapes = flush_shapes(dev, gen)
+    hist = (*table_and_fresh(*HIST_FLUSH, dev, gen), HIST_FLUSH[0])
     variants = [("as compiled in", None)]
-    variants += [(f"K3 {t} x {i}", (f"-DKAT_RD_THREADS={t}",
-                                    f"-DKAT_RD_ITEMS={i}"))
-                 for t, i in K3_TILES]
-    variants += [(f"K2 {t} x {i}", (f"-DKAT_MG_THREADS={t}",
-                                    f"-DKAT_MG_ITEMS={i}"))
-                 for t, i in K2_TILES]
+    fused = [(f"fused {t} x {i}, {b} blocks", (
+        f"-DKAT_MR_THREADS={t}", f"-DKAT_MR_ITEMS={i}",
+        f"-DKAT_MR_BLOCKS={b}")) for t, i, b in MR_TILES]
+    if only_fused:
+        variants += fused
+    else:
+        variants += [(f"K3 {t} x {i}", (f"-DKAT_RD_THREADS={t}",
+                                        f"-DKAT_RD_ITEMS={i}"))
+                     for t, i in K3_TILES]
+        variants += [(f"K2 {t} x {i}", (f"-DKAT_MG_THREADS={t}",
+                                        f"-DKAT_MG_ITEMS={i}"))
+                     for t, i in K2_TILES]
+        variants += fused
     variants.append(variants[0])
     built_in = _cuda.LIBRARY
     rows = []
@@ -217,12 +248,16 @@ def sweep_tiles(dev, gen) -> list[dict]:
                              else _cuda.KernelLibrary(flags))
             _cuda.LIBRARY.get()
             row = dict(variant=name, k3_tile=reduce_kernel.tile_len(),
-                       k2_tile=merge_kernel.tile_len(), **_time_main(shapes),
+                       k2_tile=merge_kernel.tile_len(),
+                       fused_tile=merge_reduce_kernel.tile_len(),
+                       **_time_main(shapes, hist),
                        ptxas=_ptxas_lines(_cuda.LIBRARY.build_log))
             rows.append(row)
             print(f"tiles {name}: K3 tile {row['k3_tile']} {row['k3_ms']:.4f}"
                   f" ms; K2 tile {row['k2_tile']} {row['k2_ms']:.4f} ms, "
-                  f"payload {row['k2_payload_ms']:.4f} ms; "
+                  f"payload {row['k2_payload_ms']:.4f} ms; fused tile "
+                  f"{row['fused_tile']} {row['fused_ms']:.4f} ms, at "
+                  f"hist's last flush {row['fused_hist_ms']:.4f} ms; "
                   + "; ".join(row["ptxas"]))
     finally:
         _cuda.LIBRARY = built_in
@@ -241,9 +276,10 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    args = [a for a in argv[1:] if a != "--tiles"]
+    args = [a for a in argv[1:] if a not in ("--tiles", "--fused")]
     if "--tiles" in argv:
-        result = dict(card=card, tiles=sweep_tiles(dev, gen))
+        result = dict(card=card, tiles=sweep_tiles(dev, gen,
+                                                   "--fused" in argv))
     else:
         result = dict(card=card, rows=sweep(dev, gen),
                       profile=profile(flush_shapes(dev, gen)))

@@ -1,8 +1,9 @@
 """What the measurement scripts, chip_smoke.py and the card tests share:
 the card's published rates, the main path's input (and comp's second read
 set and assembly of its genome), the counting flush's shapes (narrow and
-wide keys), the binned sums' and the dual probe's shapes, the K2 and K3
-inputs that strain a single pass, the W-word kernels' strain inputs, and a
+wide keys, and a table and fresh keys of any size), the binned sums' and
+the dual probe's shapes, the K2, K3 and fused K2 + K3 inputs that strain a
+single pass, the W-word kernels' strain inputs, and a
 count of what one call runs on the card."""
 
 from __future__ import annotations
@@ -333,6 +334,111 @@ def merge_strain(name: str, tile: int, dev, gen):
     counts = torch.randint(1, 1000, (a.numel(),), dtype=torch.int32,
                            device=dev, generator=gen)
     return a, counts, b
+
+
+MERGE_REDUCE_STRAIN = ("run_across_tiles", "runs_at_tile_edges",
+                       "split_not_pow2", "sentinel_tail",
+                       "table_sentinel_tail", "fresh_all_sentinel",
+                       "all_sentinel", "overflow", "out_size_0", "sum_wraps",
+                       "na_0", "nb_0", "both_0")
+
+
+def merge_reduce_strain(name: str, tile: int, dev, gen):
+    """(table keys, int32 table counts, fresh keys, out_size) of a fused
+    K2 + K3 input where its tiles can go wrong: one run across ~37 tiles
+    from both sides, runs of lengths around the tile, sides whose split is
+    no power of two, a fresh SENTINEL tail (2^22 outputs), a table with a
+    SENTINEL tail of its own, fresh keys all SENTINEL, no real key on
+    either side, more runs than slots, no slots, a sum past 2^31, empty
+    sides."""
+    def table_of(keys):
+        a = torch.unique(keys[keys != SENTINEL])
+        return a, torch.randint(1, 1000, (a.numel(),), dtype=torch.int32,
+                                device=dev, generator=gen)
+
+    if name == "run_across_tiles":
+        a, ac = table_of(_sorted_keys(3 * tile, 40, 0.0, dev, gen))
+        x = a[a.numel() // 2]
+        b = torch.sort(torch.cat([
+            torch.full((37 * tile + 11,), int(x), dtype=torch.int64,
+                       device=dev),
+            _sorted_keys(2 * tile, 40, 0.1, dev, gen)])).values
+        return a, ac, b, a.numel() + b.numel()
+    if name == "runs_at_tile_edges":
+        lens = torch.tensor([tile - 1, tile, tile + 1, 1, 2, tile // 2, 3],
+                            device=dev).repeat(4)
+        first = torch.unique(_sorted_keys(2 * lens.numel(), 40, 0.0, dev,
+                                          gen))[:lens.numel()]
+        b = first.repeat_interleave(lens)
+        a, ac = table_of(first[::3])
+        return a, ac, b, first.numel()
+    if name == "split_not_pow2":
+        a, ac = table_of(_sorted_keys(5 * tile + 13, 20, 0.0, dev, gen))
+        b = _sorted_keys(7 * tile + 3, 20, 0.1, dev, gen)
+        return a, ac, b, a.numel() + b.numel()
+    if name in ("sentinel_tail", "overflow", "out_size_0"):
+        n = 1 << 22
+        a, ac = table_of(_sorted_keys(n // 3, 30, 0.0, dev, gen))
+        b = _sorted_keys(n - a.numel(), 30, 0.26, dev, gen)
+        out = {"sentinel_tail": n, "overflow": n // 8, "out_size_0": 0}
+        return a, ac, b, out[name]
+    if name == "table_sentinel_tail":
+        a, ac = table_of(_sorted_keys(2 * tile, 30, 0.0, dev, gen))
+        a = torch.cat([a, torch.full((tile + 7,), SENTINEL,
+                                     dtype=torch.int64, device=dev)])
+        ac = torch.cat([ac, torch.full((tile + 7,), 5, dtype=torch.int32,
+                                       device=dev)])
+        b = _sorted_keys(3 * tile, 30, 0.2, dev, gen)
+        return a, ac, b, a.numel() + b.numel()
+    if name == "fresh_all_sentinel":
+        a, ac = table_of(_sorted_keys(2 * tile + 5, 40, 0.0, dev, gen))
+        b = torch.full((3 * tile + 5,), SENTINEL, dtype=torch.int64,
+                       device=dev)
+        return a, ac, b, a.numel() + 3
+    if name == "all_sentinel":  # no real key on either side: no run
+        a = torch.full((2 * tile + 3,), SENTINEL, dtype=torch.int64,
+                       device=dev)
+        b = torch.full((3 * tile,), SENTINEL, dtype=torch.int64, device=dev)
+        return a, torch.full_like(a, 5, dtype=torch.int32), b, 10
+    if name == "sum_wraps":
+        a, ac = table_of(_sorted_keys(tile, 12, 0.0, dev, gen))
+        ac[::2] = 2 ** 31 - 1 - ac[::2] % 2  # a fresh copy wraps them
+        b = _sorted_keys(5 * tile, 12, 0.05, dev, gen)
+        return a, ac, b, a.numel() + b.numel()
+    a, ac = table_of(_sorted_keys(3 * tile + 1, 40, 0.0, dev, gen))
+    b = _sorted_keys(4 * tile + 9, 40, 0.1, dev, gen)
+    if name in ("na_0", "both_0"):
+        a, ac = a[:0], ac[:0]
+    if name in ("nb_0", "both_0"):
+        b = b[:0]
+    return a, ac, b, a.numel() + b.numel() + 1
+
+
+# chr14.hist's last flushes (katbench): (slots, the table's real keys,
+# fresh keys of 16 batches, their SENTINEL share)
+HIST_FLUSH = (1 << 28, 230_000_000, 65_404_928, 0.26)
+
+
+def table_and_fresh(cap: int, n_real: int, n_fresh: int, sent: float,
+                    dev, gen):
+    """A flush's inputs at the benchmark's scale: a table of `n_real`
+    distinct sorted 54-bit keys (counts 1-99) and `n_fresh` sorted fresh
+    keys, a share `sent` of them SENTINEL, half of the rest keys of the
+    table and half new; `cap` is the table's capacity, the output's slots."""
+    keys = torch.randint(0, 1 << 54, (n_real + n_real // 16,),
+                         dtype=torch.int64, device=dev, generator=gen)
+    t_keys = torch.unique(keys)[:n_real]
+    del keys
+    t_counts = torch.randint(1, 100, (t_keys.numel(),), dtype=torch.int32,
+                             device=dev, generator=gen)
+    fresh = torch.randint(0, 1 << 54, (n_fresh,), dtype=torch.int64,
+                          device=dev, generator=gen)
+    old = torch.rand(n_fresh, device=dev, generator=gen) < 0.5
+    fresh[old] = t_keys[torch.randint(0, t_keys.numel(),
+                                      (int(old.sum()),), device=dev,
+                                      generator=gen)]
+    fresh[torch.rand(n_fresh, device=dev, generator=gen) < sent] = SENTINEL
+    return t_keys, t_counts, torch.sort(fresh).values
 
 
 # the wide main path: the same reads at k = 41 (W = 2), 193,462,272 windows

@@ -4,12 +4,13 @@ A count table is a *sorted* fixed-capacity array of unique int64 keys with
 int32 counts; slots past `n_unique` hold SENTINEL / 0.  The streaming
 counter keeps one such table resident on the device and folds in the fresh
 windows once per flush: sort the fresh keys (K1), merge them with the
-table (K2), reduce by key into `capacity` slots (K3).  When the reduce
-reports more runs than slots, capacity doubles and the merge + reduce
-replay from the pre-flush table, which is the observable behaviour of
-jellyfish's cooperative resize (hash_counter.hpp:204-244).  A merged
-stream too long for one K3 launch is reduced in pieces (`reduce_stream`),
-so a table may pass 2^30 distinct keys when its max capacity allows.
+table (K2), reduce by key into `capacity` slots (K3); on a card K2 and K3
+are one fused kernel (`fused_merge`).  When the reduce reports more runs
+than slots, capacity doubles and the merge + reduce replay from the
+pre-flush table, which is the observable behaviour of jellyfish's
+cooperative resize (hash_counter.hpp:204-244).  A merged stream too long
+for one launch is merged by K2 and reduced in pieces (`reduce_stream`), so
+a table may pass 2^30 distinct keys when its max capacity allows.
 
 `lookup` is the binary-search route of the bulk lookups (the join of
 ops/join.py is the other, core/tables.py picks).  Left behind from kat_tpu:
@@ -25,6 +26,7 @@ import torch
 
 from ..ops.extract_kernel import extract_keys
 from ..ops.merge_kernel import merge_sorted
+from ..ops.merge_reduce_kernel import merge_reduce
 from ..ops.reduce_kernel import reduce_by_key, reduce_by_key_words
 from ..ops.sort_kernel import sort_keys
 from ..utils.profiling import annotate, count
@@ -138,6 +140,18 @@ def _read_n_unique(nu) -> int:
         return int(nu)
 
 
+def fused_merge(table_device: torch.device, fresh_device: torch.device,
+                n: int) -> bool:
+    """Whether a flush's merge of n keys (the table's real entries and the
+    fresh keys) takes the fused K2 + K3 kernel (`merge_reduce`): both lie on
+    a CUDA device and n fits one launch's 30-bit run counts.  Otherwise K2
+    (`merge_sorted`), then K3 over the merged stream (`reduce_stream`, in
+    pieces past MAX_STREAM): on the CPU, where that is the fused op's plain
+    definition, and for streams of MAX_STREAM keys or more."""
+    return (table_device.type == "cuda" and fresh_device.type == "cuda"
+            and n < MAX_STREAM)
+
+
 def reduce_stream(keys: torch.Tensor, w: torch.Tensor, out_size: int):
     """K3 over a sorted stream of any length: 1-D int64 keys
     (`reduce_by_key`) or [W, n] words (`reduce_by_key_words`).
@@ -193,9 +207,10 @@ class StreamingCounter:
 
     Keys wait in a list on `device` until `flush_windows` of them are
     pending.  A flush concatenates them, sorts them (K1), merges them with
-    the resident table (K2) and reduces into `capacity` slots (K3).  When
-    the reduce reports more runs than slots, capacity doubles and the merge
-    and reduce replay from the pre-flush table.
+    the resident table (K2) and reduces into `capacity` slots (K3), K2 and
+    K3 in one fused kernel where `fused_merge` says so.  When the reduce
+    reports more runs than slots, capacity doubles and the merge and
+    reduce replay from the pre-flush table.
 
     key_bits: every real key is < 2^(key_bits-1) (2k+1 for k-mers).
     device: where the table lives and the kernels run.  The caller names
@@ -206,10 +221,12 @@ class StreamingCounter:
     device (kat_tpu defers that fetch by one flush to keep the TPU busy).
 
     Spans (utils/profiling.annotate): `kat.flush` around a flush,
-    `kat.flush.sort` (the pending keys joined, K1), `kat.flush.merge` (K2)
-    and `kat.flush.reduce` (K3, with its `kat.read.n_unique`) for each
-    merge, `kat.flush.replay` around each growth replay's.  Counters:
-    `flushes`, `replays`, `fresh_keys`, `merged_keys`, `replayed_keys`.
+    `kat.flush.sort` (the pending keys joined, K1), for each merge either
+    `kat.flush.merge_reduce` (the fused kernel, with its
+    `kat.read.n_unique`) or `kat.flush.merge` (K2) and `kat.flush.reduce`
+    (K3, with its `kat.read.n_unique`), `kat.flush.replay` around each
+    growth replay's.  Counters: `flushes`, `replays`, `fresh_keys`,
+    `merged_keys`, `replayed_keys`, `fused_merges`.
     """
 
     def __init__(self, initial_capacity: int = 1 << 20,
@@ -247,10 +264,16 @@ class StreamingCounter:
     def _merge_reduce(self, prev: CountTable, fresh: torch.Tensor,
                       cap: int) -> CountTable:
         # only the table's real entries join: its padding is all sentinel
-        n = prev.n_unique
-        count("merged_keys", n + fresh.numel())
+        keys, counts = prev.keys[:prev.n_unique], prev.counts[:prev.n_unique]
+        n = prev.n_unique + fresh.numel()
+        count("merged_keys", n)
+        if fused_merge(keys.device, fresh.device, n):
+            count("fused_merges")
+            with annotate("kat.flush.merge_reduce"):
+                k, c, nu = merge_reduce(keys, counts, fresh, cap)
+                return CountTable(k, c, _read_n_unique(nu))
         with annotate("kat.flush.merge"):
-            mkeys, mw = merge_sorted(prev.keys[:n], prev.counts[:n], fresh)
+            mkeys, mw = merge_sorted(keys, counts, fresh)
         with annotate("kat.flush.reduce"):
             return CountTable(*reduce_stream(mkeys, mw, cap))
 

@@ -19,8 +19,9 @@ from ..utils.profiling import annotate
 
 
 def unsigned(counts: torch.Tensor) -> torch.Tensor:
-    """int32 counts read as kat_tpu's uint32: int64 in [0, 2^32)."""
-    return counts.to(torch.int64) & 0xFFFFFFFF
+    """int32 counts read as kat_tpu's uint32: int64 in [0, 2^32), a new
+    tensor (masked in place: one int64 copy of the counts, not two)."""
+    return counts.to(torch.int64, copy=True).bitwise_and_(0xFFFFFFFF)
 
 
 def _masks(masks) -> torch.Tensor:
@@ -72,11 +73,15 @@ def hist_from_counts(counts: torch.Tensor, base: int, ceil: int, inc: int,
     bucket.  Returns int64 [nb_buckets] on counts' device.
     """
     with annotate("kat.bin"):
+        # the buckets in place over the one int64 copy: at a table's 2^28
+        # slots each int64 temporary is 2 GiB, and this runs beside the
+        # table and the job's staged reads
         c = unsigned(counts)
-        bucket = torch.where(c < base, 0,
-                             torch.where(c > ceil, nb_buckets - 1,
-                                         (c - base) // inc))
-        return binned_sum(nb_buckets, bucket, c > 0)
+        real, low, high = c > 0, c < base, c > ceil
+        bucket = c.sub_(base).floor_divide_(inc)
+        bucket.masked_fill_(low, 0).masked_fill_(high, nb_buckets - 1)
+        del low, high
+        return binned_sum(nb_buckets, bucket, real)
 
 
 def gcp_matrix(table, mer_len: int, cvg_bins: int,

@@ -295,6 +295,57 @@ __device__ __forceinline__ typename Status::Value look_back(
   }
 }
 
+// The same look-back walked by a whole block of NW warps: each warp reads
+// 32 status words a step, so that one round trip covers NW * 32 tiles (a
+// warp alone covers 32, and once the look-back sets the pace the tiles
+// finish at most 32 a round trip).  Each warp waits until its words are
+// published and combines those up to its nearest prefix; every thread then
+// combines the warps', nearest first, up to the first warp that met a
+// prefix.  Every thread of the block must call it and gets the result;
+// s_val and s_found are NW-long shared scratch.
+template <class Status, int NW>
+__device__ __forceinline__ typename Status::Value look_back_block(
+    const typename Status::Word* mine, int64_t tile,
+    typename Status::Value* s_val, int* s_found) {
+  using Word = typename Status::Word;
+  using Value = typename Status::Value;
+  const int lane = (int)(threadIdx.x & 31);
+  const int warp = (int)(threadIdx.x >> 5);
+  Value acc = Status::identity();
+  for (int64_t base = 0;; base += NW * 32) {
+    const int64_t d = base + warp * 32 + lane;  // reads tile - 1 - d
+    Word word = d < tile ? ld_relaxed(mine - (d + 1)) : Status::NOTHING;
+    while (__any_sync(0xffffffffu, !Status::ready(word))) {
+      if (!Status::ready(word)) word = ld_relaxed(mine - (d + 1));
+    }
+    const unsigned prefixes =
+        __ballot_sync(0xffffffffu, Status::prefix(word));
+    const int last = prefixes ? __ffs(prefixes) - 1 : 31;
+    Value v = lane <= last ? Status::value(word) : Status::identity();
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const Value u = Status::shfl(v, min(lane + s, 31));  // farther
+      if (lane + s < 32) v = Status::combine(u, v);
+    }
+    if (lane == 0) {
+      s_val[warp] = v;
+      s_found[warp] = prefixes != 0;
+    }
+    __syncthreads();
+    Value r = Status::identity();
+    bool found = false;
+#pragma unroll
+    for (int w = 0; w < NW; w++) {
+      if (found) continue;
+      r = Status::combine(s_val[w], r);
+      found = s_found[w] != 0;
+    }
+    __syncthreads();  // every thread has read the scratch
+    acc = Status::combine(r, acc);
+    if (found) return acc;
+  }
+}
+
 // Division by a run-time divisor d as a multiply-high and a shift: the
 // host computes m = ceil(2^(31 + l) / d), l = ceil(log2 d), and then
 // x / d == umulhi(x, m) >> (l - 1) for every x < 2^31 (Granlund and

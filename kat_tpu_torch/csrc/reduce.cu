@@ -298,9 +298,11 @@ reduce_tiles(const int64_t* __restrict__ keys, const int32_t* __restrict__ w,
 // Slots [min(n_unique, out_size), out_size) get SENTINEL / 0, four at a
 // time where both outputs are 16-byte aligned (a piece's outputs may start
 // anywhere: then one at a time).
-__global__ void __launch_bounds__(256)
-reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
-           int64_t out_size, const int64_t* __restrict__ n_unique) {
+__device__ __forceinline__ void pad_slots(int64_t* __restrict__ out_keys,
+                                          int32_t* __restrict__ out_counts,
+                                          int64_t out_size,
+                                          const int64_t* __restrict__
+                                              n_unique) {
   const int64_t first = min(*n_unique, out_size);
   const int64_t groups = (out_size + 3) / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -323,6 +325,12 @@ reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(256)
+reduce_pad(int64_t* __restrict__ out_keys, int32_t* __restrict__ out_counts,
+           int64_t out_size, const int64_t* __restrict__ n_unique) {
+  pad_slots(out_keys, out_counts, out_size, n_unique);
 }
 
 // ---------------------------------------------------------------------------
@@ -524,6 +532,379 @@ reduce_pad_words(int64_t* __restrict__ out_keys, int64_t os, int words,
 
 int64_t tiles_for(int64_t n) { return (n + TILE - 1) / TILE; }
 
+// ---------------------------------------------------------------------------
+// K2 + K3 fused: the counting flush's merge of the resident table with the
+// sorted fresh keys, reduced by key straight into the new table's slots.
+//
+// Fuses K2 (kat_tpu/ops/merge_kernel.py:73, csrc/merge.cu) with K3
+// (kat_tpu/ops/reduce_kernel.py:147, above) for core/counting's narrow
+// flush on a card.  Apart, K2 writes the merged stream, (na + nb) x 12
+// bytes, and K3 reads it back.  What bounds the fused pass: device-memory
+// traffic, the table read once (key and count, 12 bytes an entry), the
+// fresh keys read once (8 bytes each), each output slot written once (12
+// bytes) and the run count: 12 na + 8 nb + 12 out_size + 8 bytes.  The
+// merged stream exists only a tile at a time, in shared memory and
+// registers.  One call is a memset and three launches:
+//   merge_reduce_partition  K2's partition at this tile, over the real
+//     keys alone: a warp a block finds where each side's SENTINEL tail
+//     starts (the flush's fresh keys end in ~26% SENTINEL, one run that is
+//     never emitted, so no tile merges it), then one thread per tile
+//     boundary finds by a merge-path search how many table entries precede
+//     output d = tile * MR_TILE;
+//   merge_reduce_tiles  a block takes its tile number from the counter (so
+//     that it only ever waits for tiles already running; tiles past the
+//     real keys return at once), stages its slices of the table's keys
+//     and counts and of the fresh keys with 16-byte loads, and reads the
+//     key that follows the tile on the merge path (the smaller of the two
+//     heads), which says whether the tile's last run ends inside it.  It
+//     also asks L2 for the slices of the tile one round of resident blocks
+//     ahead, which some block stages about when this one is done: their
+//     DRAM latency passes while this tile merges, looks back and writes.
+//     Each thread finds its MR_ITEMS outputs' start by a merge-path search
+//     in shared memory and merges them into registers, with the key that
+//     follows them, so that it knows its run ends, emits and (runs, any
+//     end, open sum) aggregate at once.  Then K3's tile logic: the block
+//     scan, ONE 64-bit status word a tile, the look-back (by the whole
+//     block, 32 status words a warp a round trip: with one warp the
+//     look-back alone held the kernel to 32 tiles a round trip), and each
+//     run, key and count, written once at its rank through shared memory
+//     (the staged slices are done with by then), so that the stores leave
+//     in rank order; the tile numbered last writes n_unique;
+//   merge_reduce_pad  [n_unique, out_size) gets SENTINEL / 0, as in K3.
+// The fresh keys weigh (key != SENTINEL); ties take the table first, and
+// sums wrap mod 2^32, as K2 then K3 give them.  Runs travel in 30 bits,
+// so the wrapper refuses na + nb >= 2^30 (core/counting then takes K2 and
+// K3, in pieces).
+
+// 256 x 16 outputs a block, registers bounded for 3 blocks an SM: the
+// fastest at chr14.hist's last flushes (2^28 slots) of the variants that
+// benchmarks/sweep_flush_kernels.py --tiles --fused builds; with no bound
+// (90-100 registers, 2 blocks) the kernel was ~20% slower
+#ifndef KAT_MR_THREADS
+#define KAT_MR_THREADS 256
+#endif
+#ifndef KAT_MR_ITEMS
+#define KAT_MR_ITEMS 16
+#endif
+#ifndef KAT_MR_BLOCKS
+#define KAT_MR_BLOCKS 3
+#endif
+
+constexpr int MR_THREADS = KAT_MR_THREADS;
+constexpr int MR_ITEMS = KAT_MR_ITEMS;
+constexpr int MR_TILE = MR_THREADS * MR_ITEMS;
+constexpr int MR_WARPS = MR_THREADS / 32;
+static_assert(MR_THREADS % 32 == 0 && MR_THREADS <= 1024, "whole warps");
+static_assert(MR_ITEMS % 2 == 0 && MR_ITEMS <= 32,
+              "whole 16-byte key chunks; a thread's run-end bits fit one "
+              "word");
+
+// shared memory: the staged key slices (the table's, then the fresh
+// keys'), then the table's counts, each as many slots as its 16-byte
+// chunks can fill; on the way out the tile's runs, keys and counts, in
+// rank order in the same slots
+constexpr int MR_KEY_SLOTS = MR_THREADS * (MR_ITEMS / 2 + 1) * 2;
+constexpr int MR_W_SLOTS = MR_THREADS * (MR_ITEMS / 4 + 1) * 4;
+constexpr int MR_SMEM = MR_KEY_SLOTS * 8 + MR_W_SLOTS * 4;
+
+__host__ __device__ __forceinline__ int64_t mr_tiles(int64_t n) {
+  return (n + MR_TILE - 1) / MR_TILE;
+}
+
+// What a block of the fused kernel shares about its tile.
+struct MergeReduceShared {
+  Seg warp[MR_WARPS];  // each warp's aggregate, then its exclusive prefix
+  Seg total;           // the tile's aggregate
+  Seg found_val[MR_WARPS];  // the look-back's scratch
+  int found[MR_WARPS];
+  int64_t next;  // the key after the tile on the merge path, if has_next
+  bool has_next;
+  uint32_t tile;
+  int64_t ahead[2];  // the splits of the tile `ahead`, or -1
+};
+
+// The block asks L2 for tile t's slices (a[i0, i1) and its counts, b's
+// part), a 128-byte line a request, and goes on.
+__device__ __forceinline__ void prefetch_tile(const int64_t* a,
+                                              const int32_t* aw,
+                                              const int64_t* b, int64_t n,
+                                              int64_t t, int64_t i0,
+                                              int64_t i1) {
+  const int64_t d0 = t * MR_TILE, d1 = min(d0 + MR_TILE, n);
+  const char* src[3] = {reinterpret_cast<const char*>(a + i0),
+                        reinterpret_cast<const char*>(aw + i0),
+                        reinterpret_cast<const char*>(b + (d0 - i0))};
+  const int64_t bytes[3] = {(i1 - i0) * 8, (i1 - i0) * 4,
+                            ((d1 - i1) - (d0 - i0)) * 8};
+#pragma unroll
+  for (int q = 0; q < 3; q++) {
+    // every line the range touches, from the one holding its first byte
+    const uintptr_t first = (uintptr_t)src[q] & ~(uintptr_t)127;
+    const int lines =
+        bytes[q] > 0
+            ? (int)(((uintptr_t)src[q] + bytes[q] - 1 - first) / 128 + 1)
+            : 0;
+    for (int i = threadIdx.x; i < lines; i += MR_THREADS)
+      asm volatile("prefetch.global.L2 [%0];"
+                   :: "l"(first + (uintptr_t)i * 128));
+  }
+}
+
+// The index of the first SENTINEL in sorted x[0, n), n if there is none,
+// found by the calling warp, 32 probes a step (six steps at n = 2^30).
+__device__ __forceinline__ int64_t sentinel_start(
+    const int64_t* __restrict__ x, int64_t n) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = 0, hi = n;  // x[lo - 1] is real, x[hi] is SENTINEL or past n
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t p = lo + (lane + 1) * step - 1;
+    const unsigned sent =
+        __ballot_sync(0xffffffffu, p >= hi || x[p] == KAT_SENTINEL);
+    if (sent == 0) return hi;  // the last probe was x[hi - 1], real
+    const int f = __ffs(sent) - 1;
+    hi = min(lo + (f + 1) * step - 1, hi);
+    lo += f * step;
+  }
+  return lo;
+}
+
+// Every block's warp 0 finds each side's real (non-SENTINEL) length; the
+// merge then covers the real keys alone (the SENTINEL tails form one run,
+// which is never emitted).  Thread 0 of the launch keeps the lengths for
+// the tile kernel, and the run count when there are none.
+__global__ void __launch_bounds__(256)
+merge_reduce_partition(const int64_t* __restrict__ a, int64_t na,
+                       const int64_t* __restrict__ b, int64_t nb,
+                       int64_t tiles, int64_t* __restrict__ splits,
+                       int64_t* __restrict__ real, int64_t* n_unique) {
+  __shared__ int64_t s_real[2];
+  if (threadIdx.x < 32) {
+    const int64_t ra = sentinel_start(a, na);
+    const int64_t rb = sentinel_start(b, nb);
+    if (threadIdx.x == 0) {
+      s_real[0] = ra;
+      s_real[1] = rb;
+    }
+  }
+  __syncthreads();
+  const int64_t ra = s_real[0], rb = s_real[1];
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t == 0) {
+    real[0] = ra;
+    real[1] = rb;
+    if (ra + rb == 0) *n_unique = 0;
+  }
+  if (t <= tiles)
+    splits[t] = kat::merge_path(a, ra, b, rb, min(t * MR_TILE, ra + rb));
+}
+
+__global__ void __launch_bounds__(MR_THREADS, KAT_MR_BLOCKS)
+merge_reduce_tiles(const int64_t* __restrict__ a,
+                   const int32_t* __restrict__ aw,
+                   const int64_t* __restrict__ b,
+                   const int64_t* __restrict__ real,
+                   const int64_t* __restrict__ splits,
+                   int64_t* __restrict__ out_keys,
+                   int32_t* __restrict__ out_counts, int64_t out_size,
+                   uint32_t* next_tile, uint64_t* status, int64_t* n_unique,
+                   int64_t ahead) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* sk = reinterpret_cast<int64_t*>(smem);
+  int32_t* sw = reinterpret_cast<int32_t*>(sk + MR_KEY_SLOTS);
+  __shared__ MergeReduceShared sh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  kat::take_tile(next_tile, &sh.tile);
+  __syncthreads();
+  const int64_t tile = sh.tile;
+  // the real keys' lengths: the launch has a block for every tile of all
+  // the keys, and those past the real keys' tiles have nothing to do
+  const int64_t na = real[0], nb = real[1];
+  const int64_t tiles = mr_tiles(na + nb);
+  if (tile >= tiles) return;
+  const int64_t d0 = tile * MR_TILE;
+  const int64_t i0 = splits[tile], i1 = splits[tile + 1];
+  const int len = (int)(min(d0 + MR_TILE, na + nb) - d0);
+  const int la = (int)(i1 - i0);
+  const int lb = len - la;
+  const int64_t j0 = d0 - i0, j1 = j0 + lb;
+
+  // 1. stage a[i0, i1) with its counts and b[j0, j1); the key after them;
+  //    where the tile `ahead` lies
+  int fa, fb, fw;
+  {
+    kat::Chunks<int64_t, MR_THREADS, MR_ITEMS / 2 + 1> ck;
+    kat::Chunks<int32_t, MR_THREADS, MR_ITEMS / 4 + 1> cw;
+    ck.load(a + i0, la, b + j0, lb);
+    cw.load(aw + i0, la);
+    if (tid == 0) {
+      const int64_t t = tile + ahead;
+      sh.ahead[0] = t < tiles ? __ldg(splits + t) : -1;
+      sh.ahead[1] = t < tiles ? __ldg(splits + t + 1) : -1;
+      bool has = false;
+      int64_t next = 0;
+      if (i1 < na) {
+        next = a[i1];
+        has = true;
+      }
+      if (j1 < nb) {
+        next = has ? min(next, b[j1]) : b[j1];
+        has = true;
+      }
+      sh.next = next;
+      sh.has_next = has;
+    }
+    ck.store(sk);
+    cw.store(sw);
+    fa = ck.first(0);
+    fb = ck.first(1);
+    fw = cw.first(0);
+  }
+  __syncthreads();
+  const int64_t* sa = sk + fa;
+  const int64_t* sb = sk + fb;
+  const int32_t* sc = sw + fw;
+
+  // 2. this thread's outputs start at local diagonal dt: merge them into
+  //    registers (slots past an end are staged memory, never taken), with
+  //    the key that follows them
+  const int dt = min(tid * MR_ITEMS, len);
+  int lo = max(0, dt - lb);
+  int hi = min(dt, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sa[mid] <= sb[dt - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  int ia = lo, ib = dt - lo;
+  int64_t ka = sa[ia], kb = sb[ib];
+  int64_t k[MR_ITEMS + 1];
+  uint32_t wt[MR_ITEMS];
+#pragma unroll
+  for (int e = 0; e < MR_ITEMS; e++) {
+    const bool take_a = ia < la && (ib >= lb || ka <= kb);
+    k[e] = take_a ? ka : kb;
+    wt[e] = take_a ? (uint32_t)sc[ia] : (uint32_t)(kb != KAT_SENTINEL);
+    if (take_a) ka = sa[++ia];
+    else kb = sb[++ib];
+  }
+  k[MR_ITEMS] = ia < la && (ib >= lb || ka <= kb) ? ka : kb;
+
+  // 3. run ends and this thread's aggregate; the tile's last output ends
+  //    a run unless the key after the tile equals it
+  const int valid = min(MR_ITEMS, len - dt);
+  const bool holds_last = dt + MR_ITEMS >= len;
+  uint32_t ends = 0, emits = 0;
+  Seg mine = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < MR_ITEMS; e++) {
+    if (e < valid) {
+      mine.sum += wt[e];
+      const bool end = holds_last && e == valid - 1
+                           ? !sh.has_next || sh.next != k[e]
+                           : k[e] != k[e + 1];
+      if (end) {
+        ends |= 1u << e;
+        mine.runs |= CLOSED;
+        mine.sum = 0;
+        if (k[e] != KAT_SENTINEL) {
+          emits |= 1u << e;
+          mine.runs++;
+        }
+      }
+    }
+  }
+
+  // 4. the warps' scans; warp 0 scans the warps' aggregates and publishes
+  //    the tile's; the whole block looks back; thread 0 publishes the
+  //    tile's prefix
+  const Seg inc = warp_inclusive(mine);
+  if (lane == 31) sh.warp[warp] = inc;
+  __syncthreads();  // also: every thread is done with the staged slices
+  if (warp == 0) {
+    Seg t = lane < MR_WARPS ? sh.warp[lane] : SegStatus::identity();
+    t = warp_inclusive(t);
+    const Seg total = SegStatus::shfl(t, MR_WARPS - 1);
+    if (lane == 0) {
+      if (tile > 0)
+        kat::st_relaxed(status + tile,
+                        pack(total.runs & CLOSED ? AGG_CLOSED : AGG_OPEN,
+                             total));
+      sh.total = total;
+    }
+    Seg ex = shfl_up(t, 1);
+    if (lane == 0) ex = SegStatus::identity();
+    if (lane < MR_WARPS) sh.warp[lane] = ex;  // the warp's exclusive prefix
+  }
+  __syncthreads();
+  if (sh.ahead[0] >= 0)
+    prefetch_tile(a, aw, b, na + nb, tile + ahead, sh.ahead[0], sh.ahead[1]);
+  const Seg total = sh.total;
+  const Seg before =
+      tile > 0 ? kat::look_back_block<SegStatus, MR_WARPS>(
+                     status + tile, tile, sh.found_val, sh.found)
+               : SegStatus::identity();
+  if (tid == 0) {
+    kat::st_relaxed(status + tile, pack(PREFIX, seg_combine(before, total)));
+    if (tile == tiles - 1)
+      *n_unique = (int64_t)((before.runs & RUNS_MASK) +
+                            (total.runs & RUNS_MASK));
+  }
+
+  // 5. each run once, key and count at its rank: through shared memory,
+  //    then out in rank order, consecutive threads on consecutive runs
+  Seg ex = shfl_up(inc, 1);
+  if (lane == 0) ex = SegStatus::identity();
+  const Seg start = seg_combine(seg_combine(before, sh.warp[warp]), ex);
+  const uint32_t r0 = before.runs & RUNS_MASK;
+  const uint32_t count = total.runs & RUNS_MASK;
+  uint32_t r = (start.runs & RUNS_MASK) - r0;
+  uint32_t s = start.sum;
+#pragma unroll
+  for (int e = 0; e < MR_ITEMS; e++) {
+    s += wt[e];
+    if (ends >> e & 1u) {
+      if (emits >> e & 1u) {
+        sk[r] = k[e];
+        sw[r] = (int32_t)s;
+        r++;
+      }
+      s = 0;
+    }
+  }
+  __syncthreads();
+  for (uint32_t i = tid; i < count && r0 + i < out_size; i += MR_THREADS) {
+    out_keys[r0 + i] = sk[i];
+    out_counts[r0 + i] = sw[i];
+  }
+}
+
+__global__ void __launch_bounds__(256)
+merge_reduce_pad(int64_t* __restrict__ out_keys,
+                 int32_t* __restrict__ out_counts, int64_t out_size,
+                 const int64_t* __restrict__ n_unique) {
+  pad_slots(out_keys, out_counts, out_size, n_unique);
+}
+
+// Blocks of the tile kernel resident on the device at once (one round),
+// asked once per device.
+cudaError_t mr_resident(int sms, int64_t* resident) {
+  static int64_t resident_of[kat::MAX_DEVICES] = {};
+  int device, per_sm;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (resident_of[device] == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, merge_reduce_tiles, MR_THREADS, MR_SMEM);
+    if (err != cudaSuccess) return err;
+    resident_of[device] = (int64_t)per_sm * sms;
+  }
+  *resident = resident_of[device];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Elements a thread block of kat_reduce_by_key takes.
@@ -618,6 +999,61 @@ extern "C" int kat_reduce_by_key_words(const int64_t* keys, int64_t ks,
         std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
     reduce_pad_words<<<(unsigned)blocks, 256, 0, stream>>>(
         out_keys, os, words, out_counts, out_size, n_unique);
+    KAT_CHECK_LAUNCH();
+  }
+  return 0;
+}
+
+// Outputs (merged elements) a thread block of kat_merge_reduce takes.
+extern "C" int kat_merge_reduce_tile() { return MR_TILE; }
+
+// int64 scratch words kat_merge_reduce needs for na + nb = n: the tile
+// counter, one status word per tile, the tile splits, the real lengths.
+extern "C" int64_t kat_merge_reduce_scratch(int64_t n) {
+  return 2 * (mr_tiles(n) + 1) + 2;
+}
+
+// Reduce the stable merge of (a, aw)[0:na) with (b, b != SENTINEL)[0:nb)
+// into out_keys/out_counts[0:out_size); n_unique[0] gets the true number
+// of non-sentinel runs.  Requires na + nb < 2^30.
+extern "C" int kat_merge_reduce(const int64_t* a, const int32_t* aw,
+                                int64_t na, const int64_t* b, int64_t nb,
+                                int64_t* out_keys, int32_t* out_counts,
+                                int64_t out_size, int64_t* scratch,
+                                int64_t* n_unique, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  static int sms_of[kat::MAX_DEVICES] = {};
+  int sms;
+  cudaError_t err = kat::prepare(merge_reduce_tiles, MR_SMEM, sms_of, &sms);
+  if (err != cudaSuccess) return (int)err;
+  int64_t resident;
+  err = mr_resident(sms, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = mr_tiles(na + nb);
+  if (tiles == 0) {
+    err = cudaMemsetAsync(n_unique, 0, sizeof(int64_t), stream);
+  } else {
+    err = cudaMemsetAsync(scratch, 0, (1 + tiles) * sizeof(int64_t), stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (tiles > 0) {
+    int64_t* splits = scratch + 1 + tiles;
+    int64_t* real = splits + tiles + 1;
+    merge_reduce_partition<<<(unsigned)((tiles + 256) / 256), 256, 0,
+                             stream>>>(a, na, b, nb, tiles, splits, real,
+                                       n_unique);
+    KAT_CHECK_LAUNCH();
+    merge_reduce_tiles<<<(unsigned)tiles, MR_THREADS, MR_SMEM, stream>>>(
+        a, aw, b, real, splits, out_keys, out_counts, out_size,
+        reinterpret_cast<uint32_t*>(scratch),
+        reinterpret_cast<uint64_t*>(scratch + 1), n_unique, resident);
+    KAT_CHECK_LAUNCH();
+  }
+  if (out_size > 0) {
+    const int64_t blocks =
+        std::min((out_size + 1023) / 1024, (int64_t)sms * 8);
+    merge_reduce_pad<<<(unsigned)blocks, 256, 0, stream>>>(
+        out_keys, out_counts, out_size, n_unique);
     KAT_CHECK_LAUNCH();
   }
   return 0;

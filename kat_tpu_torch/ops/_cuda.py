@@ -68,6 +68,9 @@ _SIGNATURES = {
     "kat_reduce_by_key_tile": [],
     "kat_reduce_by_key_words": [_P, _I64, _INT, _P, _I64, _P, _I64, _P,
                                 _I64, _P, _P, _P],
+    "kat_merge_reduce": [_P, _P, _I64, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "kat_merge_reduce_scratch": [_I64],
+    "kat_merge_reduce_tile": [],
     "kat_binned_sums": [_P, _P, _INT, _I64, _P, _INT, _P, _P, _P],
     "kat_binned_sums_scratch": [_I64, _P, _INT, _INT],
     "kat_binned_sums_window": [],

@@ -31,10 +31,11 @@ import torch
 
 # flushes, growth replays, keys into K1 (SENTINEL windows included), keys
 # into K2 and K3 over every merge (the table's real entries plus the
-# fresh keys), the part of those that went through a replay, and the
-# synchronous host reads (one per `kat.read.*` span)
+# fresh keys), the part of those that went through a replay, the
+# synchronous host reads (one per `kat.read.*` span), and the merges that
+# went through the fused K2 + K3 kernel
 COUNTERS = ("flushes", "replays", "fresh_keys", "merged_keys",
-            "replayed_keys", "host_reads")
+            "replayed_keys", "host_reads", "fused_merges")
 _counts = dict.fromkeys(COUNTERS, 0)
 _OFF = contextlib.nullcontext()
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K4 compact, the
+"""The port's CUDA kernels (K1 sort, K2 merge, K3 reduce, K2 + K3 fused
+and the counter's choice of it, K4 compact, the
 payload forms of K1 and K2, the W-word forms of K1, K2 and K3, the W-word
 forms of K1 with a value and K2 with payload planes (the wide join), K5
 chunk sort, K6 run merge, one-word and W-word (also at the sharded
@@ -36,6 +37,10 @@ from kat_tpu_torch.ops.merge_kernel import (
     merge_sorted_plain, merge_sorted_words, merge_sorted_words_payload,
     merge_sorted_words_payload_plain, merge_sorted_words_plain)
 from kat_tpu_torch.ops.merge_kernel import tile_len as merge_tile_len
+from kat_tpu_torch.ops.merge_reduce_kernel import (merge_reduce,
+                                                   merge_reduce_plain)
+from kat_tpu_torch.ops.merge_reduce_kernel import (
+    tile_len as merge_reduce_tile_len)
 from kat_tpu_torch.ops.reduce_kernel import (compact_flagged,
                                              compact_flagged_plain,
                                              reduce_by_key,
@@ -52,6 +57,7 @@ from kat_tpu_torch.ops.sort_kernel import (merge_runs, merge_runs_plain,
                                            sort_words, sort_words_pairs,
                                            sort_words_pairs_plain,
                                            sort_words_plain, tile_len)
+from kat_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -558,18 +564,19 @@ def test_window_counts_join_equals_search(dev):
 
 def test_counter_keeps_card_keys_on_the_card(dev):
     """A counter on the CPU refuses keys that lie on the card (it never
-    moves work off it); a counter on the card counts them through K1-K3."""
+    moves work off it); a counter on the card counts them through K1 and
+    the fused K2 + K3 (K2 and K3 apart are not launched)."""
     keys = torch.arange(5000, dtype=torch.int64, device=dev) % 777
     cpu = counting.StreamingCounter(initial_capacity=1 << 10, device="cpu")
     with pytest.raises(ValueError, match="keys: on cuda"):
         cpu.add(keys)
-    counters = (sort_keys, merge_sorted, reduce_by_key)
+    counters = (sort_keys, merge_reduce, merge_sorted, reduce_by_key)
     before = [f.launches for f in counters]
     sc = counting.StreamingCounter(initial_capacity=1 << 10, key_bits=11,
                                    device=dev)
     sc.add(keys)
     table = sc.finish()
-    assert [f.launches for f in counters] == [b + 1 for b in before]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
     assert table.keys.device.type == "cuda" and table.n_unique == 777
     assert int(table.counts.sum()) == 5000
 
@@ -887,22 +894,150 @@ def test_merge_payload_at_the_join_shape(dev, n_planes):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("what", ["reduce", "merge", "merge_payload"])
+@pytest.mark.parametrize("what", ["reduce", "merge", "merge_payload",
+                                  "merge_reduce"])
 def test_flush_kernels_repeat(dev, what):
     """Five runs on one input at the path's shapes give equal outputs: a
     race between tiles shows as a difference between runs."""
     t_keys, t_counts, fresh, mk, mw, q = _flush_shapes(str(dev))
     ap = (torch.full((t_keys.numel(),), -1, dtype=torch.int32, device=dev),)
     bp = (torch.arange(q.numel(), dtype=torch.int32, device=dev),)
+    n = int((t_keys != SENTINEL).sum())
     run = {"reduce": lambda: reduce_by_key(mk, mw, 1 << 24),
            "merge": lambda: merge_sorted(t_keys, t_counts, fresh),
            "merge_payload": lambda: (lambda k, p: (k, *p))(
-               *merge_sorted_payload(t_keys, ap, q, bp))}[what]
+               *merge_sorted_payload(t_keys, ap, q, bp)),
+           "merge_reduce": lambda: merge_reduce(
+               t_keys[:n], t_counts[:n], fresh, 1 << 24)}[what]
     first = run()
     for _ in range(4):
         again = run()
         for x, y in zip(first, again, strict=True):
             assert torch.equal(x, y)
+
+
+# -- K2 + K3 fused (ops/merge_reduce_kernel.py) and the counter's route --
+
+def _fused_strain(name, dev):
+    """(table keys, table counts, fresh keys, out_size) on the card."""
+    if name.startswith("main_path"):
+        t_keys, t_counts, fresh, _mk, _mw, _q = _flush_shapes(str(dev))
+        n = int((t_keys != SENTINEL).sum())  # the counter's real prefix
+        out = 1 << 24 if name == "main_path_shape" else 1 << 20
+        return t_keys[:n], t_counts[:n], fresh, out
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(name) + 90)
+    return workloads.merge_reduce_strain(name, merge_reduce_tile_len(), dev,
+                                         g)
+
+
+@pytest.mark.parametrize("name", ["main_path_shape", "main_path_overflow",
+                                  *workloads.MERGE_REDUCE_STRAIN])
+def test_merge_reduce_strain(dev, name):
+    """The fused kernel equals K2's and K3's plain versions in a row: one
+    run across ~37 tiles, runs around the tile's length, a split that is
+    no power of two, SENTINEL tails on either side, fresh keys all
+    SENTINEL, more runs than slots, no slots, sums past 2^31, empty sides,
+    and the main path's 2^24 + 2^26 flush into 2^24 and 2^20 slots."""
+    a, ac, b, out_size = _fused_strain(name, dev)
+    before = merge_reduce.launches
+    gk, gc, gn = merge_reduce(a, ac, b, out_size)
+    torch.cuda.synchronize()
+    assert merge_reduce.launches == before + 1
+    wk, wc, wn = merge_reduce_plain(a, ac, b, out_size)
+    assert int(gn) == int(wn)
+    assert torch.equal(gk, wk) and torch.equal(gc, wc)
+
+
+def _fused_batches(rows):
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 1 << 16, dtype=np.uint8)
+    out = []
+    for _ in range(8):
+        off = rng.integers(0, len(genome) - 300, rows)
+        b = np.stack([genome[o:o + 300] for o in off])
+        b[rng.random(b.shape) < 0.001] = 4
+        out.append(b)
+    return out
+
+
+def _kernel_launches():
+    return [fn.launches for fn in (merge_reduce, merge_sorted,
+                                   reduce_by_key)]
+
+
+@pytest.mark.parametrize("max_stream", [None, 20_000])
+def test_counter_fused_route_matches_cpu_run(dev, monkeypatch, max_stream):
+    """The counter on the card takes the fused kernel for every merge
+    (`fused_merges` = flushes + replays), through growth replays, and
+    gives the CPU's table (K2 then K3's plain versions); with MAX_STREAM
+    lowered to 20,000 keys the later merges take K2 then K3 in pieces on
+    the card instead, with the same table."""
+    if max_stream is not None:
+        monkeypatch.setattr(counting, "MAX_STREAM", max_stream)
+    batches = _fused_batches(64)  # 17,536 windows a flush
+    tables = []
+    for device in (dev, torch.device("cpu")):
+        before, launched = profiling.counters(), _kernel_launches()
+        sc = counting.CodeStreamingCounter(
+            27, initial_capacity=1 << 10, flush_batches=1, device=device)
+        for b in batches:
+            sc.add_codes(b)
+        tables.append(counting.table_to_numpy(sc.finish()))
+        got = {n: v - before[n] for n, v in profiling.counters().items()}
+        fused, k2, k3 = (x - y for x, y in zip(_kernel_launches(),
+                                               launched))
+        merges = got["flushes"] + got["replays"]
+        assert got["replays"] > 0
+        if device.type == "cpu":
+            assert got["fused_merges"] == fused == k2 == k3 == 0
+        elif max_stream is None:
+            assert got["fused_merges"] == fused == merges
+            assert k2 == k3 == 0
+        else:
+            assert 0 < got["fused_merges"] == fused < merges
+            assert k2 == merges - fused and k3 > k2  # pieces
+    np.testing.assert_array_equal(tables[0][0], tables[1][0])
+    np.testing.assert_array_equal(tables[0][1], tables[1][1])
+
+
+def test_fused_route_spans_on_the_card(dev):
+    """Counting on the card opens one `kat.flush.merge_reduce` a merge and
+    no `kat.flush.merge` or `.reduce`; each `kat.read.n_unique` lies inside
+    a `kat.flush.merge_reduce`, which lies in `kat.flush` or a replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sc = counting.CodeStreamingCounter(
+            27, initial_capacity=1 << 10, flush_batches=2, device=dev)
+        for b in _fused_batches(256):
+            sc.add_codes(b)
+        sc.finish()
+        torch.cuda.synchronize()
+    got = {n: v - before[n] for n, v in profiling.counters().items()}
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("kat.")]
+
+    def parent(i):
+        _n, a, b = spans[i]
+        outer = [(pb - pa, pn) for j, (pn, pa, pb) in enumerate(spans)
+                 if j != i and pa <= a and b <= pb]
+        return min(outer)[1] if outer else None
+
+    names = [n for n, _a, _b in spans]
+    assert "kat.flush.merge" not in names
+    assert "kat.flush.reduce" not in names
+    merges = names.count("kat.flush.merge_reduce")
+    assert merges == got["fused_merges"] == got["flushes"] + got["replays"]
+    assert got["replays"] > 0
+    for i, n in enumerate(names):
+        if n == "kat.read.n_unique":
+            assert parent(i) == "kat.flush.merge_reduce"
+        if n == "kat.flush.merge_reduce":
+            assert parent(i) in ("kat.flush", "kat.flush.replay")
+    assert names.count("kat.read.n_unique") == got["host_reads"] == merges
 
 
 # --- the W-word forms of K1, K2 and K3 (wide keys, 31 < k <= 255) ---
@@ -1491,9 +1626,9 @@ def test_kernel_attestation_on_the_card(dev):
 
 
 def test_jf_count_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
-    """`python -m kat_tpu_torch.jf_cli count` on the card launches K1, K2
-    and K3 and writes the .jf that `--device cpu` writes (the header's
-    moment and machine pinned)."""
+    """`python -m kat_tpu_torch.jf_cli count` on the card launches K1 and
+    the fused K2 + K3 and writes the .jf that `--device cpu` writes (the
+    header's moment and machine pinned)."""
     from kat_tpu_torch import jf_cli
 
     monkeypatch.setattr("socket.gethostname", lambda: "host")
@@ -1505,7 +1640,7 @@ def test_jf_count_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
         for j, o in enumerate(rng.integers(0, 19_850, 3000)):
             s = genome[o:o + 150].tobytes()
             f.write(b"@r%d\n%s\n+\n%s\n" % (j, s, b"I" * 150))
-    kernels = (sort_keys, merge_sorted, reduce_by_key)
+    kernels = (sort_keys, merge_reduce)
     before = [fn.launches for fn in kernels]
     out = {}
     for device in ("cuda", "cpu"):

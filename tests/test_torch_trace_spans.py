@@ -105,6 +105,38 @@ def test_counting_spans_nest_and_match_the_counters(k):
     assert table.n_unique > 0
 
 
+# the fused route's counting spans and their parents
+FUSED = (COUNTING - {"kat.flush.merge", "kat.flush.reduce"}) | {
+    "kat.flush.merge_reduce"}
+FUSED_PARENTS = {**PARENTS,
+                 "kat.flush.merge_reduce": {"kat.flush", "kat.flush.replay"},
+                 "kat.read.n_unique": {"kat.flush.merge_reduce"}}
+
+
+def test_fused_route_spans_nest_and_match_the_counters(monkeypatch):
+    """The card's route taken on the CPU (where the fused op is its plain
+    version): one `kat.flush.merge_reduce` a merge, holding the merge's
+    `kat.read.n_unique`; `fused_merges` counts every merge, the other
+    counters and the table are the split route's."""
+    want, _spans, split = _traced(lambda: _count(27, _batches()))
+    monkeypatch.setattr(counting, "fused_merge", lambda *_a: True)
+    table, spans, got = _traced(lambda: _count(27, _batches()))
+    names = _names(spans)
+    assert set(names) == FUSED
+    for i, name in enumerate(names):
+        assert _parent(spans, i) in FUSED_PARENTS[name], name
+    merges = names.count("kat.flush.merge_reduce")
+    assert merges == got["fused_merges"] == got["flushes"] + got["replays"]
+    assert names.count("kat.read.n_unique") == got["host_reads"] == merges
+    assert split["fused_merges"] == 0
+    for n in ("flushes", "replays", "fresh_keys", "merged_keys",
+              "replayed_keys", "host_reads"):
+        assert got[n] == split[n], n
+    assert table.n_unique == want.n_unique
+    assert torch.equal(table.keys, want.keys)
+    assert torch.equal(table.counts, want.counts)
+
+
 def test_merged_and_replayed_keys_equal_the_flush_calls(monkeypatch):
     from katbench import trace
 
