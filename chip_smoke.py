@@ -61,6 +61,10 @@
    written); then at W = 2..9 on 8 runs of 2^18 slots, 3/4 SENTINEL, and
    on strain inputs; its kernels inside one call (also at the bucketed
    flush's group of 128 chunk runs) counted in the same profiled window;
+2f. checks the matrix text writer (core/matrix.format_rows) on the card
+   against the per-cell loop it replaced at chr14.comp's 1001 x 1001
+   shape, both orientations, timed beside the same call on the CPU and
+   the loop;
 3. drives the counting path at bench.py's scale: k=27 canonical reads
    from an 8.4 Mbp random genome, 48 batches of 4096 x 1024 codes (196M
    windows, 3 flushes of 2^26 windows), table grown from 2^20 to 2^24
@@ -491,6 +495,48 @@ def check_extract_kernel(dev, gen):
         # no one PyTorch call extracts windows
         library_ms=None), f"extraction [{rows}, {length}] k={k}")
     return entry, (entry, lambda: extract_keys(codes, k))
+
+
+def check_matrix_format(dev, smi: str) -> None:
+    """The matrix text writer (kat_tpu_torch/core/matrix.format_rows) on the
+    card against the per-cell loop it replaced, at chr14.comp's 1001 x 1001
+    shape (workloads.comp_matrix) in both orientations, byte for byte; each
+    timed on the host's clock from the call to the bytes (the card's
+    passes, its three reads and the copy; median of 5), beside the same
+    call on a CPU tensor and the loop."""
+    import statistics
+
+    import torch
+
+    from kat_tpu_torch.benchmarks import workloads
+    from kat_tpu_torch.core.matrix import format_rows
+
+    def host_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    mx = workloads.comp_matrix(SEED)
+    on_host = torch.from_numpy(mx)
+    on_card = on_host.to(dev)
+    for transpose in (False, True):
+        t0 = time.perf_counter()
+        want = "".join(" ".join(str(int(v)) for v in row) + "\n"
+                       for row in (mx.T if transpose else mx)).encode()
+        loop_ms = 1e3 * (time.perf_counter() - t0)
+        if format_rows(on_card, transpose) != want:
+            raise AssertionError("format_rows on the card differs from the "
+                                 f"per-cell loop (transpose={transpose})")
+        card_ms = host_ms(lambda: format_rows(on_card, transpose), 5)
+        cpu_ms = host_ms(lambda: format_rows(on_host, transpose), 3)
+        print(f"matrix text 1001 x 1001{' transposed' if transpose else ''}"
+              f" ({len(want)} bytes, largest cell {mx.max()}): exact, card "
+              f"{card_ms:.3f} ms, the CPU {cpu_ms:.1f} ms, the per-cell loop "
+              f"{loop_ms:.1f} ms ({smi})")
 
 
 def check_kernels(dev, gen):
@@ -4378,6 +4424,7 @@ def main() -> int:
     del counted, wide_counted, binned_counted, dual_counted, wjoin_counted
     del k6_counted, k6_group_call, late
     lap("the kernel checks")
+    check_matrix_format(dev, smi)
     (launches, extract["launches"], fused[0]["launches"], table, genome,
      ref_keys, ref_counts) = main_path(dev)
     binned[0]["launches"] = launches.pop()  # hist_from_counts

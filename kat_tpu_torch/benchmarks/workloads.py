@@ -3,8 +3,8 @@ the card's published rates, the main path's input (and comp's second read
 set and assembly of its genome), the counting flush's shapes (narrow and
 wide keys, and a table and fresh keys of any size), the binned sums' and
 the dual probe's shapes, the K2, K3 and fused K2 + K3 inputs that strain a
-single pass, the W-word kernels' strain inputs, and a
-count of what one call runs on the card."""
+single pass, the W-word kernels' strain inputs, a matrix shaped like
+chr14.comp's, and a count of what one call runs on the card."""
 
 from __future__ import annotations
 
@@ -52,6 +52,37 @@ def contig_rows(genome: torch.Tensor, k: int, row: int = 1 << 16):
 
 
 COMP_THIRD_BATCHES = 24  # comp's third input: half the main path's depth
+
+# a chr14.comp main matrix: the reads' 2.74G windows at 42x of 101 bp reads
+# (k-mer depth ~31), the assembly's 88.3M k-mers, 0.25% substitutions
+COMP_MX_BINS, COMP_MX_DEPTH = 1001, 31
+COMP_MX_ASM, COMP_MX_ERRORS = 88_000_000, 250_000_000
+
+
+def comp_matrix(seed: int, bins: int = COMP_MX_BINS) -> np.ndarray:
+    """An int64 [bins, bins] matrix shaped like chr14.comp's `-main.mx`
+    (row: a k-mer's count in the reads, column: in the assembly): the
+    assembly's k-mers around the reads' depth in columns 1 and 2 (7
+    digits at the mode), the reads' errors in column 0 (8 digits at
+    count 1), a row 0 of the assembly's k-mers the reads miss, and a
+    sparse scatter of small cells; most cells 0."""
+    rng = np.random.default_rng(seed)
+    mx = np.zeros((bins, bins), np.int64)
+    for col, share in ((1, 0.985), (2, 0.015)):
+        depth = rng.poisson(col * COMP_MX_DEPTH, 1 << 20)
+        mx[:, col] = np.bincount(np.minimum(depth, bins - 1),
+                                 minlength=bins) * int(
+            share * COMP_MX_ASM / (1 << 20))
+    count = np.arange(1, bins)
+    mx[1:, 0] = (COMP_MX_ERRORS * np.exp(-1.3 * count) +
+                 rng.integers(0, 1000, bins - 1) * (count < 200))
+    mx[0, 1:] = rng.integers(0, 10_000, bins - 1) >> rng.integers(
+        0, 14, bins - 1)
+    at = rng.integers(0, bins, (bins * 20, 2))
+    mx[at[:, 0], at[:, 1]] += rng.integers(1, 1000, bins * 20)
+    return mx
+
+
 BINNED_SHAPES = ("hist", "gcp", "comp", "comp_uniform")
 
 

@@ -1,10 +1,11 @@
-"""Dense host-side matrix with KAT SparseMatrix print/load semantics.
+"""Dense matrix with KAT SparseMatrix print/load semantics, and the one
+writer of its text.
 
 The reference's `SparseMatrix<uint64_t>` (lib/include/kat/sparse_matrix.hpp)
 is a map-of-maps accumulated per thread and merged; its on-disk form is a
 space-separated dense grid after an mme header.  Here the tools accumulate
-into a dense array and this class only formats/parses the text artifact
-(a copy of kat_tpu/core/matrix.py, numpy only):
+into a dense array and this class formats/parses the text artifact (a copy
+of kat_tpu/core/matrix.py, but the grid's text comes from `format_rows`):
 
   - `print_matrix(out, transpose)` mirrors sparse_matrix.hpp:251-279: row i of
     the logical [m, n] matrix on one line, space separated; transpose swaps
@@ -19,16 +20,72 @@ into a dense array and this class only formats/parses the text artifact
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils.profiling import annotate, count
+
+
+def format_rows(values: torch.Tensor, transpose: bool = False) -> bytes:
+    """The 2-D int64 grid `values` (its transpose when `transpose`) as KAT
+    writes it: each row's cells in decimal, one space apart, each row
+    ended by a newline, no header.
+
+    Runs on the tensor's own device in a fixed number of tensor passes:
+    every cell is written right-aligned into `width + 1` bytes (`width`
+    the digits of the largest cell, the last byte its separator), one pass
+    a digit, and one masked selection keeps each cell's digits from its
+    leading one on.  Three synchronous reads, each a `kat.read.format`:
+    the least and largest cell, the selection's length, and the text,
+    copied to the host once at the end.  A negative cell (a uint64 of
+    2^63 or more seen as int64) raises ValueError."""
+    if values.dim() != 2 or values.dtype != torch.int64:
+        raise TypeError(f"a 2-D int64 tensor, not {values.dim()}-D "
+                        f"{values.dtype}")
+    grid = (values.T if transpose else values).contiguous()
+    rows, cols = grid.shape
+    if rows == 0 or cols == 0:
+        return b"\n" * rows
+    with annotate("kat.read.format"):
+        count("host_reads")
+        lo, hi = torch.stack(torch.aminmax(grid)).tolist()
+    if lo < 0:
+        raise ValueError(f"a matrix cell reads {lo} as int64: cells are "
+                         "counts, at least 0 and below 2^63")
+    width = len(str(hi))
+    dev = grid.device
+    text = torch.empty(rows, cols, width + 1, dtype=torch.uint8, device=dev)
+    text[:, :, width] = ord(" ")
+    text[:, -1, width] = ord("\n")
+    q = grid
+    for at in range(width - 1, -1, -1):
+        text[:, :, at] = q % 10 + ord("0")
+        q = q // 10
+    # byte `at` of a cell is kept from its leading digit on: 10^(width-1-at)
+    # <= cell, with the units digit and the separator always kept
+    least = torch.tensor([10 ** p for p in range(width - 1, 0, -1)] + [0, 0],
+                         dtype=torch.int64, device=dev)
+    keep = grid.unsqueeze(-1) >= least
+    with annotate("kat.read.format"):
+        count("host_reads")
+        text = text.view(-1)[keep.view(-1)]
+    with annotate("kat.read.format"):
+        count("host_reads")
+        return text.cpu().numpy().tobytes()
 
 
 class Matrix:
-    """Logical [m, n] uint64 matrix over (possibly larger) dense storage."""
+    """Logical [m, n] uint64 matrix over (possibly larger) dense storage.
+
+    `cells`, when given, is the same storage as an int64 tensor where it
+    was computed (comp's matrices on the card): `print_matrix` formats
+    from it instead of the host copy."""
 
     def __init__(self, data: np.ndarray, m: int | None = None,
-                 n: int | None = None):
+                 n: int | None = None, cells: torch.Tensor | None = None):
         self.data = np.asarray(data, np.uint64)
         self.m = int(m if m is not None else self.data.shape[0])
         self.n = int(n if n is not None else self.data.shape[1])
+        self.cells = cells
 
     @classmethod
     def zeros(cls, m: int, n: int) -> "Matrix":
@@ -69,8 +126,7 @@ class Matrix:
         return int(self.data[start:end + 1, row].sum(dtype=np.uint64))
 
     def print_matrix(self, out, transpose: bool = False) -> None:
-        view = self.data[:self.m, :self.n]
-        it = view.T if transpose else view
-        for row in it:
-            out.write(" ".join(str(int(v)) for v in row))
-            out.write("\n")
+        cells = (self.cells if self.cells is not None
+                 else torch.from_numpy(self.data.view(np.int64)))
+        out.write(format_rows(cells[:self.m, :self.n], transpose)
+                  .decode("ascii"))

@@ -183,7 +183,8 @@ class Comp:
     def _store(self, outs1, outs2, c3) -> None:
         """The passes' outputs (comp_engine.pass1/2/3's structures) as the
         host counters, spectra and matrices of this object (`kat.comp.store`,
-        each host read a `kat.read.comp`)."""
+        each host read a `kat.read.comp`).  Each matrix keeps its tensor
+        on the passes' device, which `save()` formats from."""
         with annotate("kat.comp.store"):
             c1, sp1, ssp1, ssp2, main_mx, ends, mixed, middle = outs1
             c2, sp2, row0, ssp2b = outs2
@@ -197,13 +198,13 @@ class Comp:
                 counters["hash3_distinct"] = 0
             self.counters = counters
 
-            main = _host(main_mx)
-            main[0, :] += _host(row0)
-            self.main_mx = Matrix(main)
+            main = main_mx.clone()
+            main[0] += row0
+            self.main_mx = Matrix(_host(main), cells=main)
             if self.three_inputs:
-                self.ends_mx = Matrix(_host(ends))
-                self.mixed_mx = Matrix(_host(mixed))
-                self.middle_mx = Matrix(_host(middle))
+                self.ends_mx = Matrix(_host(ends), cells=ends)
+                self.mixed_mx = Matrix(_host(mixed), cells=mixed)
+                self.middle_mx = Matrix(_host(middle), cells=middle)
             self.spectrum1 = _host(sp1)
             self.spectrum2 = _host(sp2)
             self.shared_spectrum1 = _host(ssp1)

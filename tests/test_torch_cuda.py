@@ -10,7 +10,8 @@ the binned sums) against their plain PyTorch versions on the card, exactly
 the mesh-sharded counter on a mesh of 8 shards on the card against the
 same mesh on the CPU; two processes of one gloo group with a shard each
 on the card against one process's mesh of 2; ops/verify.py's
-attestation on the card.
+attestation on the card; the matrix text writer on the card against the
+per-cell loop it replaced.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor kat_tpu, so it also runs where JAX is absent:
@@ -30,6 +31,7 @@ from kat_tpu_torch.benchmarks.profile_rounds import (MODES, profile_rounds,
                                                      ragged_count)
 from kat_tpu_torch.core import bucketed, counting, coverage, minimizer, tables
 from kat_tpu_torch.core.kmers import SENTINEL, extract_keys_plain
+from kat_tpu_torch.core.matrix import Matrix, format_rows
 from kat_tpu_torch.ops.extract_kernel import extract_keys
 from kat_tpu_torch.ops.join import counts_join, counts_join_dual
 from kat_tpu_torch.ops.merge_kernel import (
@@ -1650,3 +1652,38 @@ def test_jf_count_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch):
         if device == "cuda":
             assert all(fn.launches > b for fn, b in zip(kernels, before))
     assert out["cuda"].read_bytes() == out["cpu"].read_bytes()
+
+
+def _print_matrix_loop(grid: np.ndarray) -> bytes:
+    """The matrix writer `format_rows` replaced: one conversion a cell."""
+    return "".join(" ".join(str(int(v)) for v in row) + "\n"
+                   for row in grid).encode("ascii")
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_format_rows_on_the_card(dev, seed, transpose):
+    """chr14.comp's 1001 x 1001 shape, formatted from the card's tensor,
+    directly and through Matrix.print_matrix, byte for byte."""
+    import io
+
+    mx = workloads.comp_matrix(seed)
+    want = _print_matrix_loop(mx.T if transpose else mx)
+    on_card = torch.from_numpy(mx).to(dev)
+    assert format_rows(on_card, transpose) == want
+    out = io.StringIO()
+    Matrix(mx, cells=on_card).print_matrix(out, transpose)
+    assert out.getvalue().encode("ascii") == want
+    with pytest.raises(ValueError):
+        format_rows(torch.tensor([[1, -1]], device=dev))
+
+
+def test_format_rows_copies_are_its_host_reads(dev):
+    """Every device-to-host copy of one call is one counted `host_reads`
+    (katbench's host_syncs_per_job counts the copies)."""
+    on_card = torch.from_numpy(workloads.comp_matrix(2)).to(dev)
+    before = profiling.counters()["host_reads"]
+    events = workloads.device_events(lambda: format_rows(on_card))
+    reads = profiling.counters()["host_reads"] - before
+    copies = [n for n, _us in events if n.startswith("Memcpy DtoH")]
+    assert len(copies) == reads == 3, events

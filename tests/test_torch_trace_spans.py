@@ -202,8 +202,15 @@ def test_comp_spans_and_host_reads(tmp_path):
     assert parents["kat.save.main.mx"] == parents["kat.save.stats"] \
         == "kat.save"
     reads = [i for i, n in enumerate(names) if n == "kat.read.comp"]
-    assert len(reads) == got["host_reads"] == 8  # counters, 7 count tensors
+    # counters, 6 count tensors (row 0 joins the main matrix on the device)
+    assert len(reads) == 7
     assert {_parent(spans, i) for i in reads} == {"kat.comp.store"}
+    # the main matrix's formatter: its least and largest cell, the
+    # selection's length, the text
+    formats = [i for i, n in enumerate(names) if n == "kat.read.format"]
+    assert len(formats) == 3
+    assert {_parent(spans, i) for i in formats} == {"kat.save.main.mx"}
+    assert got["host_reads"] == len(reads) + len(formats)
     assert (tmp_path / "kat-comp-main.mx").exists()
     assert (tmp_path / "kat-comp.stats").exists()
     assert c.counters["hash1_distinct"] == t1.n_unique
